@@ -1,0 +1,59 @@
+"""Eager op invocation and the generated ``nd.*`` functions.
+
+The counterpart of ``mxnet_tpu/ndarray/register.py``: one function per
+registered op (and alias).  Positional tensors are the op's inputs, any
+positional values after them fill the schema's arguments in declared order,
+keywords are normalized by the op's ``Arg`` schema, and ``name=`` is
+accepted and dropped.  Ops run eagerly on ``torch.Tensor``s; an op with
+several outputs returns a list.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..ops import registry as _reg
+
+
+def invoke(op_name: str, inputs, kwargs):
+    """Execute a registered op eagerly on tensors."""
+    op = _reg.get_op(op_name)
+    kwargs = dict(kwargs)
+    kwargs.pop("name", None)
+    arg_names = op.schema.args
+    if "num_args" not in arg_names:
+        kwargs.pop("num_args", None)
+    elif op.variadic:
+        kwargs.setdefault("num_args", len(inputs))
+    params = dict(op.normalize(kwargs))
+    if op.takes_is_train:
+        # no autograd recording in the port yet: every call is inference
+        params["__is_train__"] = False
+    outs = _reg.apply_op(op, params, inputs)
+    return outs[0] if len(outs) == 1 else list(outs)
+
+
+def _make_nd_func(op_name: str):
+    op = _reg.get_op(op_name)
+
+    def fn(*args, **kwargs):
+        inputs = []
+        rest = list(args)
+        # positional tensors are inputs; positional scalars map onto params
+        while rest and isinstance(rest[0], torch.Tensor) and (
+                op.variadic or len(inputs) < len(op.input_names)):
+            inputs.append(rest.pop(0))
+        taken = [n for n in op.schema.args if n not in kwargs]
+        for v, n in zip(rest, taken):
+            kwargs[n] = v
+        return invoke(op_name, inputs, kwargs)
+
+    fn.__name__ = op_name
+    fn.__qualname__ = op_name
+    fn.__doc__ = op.docstring or f"Autogenerated wrapper for operator '{op_name}'."
+    return fn
+
+
+def populate(namespace: dict) -> None:
+    """Generate one function per op into ``namespace``."""
+    for name in list(_reg.OP_REGISTRY) + list(_reg.OP_ALIASES):
+        namespace[name] = _make_nd_func(name)

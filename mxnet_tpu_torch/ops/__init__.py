@@ -1,0 +1,3 @@
+"""Operator definitions; importing this package registers every op."""
+from . import registry
+from . import elemwise, reduce, matrix, nn, flash_attention

@@ -1,0 +1,86 @@
+"""Attention operators: flash attention, fused multi-head attention, arange_like.
+
+The counterpart of ``mxnet_tpu/ops/flash_attention.py``.  The flash path runs
+the hand-written CUDA kernel (``kernels/flash_attention.py``) on a CUDA
+tensor and its plain version on a CPU tensor.  When the sequence length is
+not divisible by the op's block size the op computes dense attention: that
+is the op's definition (the JAX package does the same), not a fallback.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..base import Arg
+from ..kernels.flash_attention import dense_reference, flash_attention_fwd
+from .registry import register
+
+_dense_reference = dense_reference
+
+
+def _flash_attention(q, k, v, scale, causal, blk_q, blk_k):
+    if q.shape[2] % blk_q or k.shape[2] % blk_k:
+        return _dense_reference(q, k, v, scale, causal)
+    return flash_attention_fwd(q, k, v, scale, causal)
+
+
+@register("_contrib_flash_attention", input_names=("q", "k", "v"),
+          aliases=("flash_attention",),
+          args=[Arg("causal", bool, False), Arg("scale", float, -1.0),
+                Arg("block_q", int, 128), Arg("block_k", int, 128)])
+def _flash_attention_op(p, q, k, v):
+    """Memory-efficient attention: q/k/v (B, H, T, D) → (B, H, T, D)."""
+    scale = p["scale"] if p["scale"] > 0 else q.shape[-1] ** -0.5
+    blk_q = min(p["block_q"], q.shape[2])
+    blk_k = min(p["block_k"], k.shape[2])
+    return _flash_attention(q, k, v, float(scale), bool(p["causal"]),
+                            int(blk_q), int(blk_k))
+
+
+@register("_contrib_multihead_attention", input_names=("qkv",),
+          aliases=("multihead_attention",),
+          args=[Arg("num_heads", int, required=True),
+                Arg("causal", bool, True), Arg("impl", str, "dense"),
+                Arg("scale", float, -1.0)])
+def _multihead_attention_op(p, qkv):
+    """Fused multi-head self-attention over packed projections.
+
+    qkv: (B, T, 3*D), the output of one Dense QKV projection, split as
+    (B, T, 3, H, dh); returns (B, T, D).  impl='flash' runs the CUDA kernel,
+    'dense' materializes the scores.
+    """
+    B, T, D3 = qkv.shape
+    H = p["num_heads"]
+    D = D3 // 3
+    dh = D // H
+    if p["impl"] not in ("dense", "flash"):
+        raise NotImplementedError(
+            f"multihead_attention impl={p['impl']!r}: sequence-parallel "
+            "attention ('ring', 'ulysses') is not ported yet (ROADMAP.md, "
+            "queue item 6: scale-out)")
+    # one copy into (3, B, H, T, dh): q, k and v are then contiguous views
+    x = qkv.reshape(B, T, 3, H, dh).permute(2, 0, 3, 1, 4).contiguous()
+    q, k, v = x[0], x[1], x[2]
+    scale = p["scale"] if p["scale"] > 0 else dh ** -0.5
+    if p["impl"] == "flash":
+        out = _flash_attention(q, k, v, float(scale), bool(p["causal"]),
+                               min(128, T), min(128, T))
+    else:
+        out = _dense_reference(q, k, v, float(scale), bool(p["causal"]))
+    return out.permute(0, 2, 1, 3).reshape(B, T, D)
+
+
+@register("_contrib_arange_like", input_names=("data",),
+          aliases=("arange_like",), differentiable=False,
+          args=[Arg("axis", int, None), Arg("start", float, 0.0),
+                Arg("step", float, 1.0)])
+def _arange_like(p, x):
+    """A [start, start+step, ...] float32 ramp shaped like `data` along
+    `axis` (or flat over all elements)."""
+    if p["axis"] is None:
+        n = x.numel()
+        ramp = torch.arange(n, dtype=torch.float32, device=x.device)
+        return (p["start"] + p["step"] * ramp).reshape(x.shape)
+    n = x.shape[p["axis"]]
+    return p["start"] + p["step"] * torch.arange(n, dtype=torch.float32,
+                                                 device=x.device)
+

@@ -34,8 +34,10 @@ setup(
                 "jax/XLA/Pallas",
     long_description=open(os.path.join(HERE, "README.md")).read(),
     long_description_content_type="text/markdown",
-    packages=find_packages(include=["mxnet_tpu", "mxnet_tpu.*"]),
-    package_data={"mxnet_tpu": ["_native/*.so"]},
+    packages=find_packages(include=["mxnet_tpu", "mxnet_tpu.*",
+                                    "mxnet_tpu_torch", "mxnet_tpu_torch.*"]),
+    package_data={"mxnet_tpu": ["_native/*.so"],
+                  "mxnet_tpu_torch": ["csrc/*.cu", "csrc/*.cuh"]},
     python_requires=">=3.10",
     install_requires=["jax", "numpy"],
     extras_require={"full": ["flax", "optax", "orbax-checkpoint"]},

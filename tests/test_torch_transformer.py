@@ -1,0 +1,80 @@
+"""The port's flash-attention TransformerLM against the JAX package's.
+
+Both nets are built at a small width; the JAX net's parameters are carried
+into the port by ``convert.params_from_mxnet_tpu``.  Logits agree within
+1e-4 relative / 1e-5 absolute (the JAX package's logit pin; float32 in
+both, summed in another order); greedy tokens must be equal.
+"""
+import numpy as np
+import pytest
+
+import mxnet_tpu as mxj
+import mxnet_tpu_torch as mxt
+from mxnet_tpu.gluon.model_zoo.transformer import TransformerLM as JaxLM
+from mxnet_tpu_torch.convert import params_from_mxnet_tpu
+from mxnet_tpu_torch.gluon.model_zoo.transformer import TransformerLM
+
+CPU = mxt.cpu()
+
+
+def _pair(max_len=16, tokens=None):
+    kw = dict(vocab=32, dim=32, num_layers=2, num_heads=4, max_len=max_len,
+              attn_type="flash")
+    mxj.random.seed(0)
+    jnet = JaxLM(**kw)
+    jnet.initialize(mxj.init.Xavier(rnd_type="gaussian", factor_type="in",
+                                    magnitude=2))
+    jnet(mxj.nd.array(tokens))          # resolves the deferred shapes
+    np_params = {n: p.data().asnumpy()
+                 for n, p in jnet.collect_params().items()}
+    tnet = TransformerLM(**kw)
+    tnet.initialize(ctx=CPU)
+    params_from_mxnet_tpu(np_params, tnet, prefix=jnet.prefix)
+    return jnet, tnet
+
+
+@pytest.mark.parametrize("max_len,shape", [(16, (2, 16)), (256, (1, 256))])
+def test_logits_match_jax(max_len, shape):
+    """max_len 256: the flash grid has two 128-blocks along q and k."""
+    tokens = np.random.RandomState(42).randint(0, 32, shape).astype(np.float32)
+    jnet, tnet = _pair(max_len, tokens)
+    want = jnet(mxj.nd.array(tokens)).asnumpy()
+    got = mxt.nd.asnumpy(tnet(mxt.nd.array(tokens, ctx=CPU)))
+    assert got.shape == shape + (32,)
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
+
+
+def test_greedy_generate_matches_jax():
+    prompt = np.random.RandomState(1).randint(0, 32, (2, 5)).astype(np.float32)
+    jnet, tnet = _pair(16, prompt)
+    want = jnet.generate(mxj.nd.array(prompt), 6).asnumpy()
+    got = mxt.nd.asnumpy(tnet.generate(mxt.nd.array(prompt, ctx=CPU), 6))
+    assert got.shape == (2, 11)
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("temperature,top_k,top_p",
+                         [(0.0, 0, 0.0), (0.8, 0, 0.0), (1.0, 10, 0.0),
+                          (0.7, 0, 0.9), (1.2, 20, 0.8)])
+def test_sample_matches_jax(temperature, top_k, top_p):
+    logits = np.random.RandomState(3).normal(0, 2, (4, 50)).astype(np.float32)
+    want = JaxLM._sample(mxj.nd.array(logits), temperature,
+                         np.random.RandomState(7), top_k, top_p)
+    got = TransformerLM._sample(mxt.nd.array(logits, ctx=CPU), temperature,
+                                np.random.RandomState(7), top_k, top_p)
+    np.testing.assert_array_equal(got, want)
+
+
+def test_unported_paths_raise():
+    tnet = TransformerLM(vocab=8, dim=16, num_layers=1, num_heads=2,
+                         max_len=8, attn_type="flash")
+    prompt = mxt.nd.zeros((1, 2), ctx=CPU)
+    with pytest.raises(NotImplementedError):
+        tnet.generate(prompt, 2, static_shapes=False)
+    for call in (lambda: tnet.generate(prompt, 2, kv_cache=True),
+                 lambda: tnet.beam_search(prompt, 2),
+                 lambda: tnet.export_decode_step("x"),
+                 lambda: TransformerLM(vocab=8, dim=16, num_heads=2,
+                                       attn_type="ring")):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            call()
