@@ -9,12 +9,16 @@ own entry points and holds every kernel against its plain version:
 
 1. setup: the card's name and power limit; build every kernel from
    ``mxnet_tpu_torch/csrc`` (one nvcc per source, in parallel); launch the
-   toolchain probe ``add_one``;
-2. the flash-attention kernel against its plain version on the card, at the
-   serving shape (B=4, H=16, T=1024, D=64) and at small shapes, in float32
-   (1e-4) and bfloat16 (3e-2), and its time beside the plain version's and
+   toolchain probe ``add_one`` and time it beside ``x + 1``;
+2. the flash-attention kernels against their plain version on the card:
+   the bf16 tensor-core kernel (``sm90``) at the scoring shape (B=4, H=16,
+   T=1024, D=64), the decode shape (B=1), D=128 at T=128 and a ragged
+   T=100, the float32 kernel (``f32``) at the same shapes in float32 and at
+   D 16 and 32 in bfloat16 (gates ``TOL_*`` below: float32 absolute,
+   bfloat16 absolute and over the largest output); then their times at
+   the scoring and decode shapes beside the plain version's, the bound and
    ``scaled_dot_product_attention``'s (the yardstick; the port never calls
-   it);
+   it), with the f32 kernel timed on the same bf16 inputs as well;
 3. scoring in float32: ``net(tokens)`` at B=4, T=1024 launches the kernel
    once per layer, and its logits agree with the same net's with dense
    attention;
@@ -25,14 +29,23 @@ own entry points and holds every kernel against its plain version:
 5. the main path, in bfloat16 (the configuration's dtype): every kernel
    count set to 0, then one scoring batch and the four requests, timed;
    the counts read after it;
-6. one bfloat16 decode step under torch.profiler: host time, device time
-   and the kernels that take it;
+6. one bfloat16 decode step under torch.profiler: host time, device time,
+   the flash kernel's share and the kernels that take it (without a device
+   trace: the CUDA-event stream time of the step's 12 flash launches);
 7. a ``kernels`` JSON line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 The model is ``experiments/lm_mfu_probe.py``'s default width (vocab 32768,
 dim 1024, 16 heads, ffn 4096, 12 layers, max_len 1024; about 219 M
 parameters) with random weights from seed 0.  Nothing is cut.
+
+Times: ``device`` is the CUDA-event time of 20 back-to-back calls queued
+behind a spin kernel, per call (L2 warm): the kernels and the gaps between
+them, without the host's enqueue.  ``call`` is the median of 25 CUDA-event
+pairs around single calls, which on an idle card includes the host's
+enqueue.  Both are printed; the ``kernels`` line's ``ms``, ``plain_ms`` and
+``library_ms`` are device times.  torch.profiler serves only phase 6's
+breakdown: it needs CUPTI's tracing, which a machine may deny or drop.
 
 Float32 comparisons run with TF32 off for matrix products and cuDNN
 (``torch.backends.cuda.matmul.allow_tf32 = False``,
@@ -56,6 +69,11 @@ MAX_NEW = 8
 SCORE_BATCH = 4
 TOL_F32 = 1e-4      # kernel vs plain, float32 (the reference's flash pin)
 TOL_BF16 = 3e-2     # kernel vs plain, bfloat16 (the reference's bf16 pin)
+# bfloat16 kernel vs plain, max |out - ref| over max |ref|.  The absolute pin
+# was set for outputs of order 1; at T=1024 the non-causal outputs are
+# about 0.05.  Two roundings to bf16 of the same value differ by at most
+# one ulp, 2^-7 of it, so this allows two ulps of the largest output.
+TOL_BF16_REL = 2.0 ** -6
 # flash vs dense logits through all 12 layers: the reference's logit pin
 TOL_LOGITS_F32 = 1e-4
 NEAR_TIE = 1e-4     # top-2 dense logits closer than this may flip argmax
@@ -74,7 +92,9 @@ def check(ok, what):
 
 
 def time_ms(fn, iters=25, warmup=3):
-    """Median of ``iters`` CUDA-event timings of ``fn`` (L2 warm)."""
+    """Call time: median of ``iters`` CUDA-event pairs around single calls
+    of ``fn`` (L2 warm).  On an idle card the pair also brackets the host's
+    enqueue, so a short kernel reads as its launch cost."""
     import torch
     for _ in range(warmup):
         fn()
@@ -89,6 +109,33 @@ def time_ms(fn, iters=25, warmup=3):
     return statistics.median(s.elapsed_time(e) for s, e in ev)
 
 
+def device_ms(fn, iters=20):
+    """Device time: a CUDA-event pair around ``iters`` back-to-back calls of
+    ``fn`` (after a warm-up call; L2 warm), per call.  The calls are
+    enqueued while the stream is held by a spin kernel, so the pair
+    brackets the kernels and the gaps between them, not the host's
+    enqueue; the spin grows until it outlasts the enqueue."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    cycles = 20_000_000            # about 10 ms at the H100's 1.98 GHz
+    for _ in range(4):             # up to about 0.65 s
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        covered = not start.query()    # the spin still ran: nothing waited
+        torch.cuda.synchronize()
+        if covered:
+            break
+        cycles *= 4
+    check(covered, "the host's enqueue outlasted a 0.65 s spin")
+    return start.elapsed_time(end) / iters
+
+
 def attention_bound_ms(B, H, T, D, causal, itemsize, flops_rate):
     """Least time for the work this input needs: the larger of its bytes
     (q, k, v read once, o written once) over the memory rate and its
@@ -101,6 +148,7 @@ def attention_bound_ms(B, H, T, D, causal, itemsize, flops_rate):
 
 
 def phase_setup(mx):
+    """Card, build, and the toolchain probe K0 against ``x + 1``."""
     import torch
     from mxnet_tpu_torch.kernels import _build, add_one
     smi = subprocess.run(["nvidia-smi", "--id=0",
@@ -124,14 +172,21 @@ def phase_setup(mx):
     out = add_one.add_one(x)
     torch.cuda.synchronize()
     check(torch.equal(out, x + 1), "add_one probe disagrees with x + 1")
-    t_kernel = time_ms(lambda: add_one.add_one(x))
-    t_plain = time_ms(lambda: x + 1)
-    print(f"K0 add_one probe: built, launched, exact; (8, 128) f32 kernel "
-          f"{t_kernel:.4f} ms, plain x + 1 {t_plain:.4f} ms (launch-bound: "
-          f"8 KiB moved)")
+    k0 = {"call": time_ms(lambda: add_one.add_one(x)),
+          "plain_call": time_ms(lambda: x + 1),
+          "ms": device_ms(lambda: add_one.add_one(x)),
+          "plain_ms": device_ms(lambda: x + 1),
+          "library_ms": device_ms(lambda: torch.add(x, 1.0)),
+          "bound_ms": 2 * x.numel() * 4 / H100_BYTES * 1e3}
+    print(f"K0 add_one probe: built, launched, exact; (8, 128) f32: call "
+          f"{k0['call']:.4f} ms vs x + 1 {k0['plain_call']:.4f} ms; device "
+          f"{k0['ms']:.4f} ms vs x + 1 {k0['plain_ms']:.4f} ms, torch.add "
+          f"{k0['library_ms']:.4f} ms; bound {k0['bound_ms']:.2e} ms (bytes)")
+    return k0
 
 
 def phase_kernel(mx):
+    """Each flash kernel against the plain version, then their times."""
     import torch
     from mxnet_tpu_torch.kernels import flash_attention as kfa
     gen = torch.Generator(device="cpu").manual_seed(0)
@@ -140,14 +195,16 @@ def phase_kernel(mx):
         return [torch.randn(B, H, T, D, generator=gen).to("cuda", dtype)
                 for _ in range(3)]
 
-    errs = {torch.float32: 0.0, torch.bfloat16: 0.0}
-    main_err = None
-    cases = [(4, 16, 1024, 64, None), (2, 3, 128, 16, 32), (2, 3, 128, 32, 32),
-             (2, 3, 128, 128, 32), (1, 2, 100, 64, None)]
+    errs = {}      # (variant, dtype, B, T, D, causal) -> (abs, rel) err
+    cases = [(4, 16, 1024, 64, None), (1, 16, 1024, 64, None),
+             (2, 3, 128, 16, 32), (2, 3, 128, 32, 32), (2, 3, 128, 128, 32),
+             (1, 2, 100, 64, None)]
     for B, H, T, D, blk in cases:
         for dtype, tol in ((torch.float32, TOL_F32), (torch.bfloat16, TOL_BF16)):
+            variant = kfa._variant(dtype, D)
             for causal in (False, True):
                 q, k, v = qkv(B, H, T, D, dtype)
+                before = kfa.VARIANT_LAUNCHES[variant]
                 if blk is None:
                     out = kfa.flash_attention_fwd(q, k, v, D ** -0.5, causal)
                 else:   # through the op, whose block only sets divisibility
@@ -155,39 +212,51 @@ def phase_kernel(mx):
                                                 block_q=blk, block_k=blk)
                 ref = kfa.dense_reference(q, k, v, D ** -0.5, causal)
                 torch.cuda.synchronize()
+                check(kfa.VARIANT_LAUNCHES[variant] == before + 1,
+                      f"flash at D={D} {dtype} did not launch {variant}")
                 err = (out.float() - ref.float()).abs().max().item()
+                rel = err / ref.float().abs().max().item()
                 check(out.shape == ref.shape and out.dtype == dtype
                       and bool(torch.isfinite(out).all()),
                       f"flash output malformed at {(B, H, T, D)} {dtype}")
-                check(err <= tol, f"flash vs plain at B={B} H={H} T={T} D={D} "
-                      f"{dtype} causal={causal}: max err {err:.3e} > {tol}")
-                errs[dtype] = max(errs[dtype], err)
-                if (B, T, dtype, causal) == (4, 1024, torch.bfloat16, True):
-                    main_err = err
-                print(f"  flash B={B} H={H} T={T} D={D} "
-                      f"{str(dtype)[6:]} causal={causal}: max err {err:.3e}")
+                what = (f"flash {variant} vs plain at B={B} H={H} T={T} D={D} "
+                        f"{dtype} causal={causal}")
+                check(err <= tol, f"{what}: max err {err:.3e} > {tol}")
+                check(dtype != torch.bfloat16 or rel <= TOL_BF16_REL,
+                      f"{what}: max err / max |ref| {rel:.3e} > "
+                      f"{TOL_BF16_REL:.3e}")
+                errs[(variant, dtype, B, T, D, causal)] = (err, rel)
+                print(f"  flash {variant:4s} B={B} H={H} T={T} D={D} "
+                      f"{str(dtype)[6:]} causal={causal}: max err {err:.3e}, "
+                      f"over max |ref| {rel:.3e}")
     timings = {}
-    for dtype in (torch.bfloat16, torch.float32):
+    for dtype, B in ((torch.bfloat16, 4), (torch.bfloat16, 1),
+                     (torch.float32, 4)):
         for causal in (True, False):
-            q, k, v = qkv(4, 16, 1024, 64, dtype)
-            t_kernel = time_ms(lambda: kfa.flash_attention_fwd(
-                q, k, v, 0.125, causal))
-            t_plain = time_ms(lambda: kfa.dense_reference(q, k, v, 0.125,
-                                                          causal))
-            t_sdpa = time_ms(lambda: torch.nn.functional.
-                             scaled_dot_product_attention(
-                                 q, k, v, is_causal=causal, scale=0.125))
+            q, k, v = qkv(B, 16, 1024, 64, dtype)
+            variant = kfa._variant(dtype, 64)
+            fns = {variant: lambda: kfa.flash_attention_fwd(q, k, v, 0.125,
+                                                            causal)}
+            if variant != "f32":   # the f32 kernel on the same bf16 inputs
+                fns["f32"] = lambda: kfa._launch("f32", q, k, v, 0.125,
+                                                 causal)
+            fns["plain"] = lambda: kfa.dense_reference(q, k, v, 0.125, causal)
+            fns["sdpa"] = lambda: torch.nn.functional.\
+                scaled_dot_product_attention(q, k, v, is_causal=causal,
+                                             scale=0.125)
+            row = {name: (device_ms(fn), time_ms(fn))
+                   for name, fn in fns.items()}
             rate = H100_BF16_FLOPS if dtype == torch.bfloat16 \
                 else H100_F32_FLOPS
-            bound, bound_by = attention_bound_ms(
-                4, 16, 1024, 64, causal, q.element_size(), rate)
-            timings[(dtype, causal)] = (t_kernel, t_plain, t_sdpa, bound,
-                                        bound_by)
-            print(f"  time B=4 H=16 T=1024 D=64 {str(dtype)[6:]} "
-                  f"causal={causal}: kernel {t_kernel:.4f} ms, plain "
-                  f"{t_plain:.4f} ms, sdpa {t_sdpa:.4f} ms, bound "
-                  f"{bound:.4f} ms ({bound_by})")
-    return errs, main_err, timings
+            row["bound"] = attention_bound_ms(B, 16, 1024, 64, causal,
+                                              q.element_size(), rate)
+            timings[(dtype, B, causal)] = row
+            print(f"  time B={B} H=16 T=1024 D=64 {str(dtype)[6:]} "
+                  f"causal={causal}, device (call) ms: " + ", ".join(
+                      f"{name} {d:.4f} ({c:.4f})"
+                      for name, (d, c) in row.items() if name != "bound")
+                  + f"; bound {row['bound'][0]:.4f} ({row['bound'][1]})")
+    return errs, timings
 
 
 def build_nets(mx):
@@ -280,12 +349,15 @@ def phase_main(mx, flash, tokens, prompts, L):
     """The main path in bfloat16, with every kernel count set to 0 first."""
     import torch
     from mxnet_tpu_torch import kernels
+    from mxnet_tpu_torch.kernels import flash_attention as kfa
     flash.cast("bfloat16")
     forward_counted(flash, L, tokens)          # warm-up, outside the count
     serve(mx, flash, prompts[:1], L)
     torch.cuda.synchronize()
     for mod in kernels.ALL:
         mod.LAUNCHES = 0
+    for variant in kfa.VARIANT_LAUNCHES:
+        kfa.VARIANT_LAUNCHES[variant] = 0
     t0 = time.perf_counter()
     logits = flash(tokens)
     torch.cuda.synchronize()
@@ -296,6 +368,8 @@ def phase_main(mx, flash, tokens, prompts, L):
     outs, times = serve(mx, flash, prompts, L)
     counts = {mod.__name__.rsplit(".", 1)[1]: mod.LAUNCHES
               for mod in kernels.ALL}
+    counts.update({f"flash_attention.{v}": n
+                   for v, n in kfa.VARIANT_LAUNCHES.items()})
     print(f"main path bf16: scoring B={SCORE_BATCH} T={CONFIG['max_len']} "
           f"{t_score * 1e3:.1f} ms ({SCORE_BATCH * CONFIG['max_len'] / t_score:.0f}"
           f" tokens/s)")
@@ -304,16 +378,20 @@ def phase_main(mx, flash, tokens, prompts, L):
               f"({MAX_NEW / t:.1f} tokens/s); new tokens {out[len(p):].astype(int).tolist()}")
     print(f"  kernel launches on the main path: {counts}")
     want = L * (1 + len(prompts) * MAX_NEW)
-    check(counts["flash_attention"] == want,
-          f"flash_attention launched {counts['flash_attention']} times on "
-          f"the main path, want {want}")
+    check(counts["flash_attention"] == want
+          and counts["flash_attention.sm90"] == want
+          and counts["flash_attention.f32"] == 0,
+          f"flash launches on the main path: {counts}; want {want}, all of "
+          f"them on the sm90 kernel")
     return counts
 
 
 def phase_profile(mx, flash, prompt):
     """Where one bf16 greedy decode step's time goes: the host clock around
     the step (median of 5, profiler off), the device time of the kernels
-    torch.profiler sees in one step, and the kernels that take most of it."""
+    torch.profiler sees in one step, and the kernels that take most of it;
+    where the profiler sees no device time, ``device_ms`` of the step's
+    flash launches instead."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -341,12 +419,31 @@ def phase_profile(mx, flash, prompt):
                    for a in prof.key_averages()
                    if a.device_type != torch.autograd.DeviceType.CPU
                    and a.self_device_time_total > 0), reverse=True)
-    busy_ms = sum(r[0] for r in rows)
     print(f"decode step bf16, T0={len(prompt)}: host clock {wall_ms:.3f} ms "
-          f"(median of 5, profiler off), kernel time {busy_ms:.3f} ms "
-          f"({100 * busy_ms / wall_ms:.1f}% of the step)")
-    if not rows:
-        print("  the profiler reported no device time")
+          f"(median of 5, profiler off)")
+    if rows:
+        busy_ms = sum(r[0] for r in rows)
+        flash = [r for r in rows if "flash_attention" in r[2]]
+        flash_ms = sum(r[0] for r in flash)
+        print(f"  kernel time (torch.profiler) {busy_ms:.3f} ms "
+              f"({100 * busy_ms / wall_ms:.1f}% of the step)")
+        print(f"  flash: {flash_ms:.3f} ms in {sum(r[1] for r in flash)} "
+              f"launches ({100 * flash_ms / busy_ms:.1f}% of kernel time)")
+    else:
+        # No device trace.  The step waits for the stream somewhere inside
+        # (queued behind a spin, its enqueue never finishes first), so only
+        # its flash launches are timed, on inputs of the step's shape.
+        from mxnet_tpu_torch.kernels import flash_attention as kfa
+        L, H = CONFIG["num_layers"], CONFIG["num_heads"]
+        q, k, v = (torch.randn(1, H, CONFIG["max_len"], CONFIG["dim"] // H,
+                               device="cuda", dtype=torch.bfloat16)
+                   for _ in range(3))
+        scale = (CONFIG["dim"] // H) ** -0.5
+        flash_ms = device_ms(lambda: [kfa.flash_attention_fwd(
+            q, k, v, scale, True) for _ in range(L)], iters=3)
+        print("  kernel time not measured: torch.profiler saw no device time")
+        print(f"  flash: {flash_ms:.3f} ms of stream time in {L} launches "
+              f"({100 * flash_ms / wall_ms:.1f}% of the host clock)")
     for ms, count, key in rows[:8]:
         print(f"  {ms:8.3f} ms  x{count:<4d} {key[:90]}")
 
@@ -370,9 +467,9 @@ def main():
     L = CONFIG["num_layers"]
     try:
         print("== phase 1: setup")
-        phase_setup(mx)
-        print("== phase 2: flash kernel vs plain version")
-        errs, main_err, timings = phase_kernel(mx)
+        k0 = phase_setup(mx)
+        print("== phase 2: flash kernels vs plain version")
+        errs, timings = phase_kernel(mx)
         print("== phase 3: scoring, float32, flash vs dense")
         flash, dense = build_nets(mx)
         rs = np.random.RandomState(42)
@@ -390,24 +487,48 @@ def main():
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
-    t_kernel, t_plain, t_sdpa, bound, bound_by = timings[(torch.bfloat16, True)]
-    kernels_line = {"kernels": [{
-        "name": "flash_attention_fwd",
-        "route": "cuda",
-        "source": "mxnet_tpu_torch/csrc/flash_attention_fwd.cu",
-        "replaces": "mxnet_tpu/ops/flash_attention.py:179",
-        "replaces_function": "mxnet_tpu/ops/flash_attention.py:_flash_attention",
-        "launches": counts["flash_attention"],
-        "shape": "B=4 H=16 T=1024 D=64 bf16 causal",
-        "max_abs_err": main_err,
-        "max_err_f32": errs[torch.float32],
-        "max_err_bf16": errs[torch.bfloat16],
-        "ms": t_kernel,
-        "plain_ms": t_plain,
-        "bound_ms": bound,
-        "bound_by": bound_by,
-        "library_ms": t_sdpa,
-    }]}
+    bf16, f32 = torch.bfloat16, torch.float32
+
+    def flash_entry(name, variant, source, dtype, launches):
+        """The kernel at the scoring shape, causal; the decode shape's
+        numbers beside it for the bf16 kernel."""
+        entry = {"name": name, "route": "cuda", "source": source,
+                 "replaces": "mxnet_tpu/ops/flash_attention.py:179",
+                 "replaces_function":
+                     "mxnet_tpu/ops/flash_attention.py:_flash_attention",
+                 "launches": launches}
+        for B in ((4, 1) if dtype == bf16 else (4,)):
+            t = timings[(dtype, B, True)]
+            err, rel = errs[(variant, dtype, B, 1024, 64, True)]
+            nums = {"shape": f"B={B} H=16 T=1024 D=64 {str(dtype)[6:]} "
+                             "causal",
+                    "max_abs_err": err, "max_rel_err": rel,
+                    "ms": t[variant][0], "call_ms": t[variant][1],
+                    "plain_ms": t["plain"][0], "bound_ms": t["bound"][0],
+                    "bound_by": t["bound"][1], "library_ms": t["sdpa"][0]}
+            if B == 4:
+                entry.update(nums)
+            else:
+                entry["decode"] = nums
+        entry["max_err_all_shapes"] = max(
+            e[0] for key, e in errs.items() if key[0] == variant)
+        return entry
+
+    kernels_line = {"kernels": [
+        {"name": "add_one", "route": "cuda",
+         "source": "mxnet_tpu_torch/csrc/add_one.cu",
+         "replaces": "experiments/flash_probe.py:40",
+         "launches": counts["add_one"], "max_abs_err": 0.0,
+         "ms": k0["ms"], "call_ms": k0["call"], "plain_ms": k0["plain_ms"],
+         "bound_ms": k0["bound_ms"], "bound_by": "bytes",
+         "library_ms": k0["library_ms"]},
+        flash_entry("flash_attention_fwd_sm90", "sm90",
+                    "mxnet_tpu_torch/csrc/flash_attention_fwd_sm90.cu", bf16,
+                    counts["flash_attention.sm90"]),
+        flash_entry("flash_attention_fwd", "f32",
+                    "mxnet_tpu_torch/csrc/flash_attention_fwd.cu", f32,
+                    counts["flash_attention.f32"]),
+    ]}
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(kernels_line))
     print(json.dumps({"ok": True, "device": {

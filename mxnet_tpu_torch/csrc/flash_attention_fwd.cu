@@ -244,8 +244,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    cudaStream_t stream) {
   const size_t smem = sizeof(float) * (size_t)(D * BM + D * BN + BN * D + BN * PS);
   auto kernel = flash_attention_fwd_kernel<D, T>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  static std::atomic<unsigned long long> smem_set{0};
+  cudaError_t err = mxt_max_dynamic_smem_once(kernel, (int)smem, smem_set);
   if (err != cudaSuccess) return err;
   const dim3 grid(bh, (tq + BM - 1) / BM);
   kernel<<<grid, THREADS, smem, stream>>>(

@@ -4,7 +4,8 @@ Each ``csrc/<name>.cu`` compiles on its own, with ``nvcc`` and no PyTorch
 headers, into ``build/kernels/lib<name>-<hash>.so`` at the repository root
 (the hash covers the sources and the flags, so an edit rebuilds).  The
 libraries export plain C functions that take raw pointers and a stream;
-``load(name)`` builds on first use and returns the ``ctypes.CDLL``.
+``load(name)`` builds on first use and returns the ``ctypes.CDLL``, and an
+``Entry`` is one bound entry point that a wrapper calls.
 ``build()`` starts one ``nvcc`` per source, all at once, and waits for all.
 
 Nothing here runs when the package is imported: the CPU tests import every
@@ -21,12 +22,14 @@ import subprocess
 import threading
 import time
 
+import torch
+
 from ..base import MXNetError
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
-SOURCES = ("add_one", "flash_attention_fwd")
+SOURCES = ("add_one", "flash_attention_fwd", "flash_attention_fwd_sm90")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -96,6 +99,34 @@ def load(name: str) -> ctypes.CDLL:
             lib.mxt_error_string.restype = ctypes.c_char_p
             _LIBS[name] = lib
         return lib
+
+
+class Entry:
+    """One C entry point ``symbol`` of ``csrc/<lib>.cu`` whose last argument
+    is a stream.  The library is built, loaded and the argument types bound
+    on the first call; later calls pay only the device check and the call.
+
+    ``entry(device, *args)`` launches on ``device``'s current stream,
+    entering ``torch.cuda.device`` only when it is not the current device,
+    and raises if the C function reports a CUDA error."""
+
+    def __init__(self, lib: str, symbol: str, argtypes):
+        self.lib_name, self.symbol, self.argtypes = lib, symbol, argtypes
+        self._lib = self._fn = None
+
+    def __call__(self, device, *args) -> None:
+        if self._fn is None:
+            lib = load(self.lib_name)
+            fn = getattr(lib, self.symbol)
+            fn.argtypes = list(self.argtypes) + [ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+            self._lib, self._fn = lib, fn
+        if device.index == torch.cuda.current_device():
+            err = self._fn(*args, torch.cuda.current_stream().cuda_stream)
+        else:
+            with torch.cuda.device(device):
+                err = self._fn(*args, torch.cuda.current_stream().cuda_stream)
+        check(self._lib, err, f"{self.symbol} launch")
 
 
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:

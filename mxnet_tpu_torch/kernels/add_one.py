@@ -14,18 +14,12 @@ from ..base import MXNetError
 from . import _build
 
 LAUNCHES = 0
+_ENTRY = _build.Entry("add_one", "mxt_add_one",
+                      (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int))
 
 
 def add_one_reference(x: torch.Tensor) -> torch.Tensor:
     return x + 1.0
-
-
-def _lib():
-    lib = _build.load("add_one")
-    lib.mxt_add_one.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
-                                ctypes.c_int, ctypes.c_void_p]
-    lib.mxt_add_one.restype = ctypes.c_int
-    return lib
 
 
 def add_one(x: torch.Tensor) -> torch.Tensor:
@@ -36,11 +30,7 @@ def add_one(x: torch.Tensor) -> torch.Tensor:
         raise MXNetError(f"add_one takes a contiguous float32 CUDA tensor, "
                          f"got {x.dtype} on {x.device}")
     global LAUNCHES
-    lib = _lib()
     out = torch.empty_like(x)
-    with torch.cuda.device(x.device):
-        err = lib.mxt_add_one(x.data_ptr(), out.data_ptr(), x.numel(),
-                              torch.cuda.current_stream().cuda_stream)
-    _build.check(lib, err, "add_one launch")
+    _ENTRY(x.device, x.data_ptr(), out.data_ptr(), x.numel())
     LAUNCHES += 1
     return out

@@ -74,11 +74,12 @@ def _multihead_attention_op(p, qkv):
           args=[Arg("axis", int, None), Arg("start", float, 0.0),
                 Arg("step", float, 1.0)])
 def _arange_like(p, x):
-    """A [start, start+step, ...] float32 ramp shaped like `data` along
-    `axis` (or flat over all elements)."""
+    """A [start, start+step, ...] ramp shaped like `data` along `axis`
+    (float32), or flat over all elements (float64, as the JAX package's
+    x64 promotion of ``start + step * arange(n)`` gives)."""
     if p["axis"] is None:
         n = x.numel()
-        ramp = torch.arange(n, dtype=torch.float32, device=x.device)
+        ramp = torch.arange(n, dtype=torch.float64, device=x.device)
         return (p["start"] + p["step"] * ramp).reshape(x.shape)
     n = x.shape[p["axis"]]
     return p["start"] + p["step"] * torch.arange(n, dtype=torch.float32,

@@ -5,6 +5,10 @@ the port's wrapper runs its plain version because the tensors lie on the
 CPU.  Tolerances: 1e-4 relative / 1e-5 absolute in float32 (the JAX
 package's own pin for the flash forward against its dense reference), 3e-2
 in bfloat16 (its bf16 pin: one bf16 rounding of outputs of order 1).
+
+The bf16 tensor-core kernel (``csrc/flash_attention_fwd_sm90.cu``) runs only
+on the card; here a test-local emulation of its rounding points is held
+against the JAX package, and the wrapper's routing is checked.
 """
 import numpy as np
 import pytest
@@ -16,6 +20,7 @@ from mxnet_tpu_torch import MXNetError
 from mxnet_tpu_torch.kernels import flash_attention as kfa
 
 CPU = mxt.cpu()
+BF16 = torch.bfloat16
 
 
 def _inputs(seed, shape, n=3):
@@ -86,3 +91,66 @@ def test_non_cpu_tensor_never_takes_the_plain_version():
     q = torch.empty((1, 2, 64, 16), device="meta")
     with pytest.raises(MXNetError):
         kfa.flash_attention_fwd(q, q, q, 0.25, False)
+
+
+def _sm90_emulation(q, k, v, scale, causal, bn=kfa.SM90_BLOCK_N):
+    """The sm90 kernel's arithmetic: bf16 inputs, f32 scores times scale,
+    the online softmax in f32 across k-tiles of ``bn`` keys (-1e30 above the
+    causal diagonal, -inf past a ragged end), P rounded to bf16 before P V,
+    f32 accumulation, l summed from the unrounded p, o cast to bf16."""
+    tq, tk = q.shape[2], k.shape[2]
+    pad = -tk % bn
+    qf = q.float()
+    kf, vf = (torch.nn.functional.pad(t.float(), (0, 0, 0, pad))
+              for t in (k, v))
+    m = torch.full(q.shape[:3], -1e30)
+    l = torch.zeros(q.shape[:3])
+    acc = torch.zeros(qf.shape)
+    rows = torch.arange(tq)[:, None]
+    for k0 in range(0, tk, bn):
+        keys = torch.arange(k0, k0 + bn)[None, :]
+        s = torch.einsum("bhqd,bhkd->bhqk", qf, kf[:, :, k0:k0 + bn]) * scale
+        if causal:
+            s = torch.where(keys > rows, torch.tensor(-1e30), s)
+        s = torch.where(keys >= tk, torch.tensor(-float("inf")), s)
+        m_new = torch.maximum(m, s.amax(-1))
+        corr = torch.exp(m - m_new)
+        p = torch.exp(s - m_new[..., None])
+        l = l * corr + p.sum(-1)
+        acc = acc * corr[..., None] + torch.einsum(
+            "bhqk,bhkd->bhqd", p.to(BF16).float(), vf[:, :, k0:k0 + bn])
+        m = m_new
+    return (acc / l.clamp_min(1e-30)[..., None]).to(BF16)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("T,D", [(128, 64), (128, 128), (100, 64), (256, 64)])
+def test_sm90_rounding_matches_jax(T, D, causal):
+    """bf16 P in P V is the one rounding the reference lacks: the kernel's
+    arithmetic, at its own k-tile width, stays within the bf16 pin of the
+    JAX kernel (interpret mode; T=100 clips the default block to 100 and
+    takes the kernel; T=256 carries the online softmax across k-tiles)."""
+    assert kfa._variant(BF16, D) == "sm90"
+    arrays = _inputs(7, (1, 2, T, D))
+    blk = 64 if T % 64 == 0 else 128
+    want = mxj.nd.flash_attention(
+        *[mxj.nd.array(a).astype("bfloat16") for a in arrays],
+        causal=causal, block_q=blk, block_k=blk).asnumpy().astype(np.float32)
+    got = _sm90_emulation(*[torch.from_numpy(a).to(BF16) for a in arrays],
+                          D ** -0.5, causal)
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=3e-2,
+                               atol=3e-2)
+
+
+@pytest.mark.parametrize("dtype,d,variant", [
+    (BF16, 64, "sm90"), (BF16, 128, "sm90"), (BF16, 16, "f32"),
+    (BF16, 32, "f32"), (torch.float32, 16, "f32"), (torch.float32, 32, "f32"),
+    (torch.float32, 64, "f32"), (torch.float32, 128, "f32")])
+def test_variant_routes_by_dtype_and_head_dim(dtype, d, variant):
+    assert kfa._variant(dtype, d) == variant
+
+
+@pytest.mark.parametrize("dtype,d", [(torch.float16, 64), (BF16, 48)])
+def test_variant_refuses_unsupported_inputs(dtype, d):
+    with pytest.raises(MXNetError):
+        kfa._variant(dtype, d)

@@ -99,7 +99,6 @@ def test_op_matches_jax(case):
     for g, w in zip(got, want):
         g, w = mxt.nd.asnumpy(g), w.asnumpy()
         assert g.shape == w.shape, (g.shape, w.shape)
-        assert g.dtype == w.dtype or (op == "arange_like" and
-                                      g.dtype == np.float32), (g.dtype, w.dtype)
+        assert g.dtype == w.dtype, (g.dtype, w.dtype)
         np.testing.assert_allclose(g.astype(np.float64), w.astype(np.float64),
                                    rtol=rtol, atol=atol)
