@@ -32,7 +32,19 @@ own entry points and holds every kernel against its plain version:
 6. one bfloat16 decode step under torch.profiler: host time, device time,
    the flash kernel's share and the kernels that take it (without a device
    trace: the CUDA-event stream time of the step's 12 flash launches);
-7. a ``kernels`` JSON line, then the last line
+7. the KV-cache decode path (``generate(kv_cache=True)``, ``beam_search``,
+   ``save_params``/``load_params``) on a fresh float32 net with the same
+   weights: the four greedy requests give phase 4's static-shape tokens
+   (a difference only at a printed near-tie), one sampled request gives
+   the static path's tokens under the same seeded RandomState, a beam of
+   width 1 gives the greedy tokens and one of width 4 returns log-probs
+   within ``TOL_BEAM`` of a teacher-forced rescoring, and a net loaded
+   from a saved checkpoint decodes the same tokens; then in bfloat16 the
+   four requests, timed per request and per decode step beside phase 5's
+   static-shape times, and the cost of the out-of-place cache write.  The
+   KV path runs no flash kernel: its attention is plain torch, as in the
+   JAX package;
+8. a ``kernels`` JSON line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 The model is ``experiments/lm_mfu_probe.py``'s default width (vocab 32768,
@@ -77,6 +89,8 @@ TOL_BF16_REL = 2.0 ** -6
 # flash vs dense logits through all 12 layers: the reference's logit pin
 TOL_LOGITS_F32 = 1e-4
 NEAR_TIE = 1e-4     # top-2 dense logits closer than this may flip argmax
+TOL_BEAM = 1e-3     # beam log-prob vs a teacher-forced rescoring, float32
+BEAM_PROMPT = 100   # the prompt of the sampled, beam and checkpoint checks
 H100_BF16_FLOPS = 989e12
 H100_F32_FLOPS = 67e12
 H100_BYTES = 3.35e12
@@ -317,32 +331,38 @@ def serve(mx, net, prompts, L):
     return outs, times
 
 
-def phase_serve_f32(mx, flash, dense, prompts, L):
+def check_tokens(mx, dense, what, got, want, t0):
+    """``got`` equals ``want`` (the dense net's static-path tokens), or
+    first differs after the prompt where the dense net's top-2 logits are
+    within NEAR_TIE of each other, which is printed."""
     import numpy as np
+    check(got.shape == (t0 + MAX_NEW,), "generated tokens malformed")
+    diff = np.nonzero(got != want)[0]
+    if diff.size == 0:
+        print(f"  request T0={t0}: {what} tokens equal the dense net's")
+        return
+    i = int(diff[0])
+    check(i >= t0, "generate changed the prompt")
+    buf = np.zeros((1, CONFIG["max_len"]), np.float32)
+    buf[0, :i] = want[:i]
+    last = mx.nd.asnumpy(dense._decode_steps()["logits"](
+        mx.nd.array(buf, ctx=mx.gpu(0)),
+        mx.nd.array([i - 1.0], ctx=mx.gpu(0))))[0]
+    top2 = np.sort(last)[-2:]
+    gap = float(top2[1] - top2[0])
+    print(f"  request T0={t0}: token {i} differs ({what} {got[i]:.0f}, "
+          f"dense {want[i]:.0f}); dense top-2 logit gap {gap:.3e}")
+    check(gap <= NEAR_TIE, f"tokens differ at {i} without a near-tie")
+    print(f"  near-tie accepted at request T0={t0} position {i}")
+
+
+def phase_serve_f32(mx, flash, dense, prompts, L):
     got, _ = serve(mx, flash, prompts, L)
     want, _ = serve(mx, dense, prompts, 0)
-    steps = dense._decode_steps()
     for p, g, w in zip(prompts, got, want):
-        t0 = len(p)
-        check(g.shape == (t0 + MAX_NEW,), "generated tokens malformed")
-        diff = np.nonzero(g != w)[0]
-        if diff.size == 0:
-            print(f"  request T0={t0}: tokens equal the dense net's")
-            continue
-        i = int(diff[0])
-        check(i >= t0, "generate changed the prompt")
-        buf = np.zeros((1, CONFIG["max_len"]), np.float32)
-        buf[0, :i] = w[:i]
-        last = mx.nd.asnumpy(steps["logits"](
-            mx.nd.array(buf, ctx=mx.gpu(0)),
-            mx.nd.array([i - 1.0], ctx=mx.gpu(0))))[0]
-        top2 = np.sort(last)[-2:]
-        gap = float(top2[1] - top2[0])
-        print(f"  request T0={t0}: token {i} differs (flash {g[i]:.0f}, "
-              f"dense {w[i]:.0f}); dense top-2 logit gap {gap:.3e}")
-        check(gap <= NEAR_TIE, f"tokens differ at {i} without a near-tie")
-        print(f"  near-tie accepted at request T0={t0} position {i}")
+        check_tokens(mx, dense, "flash", g, w, len(p))
     print("serving f32: greedy tokens agree with the dense net")
+    return want
 
 
 def phase_main(mx, flash, tokens, prompts, L):
@@ -383,7 +403,38 @@ def phase_main(mx, flash, tokens, prompts, L):
           and counts["flash_attention.f32"] == 0,
           f"flash launches on the main path: {counts}; want {want}, all of "
           f"them on the sm90 kernel")
-    return counts
+    return counts, times
+
+
+def host_clock_ms(fn):
+    """Host clock of one call of ``fn``, synchronized on both sides: the
+    median of 5 calls after a warm-up."""
+    import torch
+    walls = []
+    for _ in range(6):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(walls[1:])
+
+
+def kernel_rows(fn):
+    """(ms, launches, name) of each kernel torch.profiler sees in one call
+    of ``fn``, largest first; empty when it sees no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    # device-side events only: a CPU op's self device time repeats the
+    # time of the kernels it launched
+    return sorted(((a.self_device_time_total / 1e3, a.count, a.key)
+                   for a in prof.key_averages()
+                   if a.device_type != torch.autograd.DeviceType.CPU
+                   and a.self_device_time_total > 0), reverse=True)
 
 
 def phase_profile(mx, flash, prompt):
@@ -394,31 +445,13 @@ def phase_profile(mx, flash, prompt):
     flash launches instead."""
     import numpy as np
     import torch
-    from torch.profiler import ProfilerActivity, profile
     step = flash._decode_steps()["greedy"]
     buf = np.zeros((1, CONFIG["max_len"]), np.float32)
     buf[0, :len(prompt)] = prompt
     buf = mx.nd.array(buf, ctx=mx.gpu(0))
     pos = mx.nd.array([len(prompt) - 1.0], ctx=mx.gpu(0))
-    walls = []
-    for _ in range(6):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        step(buf, pos)
-        torch.cuda.synchronize()
-        walls.append((time.perf_counter() - t0) * 1e3)
-    wall_ms = statistics.median(walls[1:])
-    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
-                                     if torch.cuda.is_available() else [])
-    with profile(activities=acts) as prof:
-        step(buf, pos)
-        torch.cuda.synchronize()
-    # device-side events only: a CPU op's self device time repeats the
-    # time of the kernels it launched
-    rows = sorted(((a.self_device_time_total / 1e3, a.count, a.key)
-                   for a in prof.key_averages()
-                   if a.device_type != torch.autograd.DeviceType.CPU
-                   and a.self_device_time_total > 0), reverse=True)
+    wall_ms = host_clock_ms(lambda: step(buf, pos))
+    rows = kernel_rows(lambda: step(buf, pos))
     print(f"decode step bf16, T0={len(prompt)}: host clock {wall_ms:.3f} ms "
           f"(median of 5, profiler off)")
     if rows:
@@ -446,6 +479,159 @@ def phase_profile(mx, flash, prompt):
               f"({100 * flash_ms / wall_ms:.1f}% of the host clock)")
     for ms, count, key in rows[:8]:
         print(f"  {ms:8.3f} ms  x{count:<4d} {key[:90]}")
+
+
+def teacher_forced_logp(mx, net, seq, t0):
+    """The log-probability ``net`` gives seq[t0:] after seq[:t0], from one
+    forward over the whole sequence (float64 sums of float32 log-probs)."""
+    import torch
+    logits = net(mx.nd.array(seq[None, :], ctx=mx.gpu(0)))[0]
+    logp = torch.log_softmax(logits.double(), dim=-1)
+    ids = torch.as_tensor(seq[t0:], device=logp.device).long()
+    return float(logp[torch.arange(t0 - 1, len(seq) - 1), ids].sum())
+
+
+def kv_step(mx, net, prompt):
+    """One greedy KV decode step at position len(prompt), on zero caches."""
+    cell = net._kv_step()["greedy"]
+    caches = net._init_caches(1, ctx=mx.gpu(0), dtype=net.head.weight.dtype)
+    cur = mx.nd.array(prompt[None, :1], ctx=mx.gpu(0))
+    pos = mx.nd.array([float(len(prompt))], ctx=mx.gpu(0))
+    return lambda: cell(cur, pos, *caches)
+
+
+def kv_step_bound_ms(mx, net):
+    """Least time of one B=1 KV step on the card: the bytes it must move
+    (every weight read once, but one row of each embedding table; the
+    caches read once and the new caches written once) over the memory
+    rate.  Its operations, about two per weight, take far less."""
+    weights = 0
+    for p in net.collect_params().values():
+        t = p.data()
+        rows = 1 if p.name.endswith(("tok_weight", "pos_weight")) \
+            else t.shape[0]
+        weights += rows * t[0].numel() * t.element_size()
+    caches = sum(c.numel() * c.element_size()
+                 for c in net._init_caches(1, ctx=mx.gpu(0),
+                                           dtype=net.head.weight.dtype))
+    return (weights + 2 * caches) / H100_BYTES * 1e3
+
+
+def cache_write_ms(dtype):
+    """Device time of one step's cache writes (2 per layer at B=1) made as
+    ``mha_decode_step`` makes them, out of place, beside the same writes in
+    place, and their bound (the out-of-place write reads and writes every
+    cache once)."""
+    import torch
+    L, H = CONFIG["num_layers"], CONFIG["num_heads"]
+    dh, tmax = CONFIG["dim"] // H, CONFIG["max_len"]
+    caches = [torch.randn(1, H, tmax, dh, device="cuda").to(dtype)
+              for _ in range(2 * L)]
+    row = torch.randn(1, H, 1, dh, device="cuda").to(dtype)
+    col = torch.tensor([tmax // 2], device="cuda")
+    out_of_place = device_ms(lambda: [c.index_copy(2, col, row)
+                                      for c in caches], iters=5)
+    in_place = device_ms(lambda: [c.index_copy_(2, col, row)
+                                  for c in caches], iters=5)
+    nbytes = 2 * sum(c.numel() * c.element_size() for c in caches)
+    return out_of_place, in_place, nbytes / H100_BYTES * 1e3
+
+
+def phase_kv(mx, prompts, static_tokens, static_times):
+    """KV-cache decode, beam search and a checkpoint round trip on a fresh
+    float32 net with phase 3's weights, then the KV requests in bfloat16
+    timed beside phase 5's static-shape ones."""
+    import tempfile
+    import numpy as np
+    import torch
+    from mxnet_tpu_torch.gluon.model_zoo.transformer import TransformerLM
+    from mxnet_tpu_torch.kernels import flash_attention as kfa
+    flash, dense = build_nets(mx)
+    launches = kfa.LAUNCHES            # build_nets' forward launched flash
+    kv = {}
+    for p, want in zip(prompts, static_tokens):
+        prompt = mx.nd.array(p[None, :], ctx=mx.gpu(0))
+        kv[len(p)] = mx.nd.asnumpy(flash.generate(prompt, MAX_NEW,
+                                                  kv_cache=True))[0]
+        check_tokens(mx, dense, "KV", kv[len(p)], want, len(p))
+    print("KV decode f32: greedy tokens agree with the static path")
+    p = next(p for p in prompts if len(p) == BEAM_PROMPT)
+    prompt = mx.nd.array(p[None, :], ctx=mx.gpu(0))
+    sampled = [mx.nd.asnumpy(net.generate(
+        prompt, MAX_NEW, temperature=0.8, rng=np.random.RandomState(11),
+        **kw))[0] for net, kw in ((flash, {"kv_cache": True}), (dense, {}))]
+    print(f"  sampled request T0={BEAM_PROMPT}, temperature 0.8: KV "
+          f"{sampled[0][BEAM_PROMPT:].astype(int).tolist()}, static "
+          f"{sampled[1][BEAM_PROMPT:].astype(int).tolist()}")
+    check(np.array_equal(*sampled), "sampled KV tokens differ from static")
+    seq1, lp1 = flash.beam_search(prompt, MAX_NEW, beam=1)
+    check(np.array_equal(mx.nd.asnumpy(seq1)[0], kv[BEAM_PROMPT]),
+          "beam width 1 differs from KV greedy")
+    seq4, lp4 = flash.beam_search(prompt, MAX_NEW, beam=4)
+    seq4 = mx.nd.asnumpy(seq4)[0]
+    lp4 = float(mx.nd.asnumpy(lp4)[0])
+    resc = teacher_forced_logp(mx, dense, seq4, BEAM_PROMPT)
+    print(f"  beam 1 = greedy; beam 4: log-prob {lp4:.6f}, teacher-forced "
+          f"{resc:.6f} (|diff| {abs(lp4 - resc):.3e}); greedy "
+          f"{float(mx.nd.asnumpy(lp1)[0]):.6f}; tokens "
+          f"{seq4[BEAM_PROMPT:].astype(int).tolist()}")
+    check(abs(lp4 - resc) <= TOL_BEAM, "beam log-prob differs from rescoring")
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as d:
+        path = os.path.join(d, "lm.params")
+        t0 = time.perf_counter()
+        flash.save_params(path)
+        t_save = time.perf_counter() - t0
+        fresh = TransformerLM(**CONFIG, attn_type="flash")
+        t0 = time.perf_counter()
+        fresh.load_params(path, ctx=mx.gpu(0))
+        t_load = time.perf_counter() - t0
+        size = os.path.getsize(path)
+    got = mx.nd.asnumpy(fresh.generate(prompt, MAX_NEW, kv_cache=True))[0]
+    print(f"  checkpoint: save_params {t_save:.2f} s, load_params into a "
+          f"fresh net on gpu(0) {t_load:.2f} s ({size / 1e6:.0f} MB); KV "
+          f"tokens {'identical' if np.array_equal(got, kv[BEAM_PROMPT]) else 'DIFFER'}")
+    check(np.array_equal(got, kv[BEAM_PROMPT]), "loaded net decodes otherwise")
+    del fresh
+    writes = {dt: cache_write_ms(dt)
+              for dt in (torch.float32, torch.bfloat16)}
+    flash.cast("bfloat16")
+    flash.generate(mx.nd.array(prompts[0][None, :], ctx=mx.gpu(0)), MAX_NEW,
+                   kv_cache=True)                  # warm-up
+    print("KV decode bf16 (host clock; static = phase 5's request times):")
+    for p, t_static in zip(prompts, static_times):
+        prompt = mx.nd.array(p[None, :], ctx=mx.gpu(0))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = mx.nd.asnumpy(flash.generate(prompt, MAX_NEW, kv_cache=True))[0]
+        t_req = time.perf_counter() - t0
+        check(out.shape == (len(p) + MAX_NEW,) and np.array_equal(
+            out[:len(p)], p), "bf16 KV tokens malformed")
+        steps = len(p) + MAX_NEW - 1
+        print(f"  request T0={len(p)}: KV {t_req * 1e3:.1f} ms for {steps} "
+              f"steps ({t_req / steps * 1e3:.3f} ms/step), static "
+              f"{t_static * 1e3:.1f} ms for {MAX_NEW} forwards; one KV step "
+              f"{host_clock_ms(kv_step(mx, flash, p)):.3f} ms (median of 5); "
+              f"new tokens {out[len(p):].astype(int).tolist()}")
+    rows = kernel_rows(kv_step(mx, flash, prompts[-1]))
+    print(f"  one KV step's bound: {kv_step_bound_ms(mx, flash):.4f} ms "
+          "(bytes)")
+    if rows:
+        busy_ms = sum(r[0] for r in rows)
+        print(f"  one KV step under torch.profiler: {busy_ms:.3f} ms of "
+              f"kernel time in {sum(r[1] for r in rows)} launches")
+        for ms, count, key in rows[:6]:
+            print(f"  {ms:8.3f} ms  x{count:<4d} {key[:90]}")
+    else:
+        print("  KV step kernel time not measured: torch.profiler saw no "
+              "device time")
+    for dt, (oop, inp, bound) in writes.items():
+        print(f"  cache writes per step, {str(dt)[6:]} ({2 * CONFIG['num_layers']}"
+              f" caches of B=1): out of place {oop:.4f} ms, in place "
+              f"{inp:.4f} ms, out-of-place bound {bound:.4f} ms (bytes)")
+    delta = kfa.LAUNCHES - launches
+    print(f"  flash launches while decoding with the KV cache: {delta}")
+    check(delta == 0, "the KV path launched the flash kernel")
 
 
 def main():
@@ -479,11 +665,14 @@ def main():
                    for n in PROMPTS]
         phase_score_f32(mx, flash, dense, tokens, L)
         print("== phase 4: serving, float32, flash vs dense")
-        phase_serve_f32(mx, flash, dense, prompts, L)
+        static_tokens = phase_serve_f32(mx, flash, dense, prompts, L)
         print("== phase 5: main path, bfloat16")
-        counts = phase_main(mx, flash, tokens, prompts, L)
+        counts, static_times = phase_main(mx, flash, tokens, prompts, L)
         print("== phase 6: where one decode step's time goes")
         phase_profile(mx, flash, prompts[-1])
+        print("== phase 7: KV-cache decode")
+        del flash, dense
+        phase_kv(mx, prompts, static_tokens, static_times)
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -13,7 +13,6 @@ from __future__ import annotations
 import numpy as np
 
 from .base import MXNetError
-from .context import current_context
 
 
 def _source_prefix(names) -> str:
@@ -55,6 +54,5 @@ def params_from_mxnet_tpu(np_params, net, prefix=None):
                 d not in (0, v) for d, v in zip(shape, value.shape)):
             raise MXNetError(f"{p.name}: shape {p.shape} in the port's net, "
                              f"{value.shape} in the source")
-        placed = p._data is not None or p._deferred_init
-        p._load_init(value, p.list_ctx()[0] if placed else current_context())
+        p._load_init(value, p._home_ctx())
     return net

@@ -1,7 +1,8 @@
 """gluon Block / HybridBlock (parity: python/mxnet/gluon/block.py).
 
 A ``Block`` is a ``torch.nn.Module`` with MXNet's naming: name scopes and
-prefixes, ``collect_params``, ``initialize(ctx=)`` and ``cast``.  Children
+prefixes, ``collect_params``, ``initialize(ctx=)``, ``cast`` and
+``save_params`` / ``load_params``.  Children
 live in ``_modules`` (attribute name, or their index when added with
 ``register_child``).  ``HybridBlock.forward`` calls
 ``hybrid_forward(F, x, *args, **params)`` with ``F`` the port's ``nd``
@@ -120,6 +121,16 @@ class Block(torch.nn.Module):
 
     def initialize(self, init=None, ctx=None, force_reinit=False):
         self.collect_params().initialize(init, ctx, force_reinit)
+
+    def save_params(self, filename):
+        """Write the parameters, named relative to this block's prefix; the
+        JAX package's ``load_params`` reads the file, and the reverse."""
+        self.collect_params().save(filename, strip_prefix=self.prefix)
+
+    def load_params(self, filename, ctx=None, allow_missing=False,
+                    ignore_extra=False):
+        self.collect_params().load(filename, ctx, allow_missing, ignore_extra,
+                                   self.prefix)
 
     def hybridize(self, active=True):
         for cld in self._children:

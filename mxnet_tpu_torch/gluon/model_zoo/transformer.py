@@ -5,11 +5,21 @@ nearly line for line: a pre-LN GPT-style decoder, x + MHSA(LN(x));
 x + FFN(LN(x)).  Attention runs as ``dense`` (materialized scores) or
 ``flash`` (the hand-written CUDA flash-attention kernel on the card).
 
-Decoding here is the static-shape path: tokens live in a fixed
-(B, max_len) buffer and every step is one full forward over it, greedy on
-the device or sampled on the host.  The KV-cache decode, beam search, the
-decode-step export and the sequence-parallel attention types are not ported
-yet (ROADMAP.md, queue items 1 and 6); they
+Decoding:
+
+* static shapes (the default): tokens live in a fixed (B, max_len) buffer
+  and every step is one full forward over it, greedy on the device or
+  sampled on the host; ``static_shapes=False`` re-runs the forward on the
+  growing prefix (the eager reference);
+* ``kv_cache=True``: per-layer K/V caches and one token per step through
+  ``mha_decode_step``; the prompt is fed one token at a time through the
+  same cell (prefill fills the caches);
+* ``beam_search``: the KV cell with beams as batch rows.
+
+The KV cell and the beam step re-compose the same sub-blocks and
+parameters as the forward.  The decode-step export needs the Symbol graph
+and ``save_checkpoint`` (ROADMAP.md, queue item 3), and the
+sequence-parallel attention types need scale-out (queue item 6); both
 raise ``NotImplementedError``.
 """
 from __future__ import annotations
@@ -19,14 +29,31 @@ import numpy as np
 from .. import nn
 from ..block import HybridBlock
 
-_KV_ITEM = ("the KV-cache decode path is not ported yet (ROADMAP.md, "
-            "queue item 1: KV-cache decode with mha_decode_step)")
-
 
 def _write_frontier(F, tokens, pos, nxt, depth):
-    """Scatter nxt (N, 1) into tokens (N, Tmax) at column pos+1."""
+    """Scatter nxt (N, 1) into tokens (N, Tmax) at column pos+1 (static
+    greedy/sampled decode and the beam step share it)."""
     oh = F.one_hot(pos + 1.0, depth=depth)
     return tokens * (1.0 - oh) + nxt * oh
+
+
+def _kv_forward(F, net, tok, pos, caches):
+    """The one-token decode stack walk shared by the KV and beam cells:
+    (tok (N,1) ids, pos (1,), 2L caches (N,H,Tmax,dh)) -> (logits
+    (N, V), updated caches)."""
+    x = net.tok(tok) + F.expand_dims(net.pos(pos), axis=0)
+    new_caches = []
+    for i, blk in enumerate(net.blocks._children):
+        h = blk.ln1(x)
+        qkv = blk.attn.qkv(h)                       # (N, 1, 3D)
+        att, kc, vc = F.mha_decode_step(
+            qkv, caches[2 * i], caches[2 * i + 1], pos,
+            num_heads=blk.attn._h, impl="dense")
+        new_caches += [kc, vc]
+        x = x + blk.attn.proj(att)
+        x = x + blk.ffn2(blk.ffn1(blk.ln2(x)))
+    logits = net.head(net.ln_f(x))                  # (N, 1, V)
+    return F.reshape(logits, (0, -1)), new_caches
 
 
 class MultiHeadSelfAttention(HybridBlock):
@@ -123,11 +150,17 @@ class TransformerLM(HybridBlock):
 
         Greedy when temperature==0, else softmax sampling on the host.
 
-        Static shapes: tokens live in a fixed (B, max_len) buffer and every
-        decode step is one full forward over it; greedy stays on the device.
-        Causality makes this exact: positions beyond the frontier hold
-        zeros and cannot influence earlier logits.  The JAX package's
-        debugging path (static_shapes=False) is not ported.
+        static_shapes=True (default): tokens live in a fixed (B, max_len)
+        buffer and every decode step is one full forward over it; greedy
+        stays on the device.  Causality makes this exact: positions beyond
+        the frontier hold zeros and cannot influence earlier logits.
+
+        static_shapes=False re-runs the forward on the growing prefix (the
+        eager reference).
+
+        kv_cache=True decodes through per-layer K/V caches
+        (``mha_decode_step``): O(Tmax*D) work per token instead of the full
+        re-forward's O(Tmax^2*D).
         """
         from ... import ndarray as F
         B, t0 = prompt.shape
@@ -136,10 +169,22 @@ class TransformerLM(HybridBlock):
                 f"prompt length {t0} + max_new {max_new} "
                 f"exceeds max_len {self._max_len}")
         if kv_cache:
-            raise NotImplementedError(f"generate(kv_cache=True): {_KV_ITEM}")
-        if static_shapes is False:
-            raise NotImplementedError("generate(static_shapes=False) is not "
-                                      "ported: the static-shape path is")
+            if static_shapes is not None:
+                raise ValueError(
+                    "kv_cache=True selects its own decode strategy; "
+                    "combining it with an explicit static_shapes "
+                    "would be silently ignored — pass one or the other")
+            self._check_kv_supported()
+            return self._generate_kv(prompt, max_new, temperature, rng,
+                                     top_k, top_p)
+        if static_shapes is not None and not static_shapes:
+            toks = prompt
+            for _ in range(max_new):
+                logits = self(toks)                  # (B, T, V)
+                last = logits[:, -1, :]
+                nxt = self._sample(last, temperature, rng, top_k, top_p)
+                toks = F.concat(toks, F.array(nxt, ctx=toks.device), dim=1)
+            return toks
         steps = self._decode_steps()
         pad = self._max_len - t0
         buf = prompt if pad == 0 else F.concat(
@@ -155,11 +200,87 @@ class TransformerLM(HybridBlock):
                                      F.array(nxt, ctx=prompt.device))
         return F.slice_axis(buf, axis=1, begin=0, end=t0 + max_new)
 
+    def _init_caches(self, batch, ctx=None, dtype=None, sharded=None):
+        """Zero per-layer K/V caches, (batch, H, max_len, dh) x 2L (KV
+        decode and beam search share them).  Caches sharded over a mesh
+        (``sharded=``) come with scale-out."""
+        from ... import ndarray as F
+        if sharded is not None:
+            raise NotImplementedError(
+                "sharded KV caches are not ported yet (ROADMAP.md, queue "
+                "item 6: scale-out)")
+        blocks = self.blocks._children
+        h, dh = blocks[0].attn._h, blocks[0].attn._dh
+        shape = (batch, h, self._max_len, dh)
+        return [F.zeros(shape, ctx=ctx, dtype=dtype)
+                for _ in range(2 * len(blocks))]
+
+    def _check_kv_supported(self):
+        """The KV cell decodes over dense caches: every block's attention
+        must be 'dense' or 'flash' (the sequence-parallel types decode over
+        sharded caches, which come with scale-out)."""
+        for blk in self.blocks._children:
+            if blk.attn._type not in ("dense", "flash"):
+                raise NotImplementedError(
+                    f"attn_type {blk.attn._type!r} cannot decode with a KV "
+                    "cache yet (ROADMAP.md, queue item 6: scale-out)")
+
     def beam_search(self, prompt, max_new, beam=4):
-        raise NotImplementedError(f"beam_search: {_KV_ITEM}")
+        """Beam-search decoding over the KV-cache cell.
+
+        Returns (sequences (B, T0+max_new), log_probs (B,)): the
+        highest-scoring beam per example and its total log-probability over
+        the generated positions (float64, as the JAX package's).  Beams ride
+        as batch rows (B*beam); the top-k over combined scores, the
+        beam/cache reindex and the frontier write stay on the device, and
+        the host fetches once at the end.  No EOS handling: every beam runs
+        the full max_new.
+        """
+        from ... import ndarray as F
+        from ...ndarray import asnumpy
+        if beam < 1:
+            raise ValueError("beam must be >= 1")
+        B, t0 = prompt.shape
+        if t0 + max_new > self._max_len:
+            raise ValueError(
+                f"prompt length {t0} + max_new {max_new} "
+                f"exceeds max_len {self._max_len}")
+        self._check_kv_supported()
+        W = beam
+        ctx = prompt.device
+        prefill = self._kv_step()["sample"]
+        step = self._beam_step(W)
+        positions = self._positions(t0 + max_new - 1, ctx)
+        # prefill at B rows (beams are identical over the prompt), then
+        # repeat the caches to B*W: the prompt does not pay the beam width
+        caches = self._init_caches(B, ctx=ctx, dtype=self.head.weight.dtype)
+        for t in range(t0 - 1):
+            outs = prefill(prompt[:, t:t + 1], positions[t:t + 1], *caches)
+            caches = outs[1:]
+        caches = [F.repeat(c, repeats=W, axis=0) for c in caches]
+        toks_np = np.repeat(asnumpy(prompt), W, axis=0)        # (BW, t0)
+        pad = self._max_len - t0
+        buf = F.array(np.concatenate(
+            [toks_np, np.zeros((B * W, pad), "f")], axis=1)
+            if pad else toks_np, ctx=ctx)
+        # only beam 0 contributes until beams diverge
+        cum = F.array(np.tile([0.0] + [-1e30] * (W - 1), (B, 1)), ctx=ctx)
+        offsets = F.array(np.arange(B)[:, None] * W *
+                          np.ones((1, W), "f"), ctx=ctx)
+        cur = F.array(toks_np[:, t0 - 1:t0], ctx=ctx)
+        for t in range(t0 - 1, t0 + max_new - 1):
+            outs = step(cur, positions[t:t + 1], cum, buf, offsets, *caches)
+            cur, cum, buf, caches = outs[0], outs[1], outs[2], outs[3:]
+        buf_np = asnumpy(buf)[:, :t0 + max_new].reshape(B, W, -1)
+        cum_np = asnumpy(cum)                    # (B, W), sorted desc
+        return (F.array(buf_np[:, 0, :], ctx=ctx),
+                F.array(cum_np[:, 0], ctx=ctx))
 
     def export_decode_step(self, prefix, batch_size=1):
-        raise NotImplementedError(f"export_decode_step: {_KV_ITEM}")
+        raise NotImplementedError(
+            "export_decode_step writes the KV cell as a Symbol graph and a "
+            "checkpoint, which are not ported yet (ROADMAP.md, queue item "
+            "3: Symbol and executor)")
 
     @staticmethod
     def _sample(last, temperature, rng, top_k=0, top_p=0.0):
@@ -250,6 +371,123 @@ class TransformerLM(HybridBlock):
             blk._active = True                 # this wrapper only
         self.__dict__["_decode_step_cache"] = steps
         return steps
+
+    def _kv_step(self):
+        """Build (once) the KV-cache decode cell: (token_t, pos, *caches)
+        -> [head, *updated caches].  Same child-registration rule as
+        _decode_steps."""
+        cached = self.__dict__.get("_kv_step_cache")
+        if cached is not None:
+            return cached
+        outer = self
+
+        class _KVStep(HybridBlock):
+            """(token_t (B,1), pos (1,), *caches) -> [head, *caches].
+            greedy=True emits the argmax next token as the head output (it
+            stays on the device and feeds the next step); greedy=False
+            emits the (B, V) logits for host-side sampling."""
+
+            def __init__(self, greedy, **kw):
+                super().__init__(**kw)
+                self._greedy = greedy
+                with self.name_scope():
+                    self.net = outer
+
+            def hybrid_forward(self, F, tok, pos, *caches):
+                logits, new_caches = _kv_forward(F, self.net, tok, pos,
+                                                 caches)
+                head = (F.argmax(logits, axis=-1, keepdims=True)
+                        if self._greedy else logits)
+                return [head] + new_caches
+
+        steps = {"sample": _KVStep(False), "greedy": _KVStep(True)}
+        for blk in steps.values():
+            blk._active = True                  # this wrapper only
+        self.__dict__["_kv_step_cache"] = steps
+        return steps
+
+    @staticmethod
+    def _positions(n, ctx):
+        """Positions 0..n-1 as one float32 tensor on ``ctx``: a step takes
+        its (1,) slice, so no step uploads from the host."""
+        from ... import ndarray as F
+        return F.array(np.arange(n, dtype=np.float32), ctx=ctx)
+
+    def _generate_kv(self, prompt, max_new, temperature, rng,
+                     top_k=0, top_p=0.0):
+        """KV-cache decode loop: prefill feeds the prompt's tokens through
+        the same one-token cell that generates (the caches fill as a side
+        effect).  Greedy keeps the whole loop on the device: each chosen
+        token is a (B, 1) tensor that feeds the next step, and the host
+        fetches the tokens once, at the end."""
+        from ... import ndarray as F
+        B, t0 = prompt.shape
+        ctx = prompt.device
+        greedy = temperature == 0
+        cell = self._kv_step()["greedy" if greedy else "sample"]
+        caches = self._init_caches(B, ctx=ctx, dtype=self.head.weight.dtype)
+        positions = self._positions(t0 + max_new - 1, ctx)
+        pieces = [prompt]                  # (B, k) device-side chunks
+        cur = prompt[:, 0:1]
+        for t in range(t0 + max_new - 1):
+            outs = cell(cur, positions[t:t + 1], *caches)
+            head, caches = outs[0], outs[1:]
+            if t + 1 < t0:                 # prefill: next prompt column
+                cur = prompt[:, t + 1:t + 2]
+            elif greedy:
+                cur = head                 # stays on device
+                pieces.append(cur)
+            else:
+                nxt = self._sample(head, temperature, rng, top_k, top_p)
+                cur = F.array(nxt, ctx=ctx)
+                pieces.append(cur)
+        return F.concat(*pieces, dim=1)
+
+    def _beam_step(self, width):
+        """Build (once per width) the beam-search step cell: it advances
+        every beam one token (decode-stack logits, log-softmax, combined
+        scores, top-k over width*vocab, beam/cache reindex by ``take``,
+        frontier write).  Inputs: (cur (B*W,1), pos (1,), cum (B,W), buf
+        (B*W,Tmax), offsets (B,W) = arange(B)*W, *caches); outputs: [cur',
+        cum', buf', *caches']."""
+        cache = self.__dict__.setdefault("_beam_step_cache", {})
+        if width in cache:
+            return cache[width]
+        outer = self
+        vocab = self.head._units
+
+        class _BeamStep(HybridBlock):
+            def __init__(self, **kw):
+                super().__init__(**kw)
+                with self.name_scope():
+                    self.net = outer
+
+            def hybrid_forward(self, F, cur, pos, cum, buf, offsets,
+                               *caches):
+                W, V = width, vocab
+                logits, new_caches = _kv_forward(F, self.net, cur, pos,
+                                                 caches)        # (BW, V)
+                logp = F.log_softmax(logits, axis=-1)
+                scores = F.reshape(cum, (-1, 1)) + logp         # (BW, V)
+                scores = F.reshape(scores, (-1, W * V))         # (B, W*V)
+                idx = F.topk(scores, k=W, ret_typ="indices", axis=-1,
+                             is_ascend=False)                   # (B, W)
+                new_cum = F.topk(scores, k=W, ret_typ="value", axis=-1,
+                                 is_ascend=False)               # (B, W)
+                beam_src = F.floor(idx / V)                     # (B, W)
+                tok = idx - beam_src * V                        # (B, W)
+                flat_src = F.reshape(beam_src + offsets, (-1,))  # (BW,)
+                buf = F.take(buf, flat_src, axis=0)
+                new_caches = [F.take(c, flat_src, axis=0)
+                              for c in new_caches]
+                tokcol = F.reshape(tok, (-1, 1))                # (BW, 1)
+                buf = _write_frontier(F, buf, pos, tokcol, outer._max_len)
+                return [tokcol, new_cum, buf] + new_caches
+
+        step = _BeamStep()
+        step._active = True                     # this wrapper only
+        cache[width] = step
+        return step
 
 
 def transformer_lm(vocab, **kwargs):

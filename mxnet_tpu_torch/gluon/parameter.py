@@ -6,6 +6,9 @@ HybridBlock that holds the Parameter as an attribute also sees that tensor
 in its own ``_parameters``, so ``named_parameters()`` and ``state_dict()``
 work as on any ``nn.Module``.  Initialization may be deferred until the
 first forward, which fixes the unknown dimensions from the input.
+``ParameterDict.save`` / ``load`` read and write the JAX package's
+``.params`` files (``nd.save``'s ``.npz`` container, names relative to a
+prefix), so a checkpoint moves between the two packages either way.
 """
 from __future__ import annotations
 
@@ -71,6 +74,13 @@ class Parameter:
             ctx = [ctx]
         self._deferred_init = ()
         self._init_impl(data, ctx)
+
+    def _home_ctx(self):
+        """Where loaded data lands: the context this parameter was
+        initialized or deferred with, else the current context."""
+        if self._data is not None or self._deferred_init:
+            return self.list_ctx()[0]
+        return current_context()
 
     def _finish_deferred_init(self):
         if not self._deferred_init:
@@ -217,3 +227,42 @@ class ParameterDict:
             init = initializer.Uniform()
         for _, v in self.items():
             v.initialize(None, ctx, init, force_reinit=force_reinit)
+
+    def save(self, filename, strip_prefix=""):
+        """Write every parameter to ``filename`` (``nd.save``'s container),
+        named without ``strip_prefix``."""
+        from ..ndarray import save
+        arg_dict = {}
+        for param in self.values():
+            if not param.name.startswith(strip_prefix):
+                raise ValueError(f"Prefix '{strip_prefix}' is to be stripped "
+                                 f"but Parameter's name '{param.name}' does "
+                                 "not start with it")
+            arg_dict[param.name[len(strip_prefix):]] = param.data()
+        save(filename, arg_dict)
+
+    def load(self, filename, ctx=None, allow_missing=False,
+             ignore_extra=False, restore_prefix=""):
+        """Load ``filename`` into these parameters, each name prefixed with
+        ``restore_prefix``.  The data lands on ``ctx`` when given, else on
+        each parameter's own context (the current one for a parameter
+        never initialized)."""
+        from ..ndarray.ndarray import load_numpy
+        loaded = load_numpy(filename)
+        if not isinstance(loaded, dict):
+            raise MXNetError(f"{filename} holds no named parameters")
+        arg_dict = {restore_prefix + k: v for k, v in loaded.items()}
+        if not allow_missing:
+            for name in self.keys():
+                if name not in arg_dict:
+                    raise MXNetError(f"Parameter {name} is missing in file "
+                                     f"{filename}")
+        for name, value in arg_dict.items():
+            if name not in self._params:
+                if not ignore_extra:
+                    raise MXNetError(f"Parameter {name} loaded from "
+                                     f"{filename} is not present in "
+                                     "ParameterDict")
+                continue
+            param = self[name]
+            param._load_init(value, param._home_ctx() if ctx is None else ctx)

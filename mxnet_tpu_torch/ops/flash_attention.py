@@ -1,17 +1,21 @@
-"""Attention operators: flash attention, fused multi-head attention, arange_like.
+"""Attention operators: flash attention, fused multi-head attention, the
+one-token decode step over a KV cache, arange_like.
 
 The counterpart of ``mxnet_tpu/ops/flash_attention.py``.  The flash path runs
 the hand-written CUDA kernel (``kernels/flash_attention.py``) on a CUDA
 tensor and its plain version on a CPU tensor.  When the sequence length is
 not divisible by the op's block size the op computes dense attention: that
 is the op's definition (the JAX package does the same), not a fallback.
+The decode step is plain torch: the JAX package computes it in ``jnp`` too,
+outside any Pallas kernel.
 """
 from __future__ import annotations
 
 import torch
 
 from ..base import Arg
-from ..kernels.flash_attention import dense_reference, flash_attention_fwd
+from ..kernels.flash_attention import (NEG_INF, dense_reference,
+                                       flash_attention_fwd)
 from .registry import register
 
 _dense_reference = dense_reference
@@ -34,6 +38,55 @@ def _flash_attention_op(p, q, k, v):
     blk_k = min(p["block_k"], k.shape[2])
     return _flash_attention(q, k, v, float(scale), bool(p["causal"]),
                             int(blk_q), int(blk_k))
+
+
+@register("_contrib_mha_decode_step",
+          input_names=("qkv", "k_cache", "v_cache", "pos"),
+          aliases=("mha_decode_step",), f32_inputs=(3,),
+          args=[Arg("num_heads", int, required=True),
+                Arg("scale", float, -1.0), Arg("impl", str, "dense")],
+          num_outputs=3, differentiable=False)
+def _mha_decode_step_op(p, qkv, kc, vc, pos):
+    """One autoregressive attention step over a KV cache (inference).
+
+    qkv: (B, 1, 3*D), the current token's fused projections; k_cache and
+    v_cache: (B, H, Tmax, dh); pos: (1,) float, the current position t.
+    Returns (out (B, 1, D), new_k_cache, new_v_cache): the caches with this
+    token's K/V in column t, and attention over columns <= t.  Scores and
+    softmax are float32; the output takes qkv's dtype, the caches keep
+    theirs.
+
+    The input caches are not written: each step returns new ones (JAX's
+    ``dynamic_update_slice`` is functional too), which copies both caches.
+    ``pos`` stays on the device: the column is an index tensor and the mask
+    compares against it, so a step never waits for the card.  As with
+    ``dynamic_update_slice``, a column past either end is clamped into the
+    cache; the mask uses t itself.
+    """
+    B, _, D3 = qkv.shape
+    H = p["num_heads"]
+    D = D3 // 3
+    dh = D // H
+    if p["impl"] in ("ring", "ulysses"):
+        raise NotImplementedError(
+            f"mha_decode_step impl={p['impl']!r}: decoding over sharded "
+            "caches is not ported yet (ROADMAP.md, queue item 6: scale-out)")
+    if p["impl"] != "dense":
+        raise ValueError(f"mha_decode_step impl={p['impl']!r}: choose "
+                         "'dense'")
+    x = qkv.reshape(B, 3, H, dh)                    # T=1 folded away
+    q, k, v = x[:, 0], x[:, 1], x[:, 2]             # (B, H, dh)
+    tmax = kc.shape[2]
+    t = pos.reshape(()).to(torch.int64)
+    col = torch.clamp(t, 0, tmax - 1).reshape(1)
+    kc = kc.index_copy(2, col, k[:, :, None, :].to(kc.dtype))
+    vc = vc.index_copy(2, col, v[:, :, None, :].to(vc.dtype))
+    scale = p["scale"] if p["scale"] > 0 else dh ** -0.5
+    s = torch.einsum("bhd,bhtd->bht", q.float() * scale, kc.float())
+    s = s.masked_fill(torch.arange(tmax, device=kc.device) > t, NEG_INF)
+    w = torch.softmax(s, dim=-1)
+    out = torch.einsum("bht,bhtd->bhd", w, vc.float())
+    return out.reshape(B, 1, D).to(qkv.dtype), kc, vc
 
 
 @register("_contrib_multihead_attention", input_names=("qkv",),

@@ -2,7 +2,8 @@
 
 The counterpart of part of ``mxnet_tpu/ops/matrix.py``: ``Reshape`` with
 MXNet's special codes, ``expand_dims``, ``slice_axis``, ``Concat``,
-``broadcast_like``, ``take``, ``Embedding`` and ``one_hot``.  Ids arrive as
+``broadcast_like``, ``tile``, ``repeat``, ``take``, ``Embedding`` and
+``one_hot``.  Ids arrive as
 float32 (MXNet's convention) and are truncated to integers.  ``take`` and
 ``Embedding`` clamp out-of-range ids into range, as ``jnp.take(mode="clip")``
 does; torch indexing would raise on them instead.
@@ -98,6 +99,19 @@ def _concat(p, *xs):
 @register("broadcast_like", input_names=("lhs", "rhs"))
 def _broadcast_like(p, x, y):
     return x.expand(y.shape)
+
+
+@register("tile", input_names=("data",), args=[Arg("reps", "shape", required=True)])
+def _tile(p, x):
+    return torch.tile(x, p["reps"])
+
+
+@register("repeat", input_names=("data",),
+          args=[Arg("repeats", int, required=True), Arg("axis", int, None)])
+def _repeat(p, x):
+    """Each element ``repeats`` times along ``axis``; with no axis, over the
+    flattened input (as ``jnp.repeat``)."""
+    return torch.repeat_interleave(x, p["repeats"], dim=p["axis"])
 
 
 def _ids(idx):

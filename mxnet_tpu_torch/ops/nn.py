@@ -1,7 +1,8 @@
 """Neural-network operators of the serving slice.
 
 The counterpart of part of ``mxnet_tpu/ops/nn.py``: ``FullyConnected``,
-``LayerNorm``, ``Activation`` (relu) and ``Dropout`` (inference).  A dense
+``LayerNorm``, ``Activation`` (relu), ``Dropout`` (inference), and
+``softmax`` / ``log_softmax`` with ``temperature``.  A dense
 matrix product goes to ``torch.matmul`` (cuBLAS on the card), as the JAX
 package left it to XLA.
 """
@@ -59,3 +60,17 @@ def _dropout(p, x):
             "training-mode Dropout is not ported yet (ROADMAP.md, queue "
             "item 3: training)")
     return x
+
+
+@register("softmax", input_names=("data",),
+          args=[Arg("axis", int, -1), Arg("temperature", float, None)])
+def _softmax(p, x):
+    t = p["temperature"] or 1.0
+    return torch.softmax(x / t, dim=p["axis"])
+
+
+@register("log_softmax", input_names=("data",),
+          args=[Arg("axis", int, -1), Arg("temperature", float, None)])
+def _log_softmax(p, x):
+    t = p["temperature"] or 1.0
+    return torch.log_softmax(x / t, dim=p["axis"])

@@ -68,12 +68,7 @@ def test_sample_matches_jax(temperature, top_k, top_p):
 def test_unported_paths_raise():
     tnet = TransformerLM(vocab=8, dim=16, num_layers=1, num_heads=2,
                          max_len=8, attn_type="flash")
-    prompt = mxt.nd.zeros((1, 2), ctx=CPU)
-    with pytest.raises(NotImplementedError):
-        tnet.generate(prompt, 2, static_shapes=False)
-    for call in (lambda: tnet.generate(prompt, 2, kv_cache=True),
-                 lambda: tnet.beam_search(prompt, 2),
-                 lambda: tnet.export_decode_step("x"),
+    for call in (lambda: tnet.export_decode_step("x"),
                  lambda: TransformerLM(vocab=8, dim=16, num_heads=2,
                                        attn_type="ring")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
