@@ -15,7 +15,9 @@ own entry points and holds every kernel against its plain version:
    T=1024, D=64), the decode shape (B=1), D=128 at T=128 and a ragged
    T=100, the float32 kernel (``f32``) at the same shapes in float32 and at
    D 16 and 32 in bfloat16 (gates ``TOL_*`` below: float32 absolute,
-   bfloat16 absolute and over the largest output); then their times at
+   bfloat16 absolute and over the largest output); both kernels causal at
+   the short sequences the serving buckets send them (B=4, T 1, 2, 16 and
+   64), the sm90 kernel timed there; then their times at
    the scoring and decode shapes beside the plain version's, the bound and
    ``scaled_dot_product_attention``'s (the yardstick; the port never calls
    it), with the f32 kernel timed on the same bf16 inputs as well;
@@ -29,9 +31,10 @@ own entry points and holds every kernel against its plain version:
 5. the main path, in bfloat16 (the configuration's dtype): every kernel
    count set to 0, then one scoring batch and the four requests, timed;
    the counts read after it;
-6. one bfloat16 decode step under torch.profiler: host time, device time,
-   the flash kernel's share and the kernels that take it (without a device
-   trace: the CUDA-event stream time of the step's 12 flash launches);
+6. one bfloat16 decode step under torch.profiler: host time through the
+   step's ``CachedOp`` and eagerly, device time, the flash kernel's share
+   and the kernels that take it (without a device trace: the CUDA-event
+   stream time of the step's 12 flash launches);
 7. the KV-cache decode path (``generate(kv_cache=True)``, ``beam_search``,
    ``save_params``/``load_params``) on a fresh float32 net with the same
    weights: the four greedy requests give phase 4's static-shape tokens
@@ -44,8 +47,23 @@ own entry points and holds every kernel against its plain version:
    static-shape times, and the cost of the out-of-place cache write.  The
    KV path runs no flash kernel: its attention is plain torch, as in the
    JAX package;
-8. a ``kernels`` JSON line, then the last line
-   ``{"ok": true, "device": {...}}``.
+8. serving through the Symbol graph on a fresh float32 net with the same
+   weights: the net traced to a Symbol, its JSON written and loaded back,
+   its parameters saved with ``nd.save``; a ``BucketedPredictor`` on
+   ``gpu(0)`` from the JSON and the file, warmed over its 33 buckets (3
+   batch x 11 sequence, 12 flash launches each), the four prompts served
+   against eager ``net(tokens)`` with no bucket built; then the main
+   serving path in bfloat16 (re-traced after ``cast``): every kernel count
+   set to 0, 32 requests from 4 client threads through a ``MicroBatcher``,
+   the counts read after it (12 sm90 launches per batch, none on f32);
+   each coalesced result bitwise against its row of the same batch
+   dispatched again, and against the same request served alone (bitwise
+   where both ran one bucket, else within ``TOL_COALESCED_BF16``); the
+   dispatch and host-copy time per bucket; and a ``ResilientServer`` that
+   sheds a burst with ``Overloaded`` and fails a request past its deadline
+   with ``DeadlineExceeded``;
+9. a ``kernels`` JSON line (its ``launches`` are phase 8's), then the last
+   line ``{"ok": true, "device": {...}}``.
 
 The model is ``experiments/lm_mfu_probe.py``'s default width (vocab 32768,
 dim 1024, 16 heads, ffn 4096, 12 layers, max_len 1024; about 219 M
@@ -77,6 +95,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 CONFIG = dict(vocab=32768, dim=1024, num_layers=12, num_heads=16,
               ffn_dim=4096, max_len=1024)
 PROMPTS = (16, 100, 300, 700)
+SHORT_T = (1, 2, 16, 64)   # phase 2's short sequences (serving buckets)
 MAX_NEW = 8
 SCORE_BATCH = 4
 TOL_F32 = 1e-4      # kernel vs plain, float32 (the reference's flash pin)
@@ -88,6 +107,13 @@ TOL_BF16 = 3e-2     # kernel vs plain, bfloat16 (the reference's bf16 pin)
 TOL_BF16_REL = 2.0 ** -6
 # flash vs dense logits through all 12 layers: the reference's logit pin
 TOL_LOGITS_F32 = 1e-4
+# a coalesced bf16 request against the same request served alone at
+# another bucket, max |diff| over its valid logits.  The batch's other
+# shape changes the GEMMs' accumulation order in all 12 layers, and the
+# logits (up to about 7.8 here) are rounded to bf16, whose ulp is 2^-5 in
+# [4, 8): the H100 read up to 3 ulps (9.4e-2, PERF.md), this allows 4.
+# Another request's rows or padding leaking in move logits by their scale.
+TOL_COALESCED_BF16 = 0.125
 NEAR_TIE = 1e-4     # top-2 dense logits closer than this may flip argmax
 TOL_BEAM = 1e-3     # beam log-prob vs a teacher-forced rescoring, float32
 BEAM_PROMPT = 100   # the prompt of the sampled, beam and checkpoint checks
@@ -210,6 +236,7 @@ def phase_kernel(mx):
                 for _ in range(3)]
 
     errs = {}      # (variant, dtype, B, T, D, causal) -> (abs, rel) err
+    short_times = {}   # T -> ({name: device ms}, bound) at B=4, bf16
     cases = [(4, 16, 1024, 64, None), (1, 16, 1024, 64, None),
              (2, 3, 128, 16, 32), (2, 3, 128, 32, 32), (2, 3, 128, 128, 32),
              (1, 2, 100, 64, None)]
@@ -243,6 +270,49 @@ def phase_kernel(mx):
                 print(f"  flash {variant:4s} B={B} H={H} T={T} D={D} "
                       f"{str(dtype)[6:]} causal={causal}: max err {err:.3e}, "
                       f"over max |ref| {rel:.3e}")
+    # the short sequences the serving buckets send through the kernels
+    # (phase 8), causal: T below both kernels' q and k tiles (and the sm90
+    # kernel's TMA boxes)
+    for T in SHORT_T:
+        for dtype, tol in ((torch.bfloat16, TOL_BF16), (torch.float32, TOL_F32)):
+            variant = kfa._variant(dtype, 64)
+            q, k, v = qkv(4, 16, T, 64, dtype)
+            before = kfa.VARIANT_LAUNCHES[variant]
+            out = kfa.flash_attention_fwd(q, k, v, 0.125, True)
+            ref = kfa.dense_reference(q, k, v, 0.125, True)
+            torch.cuda.synchronize()
+            check(kfa.VARIANT_LAUNCHES[variant] == before + 1,
+                  f"flash at T={T} {dtype} did not launch {variant}")
+            check(out.shape == ref.shape and out.dtype == dtype
+                  and bool(torch.isfinite(out).all()),
+                  f"flash output malformed at T={T} {dtype}")
+            err = (out.float() - ref.float()).abs().max().item()
+            rel = err / ref.float().abs().max().item()
+            what = f"flash {variant} vs plain at B=4 H=16 T={T} D=64 {dtype}"
+            check(err <= tol, f"{what}: max err {err:.3e} > {tol}")
+            check(dtype != torch.bfloat16 or rel <= TOL_BF16_REL,
+                  f"{what}: max err / max |ref| {rel:.3e} > "
+                  f"{TOL_BF16_REL:.3e}")
+            errs[(variant, dtype, 4, T, 64, True)] = (err, rel)
+            line = (f"  flash {variant:4s} B=4 H=16 T={T} D=64 "
+                    f"{str(dtype)[6:]} causal=True: max err {err:.3e}, over "
+                    f"max |ref| {rel:.3e}")
+            if dtype == torch.bfloat16:
+                t = {name: device_ms(fn) for name, fn in (
+                    ("sm90", lambda: kfa.flash_attention_fwd(q, k, v, 0.125,
+                                                             True)),
+                    ("plain", lambda: kfa.dense_reference(q, k, v, 0.125,
+                                                          True)),
+                    ("sdpa", lambda: torch.nn.functional.
+                     scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                  scale=0.125)))}
+                bound = attention_bound_ms(4, 16, T, 64, True, 2,
+                                           H100_BF16_FLOPS)
+                short_times[T] = (t, bound)
+                line += ("; device ms: " + ", ".join(
+                    f"{n} {ms:.4f}" for n, ms in t.items())
+                    + f"; bound {bound[0]:.5f} ({bound[1]})")
+            print(line)
     timings = {}
     for dtype, B in ((torch.bfloat16, 4), (torch.bfloat16, 1),
                      (torch.float32, 4)):
@@ -270,7 +340,7 @@ def phase_kernel(mx):
                       f"{name} {d:.4f} ({c:.4f})"
                       for name, (d, c) in row.items() if name != "bound")
                   + f"; bound {row['bound'][0]:.4f} ({row['bound'][1]})")
-    return errs, timings
+    return errs, timings, short_times
 
 
 def build_nets(mx):
@@ -365,19 +435,35 @@ def phase_serve_f32(mx, flash, dense, prompts, L):
     return want
 
 
-def phase_main(mx, flash, tokens, prompts, L):
-    """The main path in bfloat16, with every kernel count set to 0 first."""
-    import torch
+def reset_counts():
+    """Every kernel launch count set to 0."""
     from mxnet_tpu_torch import kernels
     from mxnet_tpu_torch.kernels import flash_attention as kfa
-    flash.cast("bfloat16")
-    forward_counted(flash, L, tokens)          # warm-up, outside the count
-    serve(mx, flash, prompts[:1], L)
-    torch.cuda.synchronize()
     for mod in kernels.ALL:
         mod.LAUNCHES = 0
     for variant in kfa.VARIANT_LAUNCHES:
         kfa.VARIANT_LAUNCHES[variant] = 0
+
+
+def read_counts():
+    """{kernel: launches}, with the flash kernel also by variant."""
+    from mxnet_tpu_torch import kernels
+    from mxnet_tpu_torch.kernels import flash_attention as kfa
+    counts = {mod.__name__.rsplit(".", 1)[1]: mod.LAUNCHES
+              for mod in kernels.ALL}
+    counts.update({f"flash_attention.{v}": n
+                   for v, n in kfa.VARIANT_LAUNCHES.items()})
+    return counts
+
+
+def phase_main(mx, flash, tokens, prompts, L):
+    """The main path in bfloat16, with every kernel count set to 0 first."""
+    import torch
+    flash.cast("bfloat16")
+    forward_counted(flash, L, tokens)          # warm-up, outside the count
+    serve(mx, flash, prompts[:1], L)
+    torch.cuda.synchronize()
+    reset_counts()
     t0 = time.perf_counter()
     logits = flash(tokens)
     torch.cuda.synchronize()
@@ -386,10 +472,7 @@ def phase_main(mx, flash, tokens, prompts, L):
           (SCORE_BATCH, CONFIG["max_len"], CONFIG["vocab"])
           and bool(torch.isfinite(logits).all()), "bf16 logits malformed")
     outs, times = serve(mx, flash, prompts, L)
-    counts = {mod.__name__.rsplit(".", 1)[1]: mod.LAUNCHES
-              for mod in kernels.ALL}
-    counts.update({f"flash_attention.{v}": n
-                   for v, n in kfa.VARIANT_LAUNCHES.items()})
+    counts = read_counts()
     print(f"main path bf16: scoring B={SCORE_BATCH} T={CONFIG['max_len']} "
           f"{t_score * 1e3:.1f} ms ({SCORE_BATCH * CONFIG['max_len'] / t_score:.0f}"
           f" tokens/s)")
@@ -451,9 +534,13 @@ def phase_profile(mx, flash, prompt):
     buf = mx.nd.array(buf, ctx=mx.gpu(0))
     pos = mx.nd.array([len(prompt) - 1.0], ctx=mx.gpu(0))
     wall_ms = host_clock_ms(lambda: step(buf, pos))
+    step._active = False           # the same step run eagerly, op by op
+    eager_ms = host_clock_ms(lambda: step(buf, pos))
+    step._active = True
     rows = kernel_rows(lambda: step(buf, pos))
     print(f"decode step bf16, T0={len(prompt)}: host clock {wall_ms:.3f} ms "
-          f"(median of 5, profiler off)")
+          f"through its CachedOp, {eager_ms:.3f} ms eager (medians of 5, "
+          f"profiler off)")
     if rows:
         busy_ms = sum(r[0] for r in rows)
         flash = [r for r in rows if "flash_attention" in r[2]]
@@ -634,6 +721,258 @@ def phase_kv(mx, prompts, static_tokens, static_times):
     check(delta == 0, "the KV path launched the flash kernel")
 
 
+def percentile(xs, q):
+    """The q-th percentile of ``xs`` (nearest rank)."""
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, max(0, int(round(q / 100 * len(xs))) - 1))]
+
+
+def serve_breakdown(mx, pred, keys):
+    """Host clock of one dispatch (graph run, synchronized) and of the
+    host copy of its outputs, per bucket key: medians of 5 after a
+    warm-up."""
+    import numpy as np
+    import torch
+    out = {}
+    for key in keys:
+        shapes = pred.spec.bucket_input_shapes(key)
+        padded = {n: np.zeros(s, np.float32) for n, s in shapes.items()}
+        disp, copy = [], []
+        for _ in range(6):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            outs = pred._dispatch(key, padded)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            host = [mx.nd.asnumpy(o) for o in outs]
+            t2 = time.perf_counter()
+            disp.append((t1 - t0) * 1e3)
+            copy.append((t2 - t1) * 1e3)
+        nbytes = sum(h.nbytes for h in host)
+        out[key] = (statistics.median(disp[1:]), statistics.median(copy[1:]),
+                    nbytes)
+        print(f"  bucket {key}: dispatch {out[key][0]:.3f} ms, host copy "
+              f"{out[key][1]:.3f} ms of {nbytes / 2 ** 20:.0f} MiB "
+              f"({nbytes / out[key][1] / 1e6:.2f} GB/s)")
+    return out
+
+
+def phase_serving(mx, prompts, L):
+    """Serving through the Symbol graph on a fresh net with phase 7's
+    weights: graph round trip, float32 bucketed predictor against eager
+    scoring, then the bfloat16 main serving path through a MicroBatcher
+    (counted) and the ResilientServer's typed rejections."""
+    import tempfile
+    import threading
+    import numpy as np
+    import torch
+    from mxnet_tpu_torch.kernels import flash_attention as kfa
+    from mxnet_tpu_torch.observability import metrics as M
+    from mxnet_tpu_torch.serving import (BucketedPredictor, DeadlineExceeded,
+                                         MicroBatcher, Overloaded,
+                                         ResilientServer, pow2_buckets)
+    flash, dense = build_nets(mx)
+    del dense
+    t0 = time.perf_counter()
+    js = flash(mx.sym.var("data")).tojson()
+    check(mx.sym.load_json(js).tojson() == js, "graph JSON round trip")
+    t_trace = time.perf_counter() - t0
+    max_shape = {"data": (SCORE_BATCH, CONFIG["max_len"])}
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as d:
+        path = os.path.join(d, "lm.params")
+        mx.nd.save(path, {n: p.data()
+                          for n, p in flash.collect_params().items()})
+        t0 = time.perf_counter()
+        pred = BucketedPredictor(js, path, max_shape, seq_axes={"data": 1})
+        t_load = time.perf_counter() - t0
+    keys = pred.spec.all_keys()
+    n_keys = len(pow2_buckets(SCORE_BATCH)) * len(
+        pow2_buckets(CONFIG["max_len"]))          # 3 x 11 at full width
+    print(f"graph: {len(json.loads(js)['nodes'])} nodes, traced and "
+          f"round-tripped through JSON in {t_trace:.2f} s; predictor on "
+          f"gpu(0) from the JSON and the params file in {t_load:.2f} s; "
+          f"{len(keys)} buckets")
+    check(len(keys) == n_keys, f"bucket lattice has {len(keys)} keys, "
+          f"want {n_keys}")
+    compiles, launches = M.SERVE_COMPILES.value, dict(kfa.VARIANT_LAUNCHES)
+    t0 = time.perf_counter()
+    pred.warmup()
+    torch.cuda.synchronize()
+    t_warm = time.perf_counter() - t0
+    built = M.SERVE_COMPILES.value - compiles
+    warm = {v: kfa.VARIANT_LAUNCHES[v] - launches[v] for v in launches}
+    print(f"serving f32: warmup built {built:.0f} buckets in {t_warm:.2f} s, "
+          f"flash launches {warm}")
+    check(built == n_keys and warm["f32"] == L * n_keys
+          and warm["sm90"] == 0,
+          f"warmup: {built} buckets, flash launches {warm}; want {n_keys} "
+          f"and {L * n_keys} on f32")
+    compiles = M.SERVE_COMPILES.value
+    for p in prompts:
+        got = pred.predict(data=p[None, :])[0]
+        want = mx.nd.asnumpy(flash(mx.nd.array(p[None, :], ctx=mx.gpu(0))))
+        bucket = pred.spec.route({"data": (1, len(p))})
+        check(got.shape == (1, bucket[1], CONFIG["vocab"])
+              and np.isfinite(got).all(), f"served logits malformed: "
+              f"{got.shape} at T0={len(p)}")
+        err = float(np.abs(got[:, :len(p)] - want).max())
+        print(f"  request T0={len(p)} -> bucket {bucket}: valid logits max "
+              f"|served - net(tokens)| {err:.3e}")
+        check(err <= TOL_LOGITS_F32, f"served logits differ by {err:.3e}")
+    check(M.SERVE_COMPILES.value == compiles, "requests built buckets")
+    pred.close()
+    del pred
+
+    # the main serving path: bfloat16
+    flash.cast("bfloat16")
+    pred = BucketedPredictor(flash(mx.sym.var("data")), {n: p.data() for n, p in
+                                   flash.collect_params().items()},
+                             max_shape, seq_axes={"data": 1})
+    t0 = time.perf_counter()
+    pred.warmup()
+    torch.cuda.synchronize()
+    print(f"serving bf16: warmup built {pred.num_compiled} buckets in "
+          f"{time.perf_counter() - t0:.2f} s")
+    rs = np.random.RandomState(7)
+    reqs = [rs.randint(0, CONFIG["vocab"], (1, PROMPTS[i % len(PROMPTS)]))
+            .astype(np.float32) for i in range(32)]
+    solo = [pred.predict(data=r)[0] for r in reqs]
+    compiles = M.SERVE_COMPILES.value
+    batches, served = M.SERVE_BATCHES.value, M.SERVE_REQUESTS.value
+    groups = []                    # (start, end, inputs) of each dispatch
+    routed = pred._predict_routed
+
+    def timed_routed(inputs):
+        start = time.perf_counter()
+        outs = routed(inputs)
+        groups.append((start, time.perf_counter(), inputs))
+        return outs
+
+    pred._predict_routed = timed_routed
+    results, lat = [None] * len(reqs), [None] * len(reqs)
+    batcher = MicroBatcher(pred)
+
+    def client(idx):
+        for i in idx:
+            t = time.perf_counter()
+            results[i] = batcher.submit(data=reqs[i]).result()[0]
+            lat[i] = (t, time.perf_counter())
+
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client, args=(range(c, 32, 4),))
+               for c in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    batcher.close()
+    pred._predict_routed = routed
+    dispatches = M.SERVE_BATCHES.value - batches
+    ms = [(b - a) * 1e3 for a, b in lat]
+    tokens = sum(r.shape[1] for r in reqs)
+    print(f"  MicroBatcher, 4 client threads, 32 requests: {dispatches:.0f} "
+          f"batches, {M.SERVE_REQUESTS.value - served:.0f} requests, "
+          f"{32 / len(groups):.2f} rows per batch (last batch "
+          f"{M.SERVE_COALESCED_ROWS.get():.0f} rows); latency p50 "
+          f"{percentile(ms, 50):.2f} ms, p99 {percentile(ms, 99):.2f} ms; "
+          f"{32 / wall:.1f} requests/s, {tokens / wall:.0f} prompt tokens/s "
+          f"in {wall:.2f} s")
+    # each request's batch and row there: its ids open exactly one row
+    where = {}
+    for g, (_, _, inputs) in enumerate(groups):
+        for row, ids in enumerate(inputs["data"]):
+            hits = [i for i, r in enumerate(reqs)
+                    if np.array_equal(ids[:r.shape[1]], r[0])]
+            check(len(hits) == 1 and hits[0] not in where,
+                  f"batch {g} row {row} matches requests {hits}")
+            where[hits[0]] = (g, row)
+    check(sorted(where) == list(range(len(reqs))),
+          f"requests missing from the batches: {sorted(where)}")
+    # queueing: from a request's submit to its batch's dispatch
+    queue_ms = [(groups[where[i][0]][0] - lat[i][0]) * 1e3
+                for i in range(len(reqs))]
+    service = [(b - a) * 1e3 for a, b, _ in groups]
+    print(f"  queueing p50 {percentile(queue_ms, 50):.2f} ms, p99 "
+          f"{percentile(queue_ms, 99):.2f} ms; dispatch + host copy per "
+          f"batch p50 {percentile(service, 50):.2f} ms, p99 "
+          f"{percentile(service, 99):.2f} ms")
+    print(f"  kernel launches on the serving path: {counts}")
+    check(counts["flash_attention"] == L * dispatches
+          and counts["flash_attention.sm90"] == L * dispatches
+          and counts["flash_attention.f32"] == 0,
+          f"flash launches while serving: {counts}; want {L} x "
+          f"{dispatches:.0f} dispatches, all on the sm90 kernel")
+    check(M.SERVE_COMPILES.value == compiles, "traffic built buckets")
+    # the same batches dispatched again: a coalesced result is its row
+    for g, (_, _, inputs) in enumerate(groups):
+        again = routed(inputs)[0]
+        for i, (g_i, row) in where.items():
+            check(g_i != g or np.array_equal(results[i], again[row:row + 1]),
+                  f"request {i}: coalesced result differs from row {row} "
+                  f"of its batch dispatched again")
+    worst, same, same_bucket = 0.0, 0, 0
+    for i, (r, got, want) in enumerate(zip(reqs, results, solo)):
+        check(got.shape[0] == 1 and got.shape[2] == CONFIG["vocab"]
+              and np.isfinite(got.astype(np.float32)).all(),
+              "coalesced result malformed")
+        a = got[:, :r.shape[1]].astype(np.float32)    # the valid region
+        b = want[:, :r.shape[1]].astype(np.float32)
+        same += bool(np.array_equal(a, b))
+        key = pred.spec.route({"data": groups[where[i][0]][2]["data"].shape})
+        if key == pred.spec.route({"data": r.shape}):
+            same_bucket += 1
+            check(np.array_equal(a, b), f"request {i} ran at its solo "
+                  f"bucket {key} and differs from its solo result")
+        else:
+            worst = max(worst, float(np.abs(a - b).max()))
+    print(f"  coalesced vs solo: 32 results equal to their rows of the same "
+          f"batches dispatched again; {same_bucket} of 32 ran at their solo "
+          f"bucket (bitwise equal); {same} of 32 valid regions identical; "
+          f"max |diff| at another bucket {worst:.3e} (limit "
+          f"{TOL_COALESCED_BF16})")
+    check(worst <= TOL_COALESCED_BF16, f"coalesced results differ from "
+          f"solo by {worst:.3e} at another bucket")
+    serve_breakdown(mx, pred, [(1, 16), (1, 128), (1, 512), (1, 1024),
+                               (4, 1024)])
+
+    server = ResilientServer(pred, max_queue=2)
+    server.warmup()
+    ready = server.readyz()
+    check(server.healthz()["ok"] and ready["ready"],
+          f"server not ready: {ready}")
+    burst, shed = [], 0
+    for r in reqs[3::4] * 2:                 # 16 requests at T0=700
+        try:
+            burst.append(server.submit(data=r))
+        except Overloaded as e:
+            check(e.retry_after_s >= 0, "Overloaded without retry-after")
+            shed += 1
+    for f in burst:
+        f.result()
+    late = server.submit(data=reqs[0], deadline_ms=0.0)
+    try:
+        late.result()
+        check(False, "a request past its deadline was served")
+    except DeadlineExceeded:
+        pass
+    stats = server.stats()
+    print(f"  ResilientServer max_queue=2: burst of 16, {len(burst)} "
+          f"admitted and served, {shed} shed with Overloaded; a request "
+          f"past its deadline failed with DeadlineExceeded; readyz "
+          f"{server.readyz()['ready']}, expired dispatches "
+          f"{stats['expired_dispatches']}")
+    check(shed >= 1 and stats["expired_dispatches"] == 0
+          and server.readyz()["ready"], f"server stats {stats}")
+    server.close()
+    pred.close()
+    return counts
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -655,7 +994,7 @@ def main():
         print("== phase 1: setup")
         k0 = phase_setup(mx)
         print("== phase 2: flash kernels vs plain version")
-        errs, timings = phase_kernel(mx)
+        errs, timings, short_times = phase_kernel(mx)
         print("== phase 3: scoring, float32, flash vs dense")
         flash, dense = build_nets(mx)
         rs = np.random.RandomState(42)
@@ -673,6 +1012,8 @@ def main():
         print("== phase 7: KV-cache decode")
         del flash, dense
         phase_kv(mx, prompts, static_tokens, static_times)
+        print("== phase 8: serving through the symbol graph")
+        counts = phase_serving(mx, prompts, L)
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -701,6 +1042,14 @@ def main():
                 entry["decode"] = nums
         entry["max_err_all_shapes"] = max(
             e[0] for key, e in errs.items() if key[0] == variant)
+        if variant == "sm90":
+            entry["short"] = {
+                f"B=4 H=16 T={T} D=64 bf16 causal": {
+                    "max_abs_err": errs[(variant, bf16, 4, T, 64, True)][0],
+                    "ms": t["sm90"], "plain_ms": t["plain"],
+                    "bound_ms": bound[0], "bound_by": bound[1],
+                    "library_ms": t["sdpa"]}
+                for T, (t, bound) in short_times.items()}
         return entry
 
     kernels_line = {"kernels": [

@@ -8,9 +8,11 @@ context; ``mx.cpu()`` runs only when the caller asks for it.  The kernels
 that the JAX package wrote in Pallas are hand-written CUDA for Hopper
 (``kernels/``, ``csrc/``), built with nvcc on first use.
 
-This slice serves the flash-attention TransformerLM: scoring and
-static-shape decoding.  It imports torch and numpy, never jax or the JAX
-package.
+``mx.sym`` builds Symbol graphs (a hybridized block traces itself into
+one); ``mx.predictor`` and ``mx.serving`` serve such a graph: the
+flash-attention TransformerLM behind shape buckets, a micro-batcher and an
+admission-controlled server.  It imports torch and numpy, never jax or the
+JAX package.
 """
 
 __version__ = "1.0.0.torch0"
@@ -22,6 +24,11 @@ from .context import Context, current_context, cpu, gpu
 from . import ops  # registers all operators
 from . import ndarray
 from . import ndarray as nd
+from . import attribute
+from .attribute import AttrScope
+from . import symbol
+from . import symbol as sym
+from .symbol import Symbol
 from . import random
 from . import name
 from . import initializer
@@ -29,3 +36,6 @@ from .initializer import init
 from . import kernels
 from . import gluon
 from . import convert
+from . import observability
+from . import predictor
+from . import serving

@@ -7,6 +7,7 @@ dtype names onto ``torch.dtype``s; bfloat16 is first-class.
 """
 from __future__ import annotations
 
+import ast
 import os
 import threading
 from dataclasses import dataclass
@@ -143,14 +144,16 @@ class ParamSchema:
             return None
         if ty in (tuple, "shape"):
             if isinstance(v, str):
-                v = eval(v, {"__builtins__": {}})  # "(2, 2)" from string configs
+                # "(2, 2)" from string configs and graph files: a literal
+                # only, never code
+                v = ast.literal_eval(v)
             if isinstance(v, (int, _np.integer)):
                 return (int(v),)
             # None entries stay None (open-ended slice bounds)
             return tuple(None if x is None else int(x) for x in v)
         if ty == "floats":  # float tuple
             if isinstance(v, str):
-                v = eval(v, {"__builtins__": {}})
+                v = ast.literal_eval(v)
             if isinstance(v, (int, float, _np.integer, _np.floating)):
                 return (float(v),)
             return tuple(float(x) for x in v)

@@ -17,10 +17,11 @@ Decoding:
 * ``beam_search``: the KV cell with beams as batch rows.
 
 The KV cell and the beam step re-compose the same sub-blocks and
-parameters as the forward.  The decode-step export needs the Symbol graph
-and ``save_checkpoint`` (ROADMAP.md, queue item 3), and the
-sequence-parallel attention types need scale-out (queue item 6); both
-raise ``NotImplementedError``.
+parameters as the forward.  The decode-step wrappers are active blocks:
+each traces itself into a Symbol graph once and runs it through its
+``CachedOp``.  The decode-step export needs ``model.save_checkpoint``
+(ROADMAP.md, queue item 3), and the sequence-parallel attention types need
+scale-out (queue item 6); both raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -28,6 +29,7 @@ import numpy as np
 
 from .. import nn
 from ..block import HybridBlock
+from ...symbol import Symbol
 
 
 def _write_frontier(F, tokens, pos, nxt, depth):
@@ -132,11 +134,17 @@ class TransformerLM(HybridBlock):
             self.ln_f = nn.LayerNorm(prefix="lnf_")
             self.head = nn.Dense(vocab, flatten=False, prefix="head_")
 
-    def hybrid_forward(self, F, tokens):
-        if tokens.shape[1] > self._max_len:
+    def forward(self, tokens, *args):
+        # checked here, not in hybrid_forward: a hybridized net traces a
+        # Symbol, which has no shape, and then runs the graph on tensors
+        if not isinstance(tokens, Symbol) and \
+                tokens.shape[1] > self._max_len:
             raise ValueError(
                 f"sequence length {tokens.shape[1]} exceeds max_len "
                 f"{self._max_len} — positions would silently clamp")
+        return super().forward(tokens, *args)
+
+    def hybrid_forward(self, F, tokens):
         pos_ids = F.broadcast_like(
             F.expand_dims(F.arange_like(tokens, axis=1), 0), tokens)
         x = self.tok(tokens) + self.pos(pos_ids)
@@ -278,9 +286,9 @@ class TransformerLM(HybridBlock):
 
     def export_decode_step(self, prefix, batch_size=1):
         raise NotImplementedError(
-            "export_decode_step writes the KV cell as a Symbol graph and a "
-            "checkpoint, which are not ported yet (ROADMAP.md, queue item "
-            "3: Symbol and executor)")
+            "export_decode_step writes the KV cell's graph with "
+            "model.save_checkpoint, which is not ported yet (ROADMAP.md, "
+            "queue item 3: the executor and model checkpoints)")
 
     @staticmethod
     def _sample(last, temperature, rng, top_k=0, top_p=0.0):

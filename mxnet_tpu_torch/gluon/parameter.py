@@ -29,8 +29,10 @@ class DeferredInitializationError(MXNetError):
 
 class Parameter:
     def __init__(self, name, grad_req="write", shape=None, dtype=_np.float32,
-                 init=None, allow_deferred_init=False, differentiable=True):
+                 lr_mult=1.0, wd_mult=1.0, init=None,
+                 allow_deferred_init=False, differentiable=True):
         self._data = None
+        self._var = None
         self._ctx = None
         self._deferred_init = ()
         self._owners = []          # (block, attribute name) pairs
@@ -42,6 +44,8 @@ class Parameter:
         # gradients arrive with the training slice; the tensor is created
         # with requires_grad=False so that serving builds no autograd graph
         self.grad_req = grad_req if differentiable else "null"
+        self.lr_mult = lr_mult
+        self.wd_mult = wd_mult
         self.init = init
         self.allow_deferred_init = allow_deferred_init
 
@@ -145,6 +149,16 @@ class Parameter:
                 return self._deferred_init[1]
             raise MXNetError(f"Parameter {self.name} has not been initialized")
         return self._ctx
+
+    def var(self):
+        """This parameter as a Symbol variable (made once), carrying its
+        shape, dtype, lr/wd multipliers and initializer as attributes."""
+        from .. import symbol
+        if self._var is None:
+            self._var = symbol.Variable(self.name, shape=self.shape,
+                                        dtype=self.dtype, lr_mult=self.lr_mult,
+                                        wd_mult=self.wd_mult, init=self.init)
+        return self._var
 
     def cast(self, dtype):
         self.dtype = np_dtype(dtype)

@@ -7,6 +7,8 @@ carries Zero, One, Uniform, Normal and Xavier.
 """
 from __future__ import annotations
 
+import json
+
 import numpy as _np
 import torch
 
@@ -36,6 +38,13 @@ class InitDesc(str):
 
 
 class Initializer:
+    def __init__(self, **kwargs):
+        self._kwargs = kwargs
+
+    def dumps(self) -> str:
+        """The JSON a Symbol variable's ``__init__`` attribute carries."""
+        return json.dumps([self.__class__.__name__.lower(), self._kwargs])
+
     def __call__(self, desc, arr) -> None:
         if not isinstance(desc, InitDesc):
             desc = InitDesc(str(desc))
@@ -92,6 +101,7 @@ _REG._map["ones"] = One
 @register
 class Uniform(Initializer):
     def __init__(self, scale=0.07):
+        super().__init__(scale=scale)
         self.scale = scale
 
     def _init_weight(self, desc, arr):
@@ -101,6 +111,7 @@ class Uniform(Initializer):
 @register
 class Normal(Initializer):
     def __init__(self, sigma=0.01):
+        super().__init__(sigma=sigma)
         self.sigma = sigma
 
     def _init_weight(self, desc, arr):
@@ -110,6 +121,8 @@ class Normal(Initializer):
 @register
 class Xavier(Initializer):
     def __init__(self, rnd_type="uniform", factor_type="avg", magnitude=3):
+        super().__init__(rnd_type=rnd_type, factor_type=factor_type,
+                         magnitude=magnitude)
         self.rnd_type = rnd_type
         self.factor_type = factor_type
         self.magnitude = float(magnitude)

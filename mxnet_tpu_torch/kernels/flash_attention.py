@@ -16,7 +16,8 @@ bf16, causal): 8.6 GFLOP is about 9 us at 989 TFLOP/s and the 33.6 MB of
 q, k, v and o about 10 us at 3.35 TB/s, so the bytes bound it.
 
 A CPU tensor takes ``dense_reference``, the plain version.  A CUDA tensor
-launches the kernel it routes to or raises: nothing falls back.
+launches the kernel it routes to or raises: nothing falls back.  A meta
+tensor (shape inference) gets an empty output of the right shape.
 """
 from __future__ import annotations
 
@@ -116,8 +117,13 @@ def _launch(variant, q, k, v, scale, causal):
 
 
 def flash_attention_fwd(q, k, v, scale, causal):
-    """O (B, H, Tq, D) from q (B, H, Tq, D), k and v (B, H, Tk, D)."""
-    if q.device.type == "cpu" and k.device.type == "cpu" \
-            and v.device.type == "cpu":
+    """O (B, H, Tq, D) from q (B, H, Tq, D), k and v (B, H, Tk, D).
+
+    Meta tensors (shape inference) give an empty output of O's shape and
+    dtype on the meta device: no numbers are computed, so nothing runs."""
+    devices = {q.device.type, k.device.type, v.device.type}
+    if devices == {"cpu"}:
         return dense_reference(q, k, v, scale, causal)
+    if devices == {"meta"}:
+        return torch.empty_like(q)
     return _launch(_variant(q.dtype, q.shape[3]), q, k, v, scale, causal)

@@ -124,23 +124,24 @@ def load_numpy(fname: str):
         return _unpack(z)
 
 
-def _to_tensors(host):
+def _to_tensors(host, ctx):
     if isinstance(host, list):
-        return [array(a) for a in host]
+        return [array(a, ctx=ctx) for a in host]
     if isinstance(host, dict):
-        return {k: array(a) for k, a in host.items()}
-    return array(host)
+        return {k: array(a, ctx=ctx) for k, a in host.items()}
+    return array(host, ctx=ctx)
 
 
-def load(fname: str):
-    """What ``save`` wrote, as tensors on the current context."""
-    return _to_tensors(load_numpy(fname))
+def load(fname: str, ctx=None):
+    """What ``save`` wrote, as tensors on ``ctx`` (default: the current
+    context)."""
+    return _to_tensors(load_numpy(fname), ctx)
 
 
-def load_frombuffer(buf):
+def load_frombuffer(buf, ctx=None):
     """``load`` from an in-memory copy of the file (parity:
     MXNDArrayLoadFromBuffer)."""
     buf = bytes(buf)
     _check_container(buf, "<buffer>")
     with _np.load(io.BytesIO(buf), allow_pickle=False) as z:
-        return _to_tensors(_unpack(z))
+        return _to_tensors(_unpack(z), ctx)

@@ -1,17 +1,18 @@
-"""Elementwise operators: the unary table, binary broadcast ops and their
-scalar variants.
+"""Elementwise operators: the unary table, binary broadcast ops, their
+scalar variants and ``Cast``.
 
 The counterpart of part of ``mxnet_tpu/ops/elemwise.py``: the unary table
 (``floor`` among it, which beam search uses), binary broadcast ops with
-their ``elemwise_*`` aliases and the scalar variants.  Inside blocks the
-same arithmetic is written with Python operators on ``torch.Tensor``, which
-broadcast the same way.
+their ``elemwise_*`` aliases and the ``_power``/``_maximum``/... names
+Symbol graphs use, and the scalar variants.  Inside blocks the same
+arithmetic is written with Python operators on ``torch.Tensor``, which
+broadcast the same way (on Symbols, the operators build these ops).
 """
 from __future__ import annotations
 
 import torch
 
-from ..base import Arg
+from ..base import Arg, torch_dtype
 from .registry import register
 
 
@@ -86,15 +87,29 @@ for _name, _f in _UNARY.items():
 
 register("softrelu", input_names=("data",))(lambda p, x: _softrelu(x))
 
+def _bool_out(f):
+    return lambda a, b: f(a, b).to(torch.result_type(a, b))
+
+
 _BINARY = {
     "add": torch.add,
     "sub": torch.sub,
     "mul": torch.mul,
     "div": torch.div,
+    "power": torch.pow,
+    "maximum": torch.maximum,
+    "minimum": torch.minimum,
+    "hypot": torch.hypot,
+    "equal": _bool_out(torch.eq),
 }
 
 _ELEMWISE_ALIAS = {"add": ("elemwise_add", "_plus"), "sub": ("elemwise_sub", "_minus"),
-                   "mul": ("elemwise_mul",), "div": ("elemwise_div",)}
+                   "mul": ("elemwise_mul",), "div": ("elemwise_div",),
+                   # the names the Symbol free functions and graph files use
+                   # (the JAX package's ops/compat.py aliases)
+                   "power": ("_power",), "maximum": ("_maximum",),
+                   "minimum": ("_minimum",), "hypot": ("_hypot",),
+                   "equal": ("_equal",)}
 
 for _name, _f in _BINARY.items():
     register("broadcast_" + _name, input_names=("lhs", "rhs"),
@@ -109,8 +124,20 @@ _SCALAR = {
     "_mul_scalar": lambda x, s: x * s,
     "_div_scalar": lambda x, s: x / s,
     "_rdiv_scalar": lambda x, s: s / x,
+    "_power_scalar": lambda x, s: torch.pow(x, s),
+    "_rpower_scalar": lambda x, s: torch.pow(s, x),
+    "_maximum_scalar": lambda x, s: torch.clamp(x, min=s),
+    "_minimum_scalar": lambda x, s: torch.clamp(x, max=s),
+    "_hypot_scalar": lambda x, s: torch.hypot(x, torch.full_like(x, s)),
+    "_equal_scalar": lambda x, s: (x == s).to(x.dtype),
 }
 
 for _name, _f in _SCALAR.items():
     register(_name, input_names=("data",), args=[Arg("scalar", float, required=True)])(
         (lambda f: lambda p, x: f(x, p["scalar"]))(_f))
+
+
+@register("Cast", input_names=("data",), aliases=("cast",),
+          args=[Arg("dtype", str, required=True)])
+def _cast(p, x):
+    return x.to(torch_dtype(p["dtype"]))

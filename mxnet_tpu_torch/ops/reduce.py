@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import torch
 
-from ..base import Arg, MXNetError
+from ..base import Arg
 from .registry import register
 
 
@@ -30,11 +30,10 @@ def _argmax(p, x):
                 Arg("is_ascend", bool, False), Arg("dtype", str, "float32")],
           differentiable=False)
 def _topk(p, x):
-    """Parity: src/operator/tensor/ordering_op.cc TopK, ``ret_typ``
-    'indices' (float32) or 'value'."""
-    if p["ret_typ"] not in ("indices", "value"):
-        raise MXNetError(f"topk: ret_typ {p['ret_typ']!r} is not ported "
-                         "('indices' or 'value')")
+    """Parity: src/operator/tensor/ordering_op.cc TopK.  ``ret_typ``
+    'indices' gives float32 indices; every other value gives the values,
+    as the JAX package does ('both' and 'mask' included, where upstream
+    MXNet returns [values, indices] and a 0/1 mask)."""
     axis = p["axis"] % x.dim()
     xm = torch.movedim(x, axis, -1)
     key = xm if p["is_ascend"] else -xm

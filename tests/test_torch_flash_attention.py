@@ -85,12 +85,24 @@ def test_cpu_path_never_launches():
     assert torch.equal(out, ref)
 
 
-def test_non_cpu_tensor_never_takes_the_plain_version():
-    """Off the CPU the wrapper launches the kernel or raises; a tensor on
-    another device (here 'meta') is refused, not computed."""
-    q = torch.empty((1, 2, 64, 16), device="meta")
+def test_non_cpu_tensor_never_takes_the_plain_version(monkeypatch):
+    """Off the CPU the wrapper launches the kernel or raises.  Meta
+    tensors (shape inference) get an empty meta output of O's shape with
+    neither the plain version nor a kernel run; a meta tensor beside a CPU
+    one is refused, not computed."""
+    def plain(*a):
+        raise AssertionError("the plain version ran off the CPU")
+
+    monkeypatch.setattr(kfa, "dense_reference", plain)
+    before = kfa.LAUNCHES
+    q = torch.empty((1, 2, 64, 16), device="meta", dtype=torch.bfloat16)
+    k = torch.empty((1, 2, 80, 16), device="meta", dtype=torch.bfloat16)
+    out = kfa.flash_attention_fwd(q, k, k, 0.25, False)
+    assert out.device.type == "meta" and out.shape == q.shape \
+        and out.dtype == q.dtype and kfa.LAUNCHES == before
     with pytest.raises(MXNetError):
-        kfa.flash_attention_fwd(q, q, q, 0.25, False)
+        kfa.flash_attention_fwd(q, torch.empty(k.shape, dtype=k.dtype), k,
+                                0.25, False)
 
 
 def _sm90_emulation(q, k, v, scale, causal, bn=kfa.SM90_BLOCK_N):

@@ -159,9 +159,13 @@ def test_ordering_ops_match_jax(op, x, kw, exact):
     _both(op, x, exact, **kw)
 
 
-def test_topk_refuses_unported_ret_typ():
-    with pytest.raises(MXNetError, match="ret_typ"):
-        mxt.nd.topk(_t(_TIES), k=2, ret_typ="both")
+@pytest.mark.parametrize("ret_typ", ["both", "mask"])
+def test_topk_both_and_mask_match_jax(ret_typ):
+    """The JAX package returns the values for 'both' and 'mask' (a fault
+    of the reference: upstream MXNet returns [values, indices] and a 0/1
+    mask); the port returns what it returns."""
+    _both("topk", _TIES, True, k=2, ret_typ=ret_typ)
+    _both("topk", _X, True, k=3, axis=1, ret_typ=ret_typ, is_ascend=True)
 
 
 SOFTMAX = [("softmax", {}), ("softmax", {"axis": 0}),
