@@ -12,8 +12,9 @@ own entry points and holds every kernel against its plain version:
    toolchain probe ``add_one`` and time it beside ``x + 1``;
 2. the flash-attention kernels against their plain version on the card:
    the bf16 tensor-core kernel (``sm90``) at the scoring shape (B=4, H=16,
-   T=1024, D=64), the decode shape (B=1), D=128 at T=128 and a ragged
-   T=100, the float32 kernel (``f32``) at the same shapes in float32 and at
+   T=1024, D=64), the decode shape (B=1), phase 9's training and gradient
+   check batches (B=8, B=2), D=128 at T=128 and a ragged T=100, the
+   float32 kernel (``f32``) at the same shapes in float32 and at
    D 16 and 32 in bfloat16 (gates ``TOL_*`` below: float32 absolute,
    bfloat16 absolute and over the largest output); both kernels causal at
    the short sequences the serving buckets send them (B=4, T 1, 2, 16 and
@@ -62,12 +63,30 @@ own entry points and holds every kernel against its plain version:
    dispatch and host-copy time per bucket; and a ``ResilientServer`` that
    sheds a burst with ``Overloaded`` and fails a request past its deadline
    with ``DeadlineExceeded``;
-9. a ``kernels`` JSON line (its ``launches`` are phase 8's), then the last
-   line ``{"ok": true, "device": {...}}``.
+9. training: the flash backward K1b (``csrc/flash_attention_bwd.cu``)
+   against its plain version at the training shape (B=8, H=16, T=1024,
+   D=64, causal, bf16 and float32; non-causal; T=64 at D 16 and 32; a
+   ragged T=100), gated at ``TOL_BWD_*`` of each output's largest
+   magnitude, and its time beside the plain version's, the bound and the
+   backward of ``scaled_dot_product_attention`` (the yardstick); a float32
+   gradient check of a 2-layer full-width flash net against the same net
+   with attention's gradient taken by autograd of the dense formula
+   (``TOL_GRAD_F32``); then the training main path: the bf16 ``TrainStep``
+   of ``experiments/lm_mfu_probe.py`` with ``Trainer("sgd", momentum 0.9,
+   multi_precision)``, every kernel count set to 0, 6 steps on one batch
+   of B=8, T=1024 (finite, falling loss; the first step's float32 master of
+   one weight moved by -lr * rescale_grad * grad, within ``TOL_MASTER``;
+   12 sm90 and 12 K1b launches and no f32 one per step), its step time,
+   tokens/s and peak memory, then one step under torch.profiler;
+10. a ``kernels`` JSON line (the forward kernels' ``launches`` are phase
+   8's, with phase 9's as ``training_launches``; K1b's are phase 9's),
+   then the last line ``{"ok": true, "device": {...}}``.
 
 The model is ``experiments/lm_mfu_probe.py``'s default width (vocab 32768,
 dim 1024, 16 heads, ffn 4096, 12 layers, max_len 1024; about 219 M
-parameters) with random weights from seed 0.  Nothing is cut.
+parameters) with random weights from seed 0.  Nothing is cut but the
+number of training steps (6, where the probe times 20) and the gradient
+check's depth (2 layers).
 
 Times: ``device`` is the CUDA-event time of 20 back-to-back calls queued
 behind a spin kernel, per call (L2 warm): the kernels and the gaps between
@@ -117,6 +136,23 @@ TOL_COALESCED_BF16 = 0.125
 NEAR_TIE = 1e-4     # top-2 dense logits closer than this may flip argmax
 TOL_BEAM = 1e-3     # beam log-prob vs a teacher-forced rescoring, float32
 BEAM_PROMPT = 100   # the prompt of the sampled, beam and checkpoint checks
+TRAIN_BATCH = 8     # phase 9's main path: B=8, T=1024, as lm_mfu_probe's
+TRAIN_STEPS = 6
+GRAD_LAYERS = 2     # phase 9's float32 gradient check: 2 layers, B=2
+GRAD_BATCH = 2
+# K1b vs plain, max |grad - ref| over max |ref| of each of dq, dk, dv:
+# float32 at the flash forward's pin, bfloat16 at the reference's bf16 pin
+TOL_BWD_F32 = 1e-4
+TOL_BWD_BF16 = 3e-2
+# K1b's parameter gradients through 2 full-width layers against the same
+# net with a dense-formula attention gradient, float32, max |diff| over the
+# gradient's largest magnitude
+TOL_GRAD_F32 = 1e-3
+# the first training step's float32 master of one weight against the start
+# plus -lr * rescale_grad * grad (momentum is 0 before it, wd is 0), max
+# |diff| over max |step|: the same float32 sum in another order differs by
+# an ulp of the weight, a few 1e-3 of the step
+TOL_MASTER = 1e-2
 H100_BF16_FLOPS = 989e12
 H100_F32_FLOPS = 67e12
 H100_BYTES = 3.35e12
@@ -176,13 +212,16 @@ def device_ms(fn, iters=20):
     return start.elapsed_time(end) / iters
 
 
-def attention_bound_ms(B, H, T, D, causal, itemsize, flops_rate):
+def attention_bound_ms(B, H, T, D, causal, itemsize, flops_rate,
+                       ops_per_pair=4, tensors=4):
     """Least time for the work this input needs: the larger of its bytes
-    (q, k, v read once, o written once) over the memory rate and its
-    operations (4*D per unmasked (q, k) pair) over the peak rate."""
+    (``tensors`` (B, H, T, D) tensors, each read or written once: q, k, v
+    and o for the forward) over the memory rate and its operations
+    (``ops_per_pair`` * D per unmasked (q, k) pair: 4 for the forward's two
+    products) over the peak rate."""
     pairs = T * (T + 1) // 2 if causal else T * T
-    flops = 4.0 * B * H * D * pairs
-    nbytes = 4.0 * B * H * T * D * itemsize
+    flops = float(ops_per_pair) * B * H * D * pairs
+    nbytes = float(tensors) * B * H * T * D * itemsize
     t_ops, t_bytes = flops / flops_rate * 1e3, nbytes / H100_BYTES * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops > t_bytes else "bytes")
 
@@ -238,6 +277,8 @@ def phase_kernel(mx):
     errs = {}      # (variant, dtype, B, T, D, causal) -> (abs, rel) err
     short_times = {}   # T -> ({name: device ms}, bound) at B=4, bf16
     cases = [(4, 16, 1024, 64, None), (1, 16, 1024, 64, None),
+             (TRAIN_BATCH, 16, 1024, 64, None),     # phase 9's main path
+             (GRAD_BATCH, 16, 1024, 64, None),      # and its gradient check
              (2, 3, 128, 16, 32), (2, 3, 128, 32, 32), (2, 3, 128, 128, 32),
              (1, 2, 100, 64, None)]
     for B, H, T, D, blk in cases:
@@ -443,16 +484,19 @@ def reset_counts():
         mod.LAUNCHES = 0
     for variant in kfa.VARIANT_LAUNCHES:
         kfa.VARIANT_LAUNCHES[variant] = 0
+    kfa.BWD_LAUNCHES = 0
 
 
 def read_counts():
-    """{kernel: launches}, with the flash kernel also by variant."""
+    """{kernel module: launches}, with the flash forward also by variant
+    and the flash backward (K1b) on its own."""
     from mxnet_tpu_torch import kernels
     from mxnet_tpu_torch.kernels import flash_attention as kfa
     counts = {mod.__name__.rsplit(".", 1)[1]: mod.LAUNCHES
               for mod in kernels.ALL}
     counts.update({f"flash_attention.{v}": n
                    for v, n in kfa.VARIANT_LAUNCHES.items()})
+    counts["flash_attention.bwd"] = kfa.BWD_LAUNCHES
     return counts
 
 
@@ -973,6 +1017,285 @@ def phase_serving(mx, prompts, L):
     return counts
 
 
+def train_step_block(mx, net):
+    """``experiments/lm_mfu_probe.py``'s TrainStep: the net and a float32
+    next-token cross-entropy as one hybridized block."""
+    class TrainStep(mx.gluon.HybridBlock):
+        def __init__(self, net, vocab, **kw):
+            super().__init__(**kw)
+            self._v = vocab
+            with self.name_scope():
+                self.net = net
+
+        def hybrid_forward(self, F, tokens, labels):
+            logits = self.net(tokens)                       # (B, T, V)
+            logits = F.cast(F.reshape(logits, (-1, self._v)), "float32")
+            lp = F.log_softmax(logits, axis=-1)
+            nll = -F.pick(lp, F.reshape(labels, (-1,)), axis=-1)
+            return F.mean(nll)
+
+    step = TrainStep(net, CONFIG["vocab"])
+    step.hybridize()
+    return step
+
+
+def phase_train_kernel(mx):
+    """K1b against its plain version at the training shape and the short
+    ones, then its time beside the plain version's, the bound and the
+    backward of ``scaled_dot_product_attention`` (the yardstick)."""
+    import torch
+    from mxnet_tpu_torch.kernels import flash_attention as kfa
+    gen = torch.Generator(device="cpu").manual_seed(1)
+
+    def inputs(B, H, T, D, dtype, causal):
+        q, k, v, do = (torch.randn(B, H, T, D, generator=gen).to(
+            "cuda", dtype) for _ in range(4))
+        return q, k, v, kfa.flash_attention_fwd(q, k, v, D ** -0.5,
+                                                causal), do
+
+    errs = {}
+    for B, H, T, D, causal in ((TRAIN_BATCH, 16, 1024, 64, True),
+                               (TRAIN_BATCH, 16, 1024, 64, False),
+                               (1, 2, 64, 16, True), (1, 2, 64, 32, True),
+                               (1, 2, 100, 64, True)):
+        for dtype, tol in ((torch.float32, TOL_BWD_F32),
+                           (torch.bfloat16, TOL_BWD_BF16)):
+            q, k, v, o, do = inputs(B, H, T, D, dtype, causal)
+            before = kfa.BWD_LAUNCHES
+            got = kfa.flash_attention_bwd(q, k, v, o, do, D ** -0.5, causal)
+            want = kfa.bwd_reference(q, k, v, o, do, D ** -0.5, causal)
+            torch.cuda.synchronize()
+            check(kfa.BWD_LAUNCHES == before + 1,
+                  f"K1b did not launch at {(B, H, T, D)} {dtype}")
+            worst = (0.0, 0.0)
+            for g, w, name in zip(got, want, ("dq", "dk", "dv")):
+                check(g.shape == w.shape and g.dtype == dtype
+                      and bool(torch.isfinite(g).all()),
+                      f"K1b {name} malformed at {(B, H, T, D)} {dtype}")
+                err = (g.float() - w.float()).abs().max().item()
+                rel = err / w.float().abs().max().item()
+                check(rel <= tol, f"K1b {name} vs plain at B={B} H={H} T={T}"
+                      f" D={D} {dtype} causal={causal}: max err {err:.3e}, "
+                      f"over max |ref| {rel:.3e} > {tol}")
+                worst = max(worst, (rel, err))
+            errs[(dtype, B, T, D, causal)] = (worst[1], worst[0])
+            print(f"  K1b B={B} H={H} T={T} D={D} {str(dtype)[6:]} "
+                  f"causal={causal}: max err {worst[1]:.3e}, over max |ref| "
+                  f"{worst[0]:.3e} (worst of dq, dk, dv)")
+    times = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v, o, do = inputs(TRAIN_BATCH, 16, 1024, 64, dtype, True)
+        qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
+        out = torch.nn.functional.scaled_dot_product_attention(
+            qs, ks, vs, is_causal=True, scale=0.125)
+        row = {"k1b": device_ms(lambda: kfa.flash_attention_bwd(
+                   q, k, v, o, do, 0.125, True)),
+               "plain": device_ms(lambda: kfa.bwd_reference(
+                   q, k, v, o, do, 0.125, True)),
+               "sdpa_bwd": device_ms(lambda: torch.autograd.grad(
+                   out, (qs, ks, vs), do, retain_graph=True))}
+        rate = H100_BF16_FLOPS if dtype == torch.bfloat16 else H100_F32_FLOPS
+        # the backward's five products (S, dO V^T, dV, dQ, dK) and its
+        # eight tensors (q, k, v, o, dO in; dq, dk, dv out)
+        row["bound"] = attention_bound_ms(
+            TRAIN_BATCH, 16, 1024, 64, True, q.element_size(), rate,
+            ops_per_pair=10, tensors=8)
+        times[dtype] = row
+        print(f"  time K1b B={TRAIN_BATCH} H=16 T=1024 D=64 "
+              f"{str(dtype)[6:]} causal, device ms: " + ", ".join(
+                  f"{n} {t:.4f}" for n, t in row.items() if n != "bound")
+              + f"; bound {row['bound'][0]:.4f} ({row['bound'][1]})")
+    return errs, times
+
+
+def phase_grad_check(mx):
+    """Float32 parameter gradients of a 2-layer full-width flash net
+    through the TrainStep at B=2, T=1024, against a twin: the same net and
+    forward (K1 included) with attention's gradient taken by torch's
+    autograd of the dense formula instead of K1b.  Sharing the forward
+    isolates K1b: a dense-attention net's own forward differs from K1's by
+    float rounding, which flips the few ReLUs that sit that close to 0, and
+    a flipped unit moves the gradient of its FFN weights by far more than
+    K1b's error."""
+    import numpy as np
+    import torch
+    from mxnet_tpu_torch.gluon.model_zoo.transformer import TransformerLM
+    from mxnet_tpu_torch.kernels import flash_attention as kfa
+    from mxnet_tpu_torch.ops.flash_attention import FlashAttentionFn
+    cfg = dict(CONFIG, num_layers=GRAD_LAYERS)
+    mx.random.seed(0)
+    flash = TransformerLM(**cfg, attn_type="flash")
+    flash.initialize(mx.init.Xavier(), ctx=mx.gpu(0))
+    flash(mx.nd.array(np.zeros((1, 8), np.float32), ctx=mx.gpu(0)))
+    toks = np.random.RandomState(1).randint(
+        0, cfg["vocab"], (GRAD_BATCH, cfg["max_len"] + 1)).astype(np.float32)
+    x = mx.nd.array(toks[:, :-1], ctx=mx.gpu(0))
+    y = mx.nd.array(toks[:, 1:], ctx=mx.gpu(0))
+    params = flash.collect_params()
+
+    def dense_formula_backward(ctx, do):
+        q, k, v, _ = ctx.saved_tensors
+        with torch.enable_grad():
+            qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
+            o = kfa.dense_reference(qs, ks, vs, ctx.scale, ctx.causal)
+            return (*torch.autograd.grad(o, (qs, ks, vs), do), None, None)
+
+    step = train_step_block(mx, flash)
+
+    def grads(want_bwd):
+        before = kfa.BWD_LAUNCHES
+        with mx.autograd.record():
+            loss = step(x, y)
+        loss.backward()
+        torch.cuda.synchronize()
+        check(kfa.BWD_LAUNCHES - before == want_bwd, f"K1b launched "
+              f"{kfa.BWD_LAUNCHES - before} times, want {want_bwd}")
+        return loss.item(), {n: p.grad().clone() for n, p in params.items()}
+
+    f32_before = kfa.VARIANT_LAUNCHES["f32"]
+    loss_f, g_flash = grads(GRAD_LAYERS)
+    check(kfa.VARIANT_LAUNCHES["f32"] - f32_before == GRAD_LAYERS,
+          "the f32 gradient check did not run the f32 K1 in every layer")
+    k1b = FlashAttentionFn.backward
+    FlashAttentionFn.backward = staticmethod(dense_formula_backward)
+    try:
+        loss_t, g_twin = grads(0)
+    finally:
+        FlashAttentionFn.backward = k1b
+    rows = []
+    for n, g in g_twin.items():
+        check(bool(torch.isfinite(g_flash[n]).all()),
+              f"flash gradient {n} not finite")
+        scale = g.abs().max().item()
+        check(scale > 0, f"twin gradient {n} is zero")
+        rows.append(((g_flash[n] - g).abs().max().item() / scale, n))
+    vs_twin = sorted(rows, reverse=True)
+    print(f"gradient check f32, {GRAD_LAYERS} layers, B={GRAD_BATCH} "
+          f"T={cfg['max_len']}, {len(params)} parameter gradients; K1b "
+          f"launches {GRAD_LAYERS}; losses: flash {loss_f:.6f}, twin "
+          f"{loss_t:.6f}")
+    print(f"  vs the twin (same forward, dense-formula attention gradient): "
+          f"worst max |diff| over max |twin| {vs_twin[0][0]:.3e} "
+          f"({vs_twin[0][1]}; limit {TOL_GRAD_F32})")
+    check(vs_twin[0][0] <= TOL_GRAD_F32, f"K1b's gradient of "
+          f"{vs_twin[0][1]} differs from the twin's by {vs_twin[0][0]:.3e} "
+          "of its largest magnitude")
+
+
+def phase_train(mx):
+    """The training main path in bfloat16, with every kernel count set to
+    0 first: the probe's hybridized TrainStep, SGD with momentum 0.9 and
+    float32 master weights, TRAIN_STEPS steps on one fixed batch."""
+    import gc
+    import numpy as np
+    import torch
+    from mxnet_tpu_torch.gluon.model_zoo.transformer import TransformerLM
+    L = CONFIG["num_layers"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    mx.random.seed(0)
+    t0 = time.perf_counter()
+    net = TransformerLM(**CONFIG, attn_type="flash")
+    net.initialize(mx.init.Xavier(), ctx=mx.gpu(0))
+    net(mx.nd.array(np.zeros((1, 8), np.float32), ctx=mx.gpu(0)))
+    step = train_step_block(mx, net)
+    step.cast("bfloat16")
+    lr = 0.01
+    trainer = mx.gluon.Trainer(step.collect_params(), "sgd",
+                               {"learning_rate": lr, "momentum": 0.9,
+                                "multi_precision": True})
+    # the weight whose float32 master the first step is held to
+    probe = next(i for i, p in enumerate(trainer._params)
+                 if p.name.endswith(f"l{L - 1}_ffn2_weight"))
+    toks = np.random.RandomState(0).randint(
+        0, CONFIG["vocab"], (TRAIN_BATCH, CONFIG["max_len"] + 1)).astype(
+            np.float32)
+    x = mx.nd.array(toks[:, :-1], ctx=mx.gpu(0))
+    y = mx.nd.array(toks[:, 1:], ctx=mx.gpu(0))
+    print(f"train net: bf16 with f32 masters, built in "
+          f"{time.perf_counter() - t0:.1f} s")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    losses, walls, per_step = [], [], []
+    for i in range(TRAIN_STEPS):
+        before = read_counts()
+        t0 = time.perf_counter()
+        with mx.autograd.record():
+            loss = step(x, y)
+        loss.backward()
+        if i == 0:
+            weight = trainer._params[probe]
+            start, grad = weight.data().float(), weight.grad().float()
+        trainer.step(TRAIN_BATCH)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        if i == 0:
+            master = trainer._updater.states[probe][1]
+            moved = -lr * (grad * (1.0 / TRAIN_BATCH))
+            scale = moved.abs().max().item()
+            master_err = (master - (start + moved)).abs().max().item() / scale
+            check(scale > 0 and master_err <= TOL_MASTER, f"the first step "
+                  f"moved {weight.name}'s float32 master by other than "
+                  f"-lr * rescale_grad * grad: max |diff| over max |step| "
+                  f"{master_err:.3e}")
+            check(torch.equal(weight.data(), master.to(torch.bfloat16)),
+                  f"{weight.name} is not its float32 master rounded")
+            del start, grad, moved      # out of the later steps' peak
+        losses.append(loss.item())
+        after = read_counts()
+        per_step.append({k: after[k] - before[k] for k in after})
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    steady = statistics.median(walls[1:])
+    print(f"main path training bf16, B={TRAIN_BATCH} T={CONFIG['max_len']}:"
+          f" losses {[round(v, 4) for v in losses]}")
+    print(f"  step times (host clock, synchronized) "
+          f"{[round(w * 1e3, 1) for w in walls]} ms; after the first: median "
+          f"{steady * 1e3:.1f} ms, {TRAIN_BATCH * CONFIG['max_len'] / steady:.0f}"
+          f" tokens/s; peak memory {peak / 2 ** 30:.2f} GiB "
+          f"(max_memory_allocated)")
+    print(f"  first step, {weight.name}: float32 master against the start "
+          f"plus -lr * rescale_grad * grad, max |diff| over max |step| "
+          f"{master_err:.3e} (limit {TOL_MASTER}; largest step {scale:.3e})")
+    print(f"  kernel launches on the training path: {counts}")
+    check(all(np.isfinite(losses)), f"training losses not finite: {losses}")
+    check(losses[-1] < losses[0], f"training loss did not fall: {losses}")
+    for i, c in enumerate(per_step):
+        check(c["flash_attention.sm90"] == L and c["flash_attention.f32"] == 0
+              and c["flash_attention.bwd"] == L,
+              f"step {i}: launches {c}; want {L} sm90, 0 f32 and {L} K1b")
+
+    def one_step():
+        with mx.autograd.record():
+            loss = step(x, y)
+        loss.backward()
+        trainer.step(TRAIN_BATCH)
+
+    # where a step's time goes, outside the counted run
+    rows = kernel_rows(one_step)
+    if rows:
+        groups = {"K1b": ("dq_kernel", "dkdv_kernel"),
+                  "K1": ("flash_attention_fwd",),
+                  "GEMM": ("nvjet", "gemm", "xmma", "cutlass")}
+        busy = sum(r[0] for r in rows)
+        shares = {g: sum(r[0] for r in rows
+                         if any(k in r[2] for k in keys))
+                  for g, keys in groups.items()}
+        print(f"  one step under torch.profiler: {busy:.3f} ms of kernel "
+              f"time in {sum(r[1] for r in rows)} launches, "
+              f"{100 * busy / (steady * 1e3):.1f}% of the median step; "
+              + ", ".join(f"{g} {ms:.3f} ms" for g, ms in shares.items())
+              + f", other {busy - sum(shares.values()):.3f} ms")
+        for ms, count, key in rows[:10]:
+            print(f"  {ms:8.3f} ms  x{count:<4d} {key[:90]}")
+    else:
+        print("  step kernel time not measured: torch.profiler saw no "
+              "device time")
+    return counts, {"step_ms": steady * 1e3, "peak_gib": peak / 2 ** 30,
+                    "losses": losses}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1014,6 +1337,12 @@ def main():
         phase_kv(mx, prompts, static_tokens, static_times)
         print("== phase 8: serving through the symbol graph")
         counts = phase_serving(mx, prompts, L)
+        print("== phase 9: training")
+        t_train = time.perf_counter()
+        bwd_errs, bwd_times = phase_train_kernel(mx)
+        phase_grad_check(mx)
+        train_counts, _ = phase_train(mx)
+        print(f"phase 9: {time.perf_counter() - t_train:.1f} s")
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -1052,6 +1381,30 @@ def main():
                 for T, (t, bound) in short_times.items()}
         return entry
 
+    def bwd_entry():
+        """K1b at the training shape in bf16 (its launches are phase 9's
+        main path), the float32 numbers beside it."""
+        entry = {"name": "flash_attention_bwd", "route": "cuda",
+                 "source": "mxnet_tpu_torch/csrc/flash_attention_bwd.cu",
+                 "replaces": "mxnet_tpu/ops/flash_attention.py:224",
+                 "replaces_function": "mxnet_tpu/ops/flash_attention.py:"
+                                      "_fa_bwd (plain jnp, not Pallas)",
+                 "launches": train_counts["flash_attention.bwd"]}
+        for dtype in (bf16, f32):
+            t = bwd_times[dtype]
+            err, rel = bwd_errs[(dtype, TRAIN_BATCH, 1024, 64, True)]
+            nums = {"shape": f"B={TRAIN_BATCH} H=16 T=1024 D=64 "
+                             f"{str(dtype)[6:]} causal",
+                    "max_abs_err": err, "max_rel_err": rel, "ms": t["k1b"],
+                    "plain_ms": t["plain"], "bound_ms": t["bound"][0],
+                    "bound_by": t["bound"][1], "library_ms": t["sdpa_bwd"]}
+            if dtype == bf16:
+                entry.update(nums)
+            else:
+                entry["f32"] = nums
+        entry["max_rel_err_all_shapes"] = max(e[1] for e in bwd_errs.values())
+        return entry
+
     kernels_line = {"kernels": [
         {"name": "add_one", "route": "cuda",
          "source": "mxnet_tpu_torch/csrc/add_one.cu",
@@ -1066,7 +1419,10 @@ def main():
         flash_entry("flash_attention_fwd", "f32",
                     "mxnet_tpu_torch/csrc/flash_attention_fwd.cu", f32,
                     counts["flash_attention.f32"]),
+        bwd_entry(),
     ]}
+    for entry, variant in zip(kernels_line["kernels"][1:3], ("sm90", "f32")):
+        entry["training_launches"] = train_counts[f"flash_attention.{variant}"]
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(kernels_line))
     print(json.dumps({"ok": True, "device": {

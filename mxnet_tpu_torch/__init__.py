@@ -11,8 +11,10 @@ that the JAX package wrote in Pallas are hand-written CUDA for Hopper
 ``mx.sym`` builds Symbol graphs (a hybridized block traces itself into
 one); ``mx.predictor`` and ``mx.serving`` serve such a graph: the
 flash-attention TransformerLM behind shape buckets, a micro-batcher and an
-admission-controlled server.  It imports torch and numpy, never jax or the
-JAX package.
+admission-controlled server.  ``mx.autograd``, ``mx.optimizer``,
+``mx.lr_scheduler``, ``gluon.loss`` and ``gluon.Trainer`` train it, with
+the flash kernel's hand-written backward.  It imports torch and numpy,
+never jax or the JAX package.
 """
 
 __version__ = "1.0.0.torch0"
@@ -21,6 +23,7 @@ from . import base
 from .base import MXNetError
 from . import context
 from .context import Context, current_context, cpu, gpu
+from . import autograd
 from . import ops  # registers all operators
 from . import ndarray
 from . import ndarray as nd
@@ -34,6 +37,8 @@ from . import name
 from . import initializer
 from .initializer import init
 from . import kernels
+from . import lr_scheduler
+from . import optimizer
 from . import gluon
 from . import convert
 from . import observability

@@ -28,6 +28,7 @@ from typing import Dict, List
 import torch
 
 from ..base import MXNetError, np_dtype
+from .. import autograd
 from .. import ndarray as nd
 from .. import symbol as sym_mod
 from ..symbol import Symbol
@@ -183,6 +184,17 @@ class Block(torch.nn.Module):
         for _, param in self.params.items():
             param.cast(dtype)
 
+    def __call__(self, *args, **kwargs):
+        """Runs the block with torch's grad mode equal to
+        ``autograd.is_recording()``: outside ``record()`` (or under
+        ``pause()``) no autograd graph is built, whatever requires
+        gradients."""
+        rec = autograd.is_recording()
+        if torch.is_grad_enabled() == rec:
+            return super().__call__(*args, **kwargs)
+        with torch.set_grad_enabled(rec):
+            return super().__call__(*args, **kwargs)
+
     def forward(self, *args):
         raise NotImplementedError
 
@@ -190,14 +202,19 @@ class Block(torch.nn.Module):
 class CachedOp:
     """A traced graph, ready to run (parity: Imperative::CachedOp,
     src/imperative/cached_op.cc).  The ``GraphPlan`` is built once; each
-    call runs it eagerly on the tensors it is given, on their device."""
+    call runs it eagerly on the tensors it is given, on their device, in
+    train mode when ``autograd.is_training()``.  Under
+    ``autograd.record()`` its ops record like any others, so the graph is
+    differentiable as a whole (the JAX package takes the vjp of the jitted
+    graph instead)."""
 
     def __init__(self, symbol: Symbol):
         self.symbol = symbol
         self.plan = GraphPlan(symbol)
 
     def __call__(self, arg_arrays: Dict[str, torch.Tensor]):
-        outs, _ = self.plan.run(arg_arrays)
+        outs, _ = self.plan.run(arg_arrays,
+                                is_train=autograd.is_training())
         return outs
 
 

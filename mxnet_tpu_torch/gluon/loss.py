@@ -1,0 +1,211 @@
+"""gluon losses (parity: python/mxnet/gluon/loss.py:66-656).
+
+The counterpart of ``mxnet_tpu/gluon/loss.py``, the same HybridBlocks over
+``F`` ops: L2, L1, SigmoidBinaryCrossEntropy, SoftmaxCrossEntropy, KLDiv,
+Huber, Hinge, SquaredHinge, Logistic and Triplet.  Each returns one loss
+per sample, the mean over every axis but ``batch_axis``.  ``CTCLoss``
+waits for ``ops/sequence.py`` (ROADMAP.md, queue item 7).  ``HuberLoss``
+compares with ``>``, which a Symbol does not have (nor in the JAX
+package), so it runs eagerly only.
+"""
+from __future__ import annotations
+
+from .block import HybridBlock
+
+
+def _apply_weighting(F, loss, weight=None, sample_weight=None):
+    if sample_weight is not None:
+        loss = F.broadcast_mul(loss, sample_weight)
+    if weight is not None:
+        if not isinstance(weight, (float, int)):
+            raise ValueError(f"weight must be a number, got {weight!r}")
+        loss = loss * weight
+    return loss
+
+
+def _reshape_like(F, x, y):
+    return x.reshape(y.shape) if hasattr(y, "shape") and not _is_sym(x) \
+        else F.reshape_like(x, y)
+
+
+def _is_sym(x):
+    from ..symbol import Symbol
+    return isinstance(x, Symbol)
+
+
+class Loss(HybridBlock):
+    def __init__(self, weight, batch_axis, **kwargs):
+        super().__init__(**kwargs)
+        self._weight = weight
+        self._batch_axis = batch_axis
+
+    def __repr__(self):
+        return f"{self.__class__.__name__}(batch_axis={self._batch_axis}, " \
+               f"w={self._weight})"
+
+    def hybrid_forward(self, F, x, *args, **kwargs):
+        raise NotImplementedError
+
+
+def _mean_all_but_batch(F, loss, batch_axis):
+    return F.mean(loss, axis=batch_axis, exclude=True)
+
+
+class L2Loss(Loss):
+    def __init__(self, weight=1.0, batch_axis=0, **kwargs):
+        super().__init__(weight, batch_axis, **kwargs)
+
+    def hybrid_forward(self, F, pred, label, sample_weight=None):
+        label = _reshape_like(F, label, pred)
+        loss = F.square(pred - label)
+        loss = _apply_weighting(F, loss, self._weight / 2, sample_weight)
+        return _mean_all_but_batch(F, loss, self._batch_axis)
+
+
+class L1Loss(Loss):
+    def __init__(self, weight=None, batch_axis=0, **kwargs):
+        super().__init__(weight, batch_axis, **kwargs)
+
+    def hybrid_forward(self, F, pred, label, sample_weight=None):
+        label = _reshape_like(F, label, pred)
+        loss = F.abs(pred - label)
+        loss = _apply_weighting(F, loss, self._weight, sample_weight)
+        return _mean_all_but_batch(F, loss, self._batch_axis)
+
+
+class SigmoidBinaryCrossEntropyLoss(Loss):
+    def __init__(self, from_sigmoid=False, weight=None, batch_axis=0,
+                 **kwargs):
+        super().__init__(weight, batch_axis, **kwargs)
+        self._from_sigmoid = from_sigmoid
+
+    def hybrid_forward(self, F, pred, label, sample_weight=None):
+        label = _reshape_like(F, label, pred)
+        if not self._from_sigmoid:
+            # log(1+exp(x)) - x*y, stable form
+            loss = F.relu(pred) - pred * label + \
+                F.Activation(F.abs(pred) * -1.0, act_type="softrelu")
+        else:
+            loss = -(F.log(pred + 1e-12) * label +
+                     F.log(1.0 - pred + 1e-12) * (1.0 - label))
+        loss = _apply_weighting(F, loss, self._weight, sample_weight)
+        return _mean_all_but_batch(F, loss, self._batch_axis)
+
+
+SigmoidBCELoss = SigmoidBinaryCrossEntropyLoss
+
+
+class SoftmaxCrossEntropyLoss(Loss):
+    def __init__(self, axis=-1, sparse_label=True, from_logits=False,
+                 weight=None, batch_axis=0, **kwargs):
+        super().__init__(weight, batch_axis, **kwargs)
+        self._axis = axis
+        self._sparse_label = sparse_label
+        self._from_logits = from_logits
+
+    def hybrid_forward(self, F, pred, label, sample_weight=None):
+        if not self._from_logits:
+            pred = F.log_softmax(pred, axis=self._axis)
+        if self._sparse_label:
+            loss = -F.pick(pred, label, axis=self._axis, keepdims=True)
+        else:
+            label = _reshape_like(F, label, pred)
+            loss = -F.sum(pred * label, axis=self._axis, keepdims=True)
+        loss = _apply_weighting(F, loss, self._weight, sample_weight)
+        return _mean_all_but_batch(F, loss, self._batch_axis)
+
+
+SoftmaxCELoss = SoftmaxCrossEntropyLoss
+
+
+class KLDivLoss(Loss):
+    def __init__(self, from_logits=True, axis=-1, weight=None, batch_axis=0,
+                 **kwargs):
+        super().__init__(weight, batch_axis, **kwargs)
+        self._from_logits = from_logits
+        self._axis = axis
+
+    def hybrid_forward(self, F, pred, label, sample_weight=None):
+        if not self._from_logits:
+            pred = F.log_softmax(pred, axis=self._axis)
+        loss = label * (F.log(label + 1e-12) - pred)
+        loss = _apply_weighting(F, loss, self._weight, sample_weight)
+        return _mean_all_but_batch(F, loss, self._batch_axis)
+
+
+class CTCLoss(Loss):
+    def __init__(self, *args, **kwargs):
+        raise NotImplementedError(
+            "CTCLoss needs the CTC op of ops/sequence.py, which is not "
+            "ported yet (ROADMAP.md, queue item 7: RNN and sequences)")
+
+
+class HuberLoss(Loss):
+    def __init__(self, rho=1, weight=None, batch_axis=0, **kwargs):
+        super().__init__(weight, batch_axis, **kwargs)
+        self._rho = rho
+
+    def hybrid_forward(self, F, pred, label, sample_weight=None):
+        label = _reshape_like(F, label, pred)
+        loss = F.abs(pred - label)
+        loss = F.where(loss > self._rho,
+                       loss - 0.5 * self._rho,
+                       (0.5 / self._rho) * F.square(loss))
+        loss = _apply_weighting(F, loss, self._weight, sample_weight)
+        return _mean_all_but_batch(F, loss, self._batch_axis)
+
+
+class HingeLoss(Loss):
+    def __init__(self, margin=1, weight=None, batch_axis=0, **kwargs):
+        super().__init__(weight, batch_axis, **kwargs)
+        self._margin = margin
+
+    def hybrid_forward(self, F, pred, label, sample_weight=None):
+        label = _reshape_like(F, label, pred)
+        loss = F.relu(self._margin - pred * label)
+        loss = _apply_weighting(F, loss, self._weight, sample_weight)
+        return _mean_all_but_batch(F, loss, self._batch_axis)
+
+
+class SquaredHingeLoss(Loss):
+    def __init__(self, margin=1, weight=None, batch_axis=0, **kwargs):
+        super().__init__(weight, batch_axis, **kwargs)
+        self._margin = margin
+
+    def hybrid_forward(self, F, pred, label, sample_weight=None):
+        label = _reshape_like(F, label, pred)
+        loss = F.square(F.relu(self._margin - pred * label))
+        loss = _apply_weighting(F, loss, self._weight, sample_weight)
+        return _mean_all_but_batch(F, loss, self._batch_axis)
+
+
+class LogisticLoss(Loss):
+    def __init__(self, weight=None, batch_axis=0, label_format="signed",
+                 **kwargs):
+        super().__init__(weight, batch_axis, **kwargs)
+        self._label_format = label_format
+        if self._label_format not in ["signed", "binary"]:
+            raise ValueError(f"Unsupported label_format {label_format}")
+
+    def hybrid_forward(self, F, pred, label, sample_weight=None):
+        label = _reshape_like(F, label, pred)
+        if self._label_format == "signed":
+            label = (label + 1.0) / 2.0
+        loss = F.relu(pred) - pred * label + \
+            F.Activation(F.abs(pred) * -1.0, act_type="softrelu")
+        loss = _apply_weighting(F, loss, self._weight, sample_weight)
+        return _mean_all_but_batch(F, loss, self._batch_axis)
+
+
+class TripletLoss(Loss):
+    def __init__(self, margin=1, weight=None, batch_axis=0, **kwargs):
+        super().__init__(weight, batch_axis, **kwargs)
+        self._margin = margin
+
+    def hybrid_forward(self, F, pred, positive, negative, sample_weight=None):
+        positive = _reshape_like(F, positive, pred)
+        negative = _reshape_like(F, negative, pred)
+        loss = F.sum(F.square(pred - positive) - F.square(pred - negative),
+                     axis=self._batch_axis, exclude=True)
+        loss = F.relu(loss + self._margin)
+        return _apply_weighting(F, loss, self._weight, sample_weight)

@@ -1,7 +1,12 @@
 """gluon.Parameter / ParameterDict (parity: python/mxnet/gluon/parameter.py).
 
-A ``Parameter`` carries the MXNet name, shape, dtype and initializer, and
-wraps one ``torch.nn.Parameter`` holding its data on one device.  Every
+A ``Parameter`` carries the MXNet name, shape, dtype, initializer and
+``grad_req``, and wraps one ``torch.nn.Parameter`` holding its data on one
+device.  That tensor is an autograd variable (``autograd.mark_variable``)
+unless ``grad_req`` is "null"; a Block runs with torch's grad mode set to
+``autograd.is_recording()``, so outside ``record()`` no graph is built
+through it.  Its gradient buffer is the tensor's ``.grad``, allocated by
+the first backward that reaches it (or by ``grad()``).  Every
 HybridBlock that holds the Parameter as an attribute also sees that tensor
 in its own ``_parameters``, so ``named_parameters()`` and ``state_dict()``
 work as on any ``nn.Module``.  Initialization may be deferred until the
@@ -19,7 +24,7 @@ import torch
 
 from ..base import MXNetError, np_dtype, torch_dtype
 from ..context import Context, as_device, current_context
-from .. import initializer
+from .. import autograd, initializer
 from ..initializer import InitDesc
 
 
@@ -41,8 +46,7 @@ class Parameter:
             shape = (shape,)
         self.shape = tuple(shape) if shape is not None else None
         self.dtype = np_dtype(dtype)
-        # gradients arrive with the training slice; the tensor is created
-        # with requires_grad=False so that serving builds no autograd graph
+        self._grad_req = None
         self.grad_req = grad_req if differentiable else "null"
         self.lr_mult = lr_mult
         self.wd_mult = wd_mult
@@ -56,8 +60,24 @@ class Parameter:
     def is_deferred(self) -> bool:
         return self._data is None and bool(self._deferred_init)
 
+    @property
+    def grad_req(self):
+        return self._grad_req
+
+    @grad_req.setter
+    def grad_req(self, req):
+        if req not in ("write", "add", "null"):
+            raise MXNetError(f"grad_req must be one of 'write', 'add', or "
+                             f"'null', but got '{req}'")
+        self._grad_req = req
+        if self._data is not None:
+            autograd.mark_variable(self._data, None, req)
+
     def _set_data(self, tensor: torch.Tensor) -> None:
-        self._data = torch.nn.Parameter(tensor, requires_grad=False)
+        # only floating-point tensors can carry gradients in torch
+        req = self._grad_req if tensor.is_floating_point() else "null"
+        self._data = torch.nn.Parameter(tensor, requires_grad=req != "null")
+        autograd.mark_variable(self._data, None, req)
         for block, attr in self._owners:
             block._parameters[attr] = self._data
 
@@ -142,6 +162,34 @@ class Parameter:
         raise MXNetError(
             f"Parameter {self.name} has not been initialized. You should "
             "initialize parameters with Block.collect_params().initialize()")
+
+    def grad(self, ctx=None) -> torch.Tensor:
+        """The gradient buffer (zeros until a backward reaches it)."""
+        data = self.data()
+        if self._grad_req == "null":
+            raise MXNetError(f"Cannot get gradient array for Parameter "
+                             f"{self.name} because grad_req='null'")
+        if self._data.grad is None:
+            self._data.grad = torch.zeros_like(data)
+        return self._data.grad
+
+    def list_grad(self):
+        return [self.grad()]
+
+    def zero_grad(self):
+        if self._data is not None and self._data.grad is not None:
+            self._data.grad.zero_()
+
+    @property
+    def fresh_grad(self) -> bool:
+        """True when a backward has deposited into this parameter's
+        gradient since the last Trainer step cleared the mark (the
+        stale-gradient check reads it)."""
+        return self._data is not None and self._data._mx_fresh_grad
+
+    @fresh_grad.setter
+    def fresh_grad(self, value: bool):
+        self._data._mx_fresh_grad = bool(value)
 
     def list_ctx(self):
         if self._data is None:

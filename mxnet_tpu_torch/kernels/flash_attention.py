@@ -1,4 +1,5 @@
-"""Flash-attention forward: the wrapper around its two CUDA kernels.
+"""Flash attention: the wrappers around its CUDA kernels, forward and
+backward.
 
 Replaces ``mxnet_tpu/ops/flash_attention.py:_flash_attention`` (the Pallas
 kernel ``_fa_kernel``): O = softmax(scale * Q K^T [causal mask -1e30]) V with
@@ -15,9 +16,19 @@ Bound on an H100 SXM at the serving shape (B*H = 64, T = 1024, D = 64,
 bf16, causal): 8.6 GFLOP is about 9 us at 989 TFLOP/s and the 33.6 MB of
 q, k, v and o about 10 us at 3.35 TB/s, so the bytes bound it.
 
-A CPU tensor takes ``dense_reference``, the plain version.  A CUDA tensor
-launches the kernel it routes to or raises: nothing falls back.  A meta
-tensor (shape inference) gets an empty output of the right shape.
+The backward, ``flash_attention_bwd`` (``csrc/flash_attention_bwd.cu``,
+K1b), replaces ``mxnet_tpu/ops/flash_attention.py:_fa_bwd``, the plain
+``jnp`` gradient of the Pallas forward: dq, dk and dv from q, k, v, o and
+dO, recomputing the softmax statistics, in float32 for float32 and
+bfloat16 inputs at every supported head dim.  Bound at the training shape
+(B*H = 128, T = 1024, D = 64, bf16, causal): 43 GFLOP (10*D per unmasked
+pair) is about 0.043 ms at 989 TFLOP/s, the 134 MB of q, k, v, o, dO, dq,
+dk and dv about 0.040 ms at 3.35 TB/s.
+
+A CPU tensor takes the plain version (``dense_reference``,
+``bwd_reference``).  A CUDA tensor launches the kernel or raises: nothing
+falls back.  A meta tensor (shape inference) gets empty outputs of the
+right shape.
 """
 from __future__ import annotations
 
@@ -43,9 +54,18 @@ _ENTRIES = {
                         _ARGTYPES),
 }
 
-# kernel launches made in this process: all of them, and by variant
+# q, k, v, o, dO, dq, dk, dv, lse, delta, bh, tq, tk, d, scale, causal,
+# dtype (then the stream)
+_BWD_ENTRY = _build.Entry(
+    "flash_attention_bwd", "mxt_flash_attention_bwd",
+    [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4
+    + [ctypes.c_float, ctypes.c_int, ctypes.c_int])
+
+# kernel launches made in this process: all of them, the forward's by
+# variant, and the backward's
 LAUNCHES = 0
 VARIANT_LAUNCHES = dict.fromkeys(_ENTRIES, 0)
+BWD_LAUNCHES = 0
 
 
 def dense_reference(q, k, v, scale, causal):
@@ -61,6 +81,27 @@ def dense_reference(q, k, v, scale, causal):
     return torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)
 
 
+def bwd_reference(q, k, v, o, do, scale, causal):
+    """Plain version of the backward: ``_fa_bwd``'s formulas over whole
+    rows, in float32, cast back to the inputs' dtypes.  Returns dq, dk, dv.
+    """
+    qf, kf, vf, of, gf = (t.float() for t in (q, k, v, o, do))
+    s = torch.einsum("bhqd,bhkd->bhqk", qf, kf) * scale
+    if causal:
+        tq, tk = q.shape[2], k.shape[2]
+        mask = (torch.arange(tq, device=q.device)[:, None]
+                >= torch.arange(tk, device=q.device)[None, :])
+        s = torch.where(mask, s, torch.full((), NEG_INF, device=q.device))
+    p = torch.softmax(s, dim=-1)
+    delta = torch.sum(gf * of, dim=-1)
+    dp = torch.einsum("bhqd,bhkd->bhqk", gf, vf)
+    ds = p * (dp - delta[..., None])
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, kf) * scale
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, qf) * scale
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, gf)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
 def _variant(dtype, d):
     """The kernel for inputs of ``dtype`` and head dim ``d``: ``"sm90"`` for
     bfloat16 at D 64 or 128, ``"f32"`` for every other supported case."""
@@ -71,27 +112,31 @@ def _variant(dtype, d):
     return "sm90" if dtype == torch.bfloat16 and d in SM90_D else "f32"
 
 
-def _check(q, k, v):
-    for name, t in (("q", q), ("k", k), ("v", v)):
+def _check(q, k, v, fn="flash_attention_fwd", **extra):
+    """Refuse what the kernels do not take.  ``extra`` names further
+    tensors shaped like q (the backward's o and dO)."""
+    named = (("q", q), ("k", k), ("v", v)) + tuple(extra.items())
+    for name, t in named:
         if t.device.type != "cuda" or t.device != q.device:
-            raise MXNetError(f"flash_attention_fwd: {name} is on {t.device}, "
-                             f"q on {q.device}; all must be on one CUDA device")
+            raise MXNetError(f"{fn}: {name} is on {t.device}, q on "
+                             f"{q.device}; all must be on one CUDA device")
         if t.dtype != q.dtype or t.dtype not in _DTYPE_CODE:
-            raise MXNetError(f"flash_attention_fwd: {name} is {t.dtype}; "
-                             "q, k and v must all be float32 or bfloat16")
+            raise MXNetError(f"{fn}: {name} is {t.dtype}; "
+                             f"{', '.join(n for n, _ in named)} must all be "
+                             "float32 or bfloat16")
         if t.dim() != 4 or not t.is_contiguous():
-            raise MXNetError(f"flash_attention_fwd: {name} must be a "
-                             f"contiguous (B, H, T, D) tensor, got "
-                             f"{tuple(t.shape)} with strides {t.stride()}")
+            raise MXNetError(f"{fn}: {name} must be a contiguous (B, H, T, "
+                             f"D) tensor, got {tuple(t.shape)} with strides "
+                             f"{t.stride()}")
         if t.data_ptr() % 16:
-            raise MXNetError(f"flash_attention_fwd: {name} is not 16-byte "
-                             "aligned")
+            raise MXNetError(f"{fn}: {name} is not 16-byte aligned")
     B, H, _, D = q.shape
-    if k.shape[:2] != (B, H) or v.shape != k.shape or k.shape[3] != D:
-        raise MXNetError(f"flash_attention_fwd: shapes q {tuple(q.shape)}, "
-                         f"k {tuple(k.shape)}, v {tuple(v.shape)} disagree")
+    if k.shape[:2] != (B, H) or v.shape != k.shape or k.shape[3] != D or \
+            any(t.shape != q.shape for t in extra.values()):
+        raise MXNetError(f"{fn}: shapes " + ", ".join(
+            f"{n} {tuple(t.shape)}" for n, t in named) + " disagree")
     if min(q.shape[2], k.shape[2], B * H) < 1:
-        raise MXNetError("flash_attention_fwd: empty input")
+        raise MXNetError(f"{fn}: empty input")
 
 
 def _launch(variant, q, k, v, scale, causal):
@@ -127,3 +172,31 @@ def flash_attention_fwd(q, k, v, scale, causal):
     if devices == {"meta"}:
         return torch.empty_like(q)
     return _launch(_variant(q.dtype, q.shape[3]), q, k, v, scale, causal)
+
+
+def flash_attention_bwd(q, k, v, o, do, scale, causal):
+    """dq, dk, dv of ``flash_attention_fwd`` at (q, k, v) whose output is o,
+    for the output gradient dO (shaped like q; made contiguous here, since
+    it arrives as a permuted view from the attention ops).
+
+    Meta tensors give empty outputs shaped like q, k and v."""
+    devices = {t.device.type for t in (q, k, v, o, do)}
+    if devices == {"cpu"}:
+        return bwd_reference(q, k, v, o, do, scale, causal)
+    if devices == {"meta"}:
+        return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    global LAUNCHES, BWD_LAUNCHES
+    do = do.contiguous()
+    _check(q, k, v, "flash_attention_bwd", o=o, do=do)
+    B, H, tq, D = q.shape
+    _variant(q.dtype, D)                  # refuses what no kernel takes
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    stats = torch.empty((2, B * H, tq), dtype=torch.float32, device=q.device)
+    _BWD_ENTRY(q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+               o.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+               dv.data_ptr(), stats[0].data_ptr(), stats[1].data_ptr(),
+               B * H, tq, k.shape[2], D, float(scale), int(bool(causal)),
+               _DTYPE_CODE[q.dtype])
+    LAUNCHES += 1
+    BWD_LAUNCHES += 1
+    return dq, dk, dv

@@ -2,7 +2,8 @@
 
 The port's arrays are plain ``torch.Tensor``s: these functions give them
 MXNet's constructors (``array`` and ``zeros`` with ``ctx=`` and ``dtype=``),
-``asnumpy``, and ``save`` / ``load`` / ``load_frombuffer``.  ``ctx`` is a
+``asnumpy``, ``attach_grad`` / ``grad``, and ``save`` / ``load`` /
+``load_frombuffer``.  ``ctx`` is a
 Context, a torch.device or None (the current context, ``gpu(0)`` unless the
 caller entered another).
 
@@ -55,13 +56,30 @@ def zeros(shape, ctx=None, dtype=None) -> torch.Tensor:
 
 
 def asnumpy(x: torch.Tensor) -> _np.ndarray:
-    """A host copy; bfloat16 comes back as an ``ml_dtypes.bfloat16`` array."""
-    x = x.detach().cpu()
+    """A host copy, also of a CPU tensor (which the optimizers update in
+    place); bfloat16 comes back as an ``ml_dtypes.bfloat16`` array."""
+    x = x.detach().to("cpu", copy=True)
     if x.dtype == torch.bfloat16:
         if bfloat16 is None:
             raise MXNetError("a bfloat16 host copy requires ml_dtypes")
         return x.view(torch.int16).numpy().view(bfloat16)
     return x.numpy()
+
+
+def attach_grad(x: torch.Tensor, grad_req: str = "write") -> torch.Tensor:
+    """Make ``x`` an autograd variable with a zeroed gradient buffer
+    (parity: NDArray.attach_grad); ``grad_req`` is "write", "add" or
+    "null".  Returns ``x``."""
+    from ..autograd import mark_variable
+    mark_variable(x, None if grad_req == "null" else torch.zeros_like(x),
+                  grad_req)
+    return x
+
+
+def grad(x: torch.Tensor):
+    """``x``'s gradient buffer (parity: NDArray.grad); None unless
+    ``attach_grad`` or ``autograd.mark_variables`` made it a variable."""
+    return x.grad if x.is_leaf else None
 
 
 # ---------------------------------------------------------------------------

@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import torch
 
+from ..autograd import is_training
 from ..ops import registry as _reg
 
 
@@ -26,8 +27,7 @@ def invoke(op_name: str, inputs, kwargs):
         kwargs.setdefault("num_args", len(inputs))
     params = dict(op.normalize(kwargs))
     if op.takes_is_train:
-        # no autograd recording in the port yet: every call is inference
-        params["__is_train__"] = False
+        params["__is_train__"] = is_training()
     outs = _reg.apply_op(op, params, inputs)
     return outs[0] if len(outs) == 1 else list(outs)
 

@@ -2,10 +2,14 @@
 one-token decode step over a KV cache, arange_like.
 
 The counterpart of ``mxnet_tpu/ops/flash_attention.py``.  The flash path runs
-the hand-written CUDA kernel (``kernels/flash_attention.py``) on a CUDA
-tensor and its plain version on a CPU tensor.  When the sequence length is
-not divisible by the op's block size the op computes dense attention: that
-is the op's definition (the JAX package does the same), not a fallback.
+the hand-written CUDA kernels (``kernels/flash_attention.py``) on a CUDA
+tensor and their plain versions on a CPU tensor: the forward K1, and under
+``autograd.record()`` the backward K1b, tied together by
+``FlashAttentionFn`` as the JAX package ties ``_fa_bwd`` to its Pallas
+forward with ``jax.custom_vjp``.  When the sequence length is not
+divisible by the op's block size the op computes dense attention, which
+torch's autograd differentiates: that is the op's definition (the JAX
+package does the same), not a fallback.
 The decode step is plain torch: the JAX package computes it in ``jnp`` too,
 outside any Pallas kernel.
 """
@@ -15,15 +19,38 @@ import torch
 
 from ..base import Arg
 from ..kernels.flash_attention import (NEG_INF, dense_reference,
+                                       flash_attention_bwd,
                                        flash_attention_fwd)
 from .registry import register
 
 _dense_reference = dense_reference
 
 
+class FlashAttentionFn(torch.autograd.Function):
+    """K1 forward, K1b backward; the residuals are q, k, v and o, as in the
+    JAX package's ``_fa_fwd``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale, causal):
+        o = flash_attention_fwd(q, k, v, scale, causal)
+        ctx.save_for_backward(q, k, v, o)
+        ctx.scale, ctx.causal = scale, causal
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, do, ctx.scale,
+                                         ctx.causal)
+        return dq, dk, dv, None, None
+
+
 def _flash_attention(q, k, v, scale, causal, blk_q, blk_k):
     if q.shape[2] % blk_q or k.shape[2] % blk_k:
         return _dense_reference(q, k, v, scale, causal)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttentionFn.apply(q, k, v, scale, causal)
     return flash_attention_fwd(q, k, v, scale, causal)
 
 
@@ -98,8 +125,9 @@ def _multihead_attention_op(p, qkv):
     """Fused multi-head self-attention over packed projections.
 
     qkv: (B, T, 3*D), the output of one Dense QKV projection, split as
-    (B, T, 3, H, dh); returns (B, T, D).  impl='flash' runs the CUDA kernel,
-    'dense' materializes the scores.
+    (B, T, 3, H, dh); returns (B, T, D).  impl='flash' runs the CUDA
+    kernels (K1, and K1b for the gradient), 'dense' materializes the
+    scores.
     """
     B, T, D3 = qkv.shape
     H = p["num_heads"]

@@ -1,12 +1,13 @@
 """Shape and indexing operators of the serving slice.
 
 The counterpart of part of ``mxnet_tpu/ops/matrix.py``: ``Reshape`` with
-MXNet's special codes, ``expand_dims``, ``slice_axis``, ``Concat``,
-``broadcast_like``, ``tile``, ``repeat``, ``take``, ``Embedding`` and
-``one_hot``.  Ids arrive as
-float32 (MXNet's convention) and are truncated to integers.  ``take`` and
-``Embedding`` clamp out-of-range ids into range, as ``jnp.take(mode="clip")``
-does; torch indexing would raise on them instead.
+MXNet's special codes, ``reshape_like`` (from ``mxnet_tpu/ops/compat.py``),
+``expand_dims``, ``slice_axis``, ``Concat``, ``broadcast_like``, ``tile``,
+``repeat``, ``where``, ``take``, ``pick``, ``Embedding`` and ``one_hot``.
+Ids arrive as float32 (MXNet's convention) and are truncated to integers.
+``take``, ``pick`` and ``Embedding`` clamp out-of-range ids into range, as
+``jnp.take(mode="clip")`` does; torch indexing would raise on them
+instead.
 """
 from __future__ import annotations
 
@@ -75,6 +76,12 @@ def _reshape(p, x):
     return torch.reshape(x, infer_reshape(p["shape"], x.shape))
 
 
+@register("reshape_like", input_names=("lhs", "rhs"))
+def _reshape_like(p, lhs, rhs):
+    """lhs reshaped to rhs's shape (the gradient flows to lhs only)."""
+    return lhs.reshape(rhs.shape)
+
+
 @register("expand_dims", input_names=("data",), args=[Arg("axis", int, required=True)])
 def _expand_dims(p, x):
     return torch.unsqueeze(x, p["axis"])
@@ -114,6 +121,11 @@ def _repeat(p, x):
     return torch.repeat_interleave(x, p["repeats"], dim=p["axis"])
 
 
+@register("where", input_names=("condition", "x", "y"))
+def _where(p, c, x, y):
+    return torch.where(c if c.dtype == torch.bool else c != 0, x, y)
+
+
 def _ids(idx):
     return idx.to(torch.int64)
 
@@ -133,6 +145,19 @@ def _take(p, a, idx):
         raise MXNetError(f"take: mode {p['mode']!r} is not ported yet")
     ids = torch.clamp(_ids(idx), 0, a.shape[p["axis"]] - 1)
     return _take_rows(a, ids, p["axis"])
+
+
+@register("pick", input_names=("data", "index"), f32_inputs=(1,),
+          args=[Arg("axis", int, -1), Arg("keepdims", bool, False),
+                Arg("mode", str, "clip")])
+def _pick(p, x, idx):
+    """x's entries at ``index`` along ``axis`` (index shaped like x without
+    that axis); ids clamp into range whatever ``mode`` says, as in the
+    JAX package."""
+    ax = p["axis"] % x.dim()
+    ids = torch.clamp(_ids(idx), 0, x.shape[ax] - 1).unsqueeze(ax)
+    out = torch.gather(x, ax, ids)
+    return out if p["keepdims"] else out.squeeze(ax)
 
 
 @register("Embedding", input_names=("data", "weight"), f32_inputs=(0,),

@@ -1,7 +1,7 @@
 """Neural-network operators of the serving slice.
 
 The counterpart of part of ``mxnet_tpu/ops/nn.py``: ``FullyConnected``,
-``LayerNorm``, ``Activation`` (relu), ``Dropout`` (inference), and
+``LayerNorm``, ``Activation``, ``Dropout`` (inference), and
 ``softmax`` / ``log_softmax`` with ``temperature``.  A dense
 matrix product goes to ``torch.matmul`` (cuBLAS on the card), as the JAX
 package left it to XLA.
@@ -11,7 +11,12 @@ from __future__ import annotations
 import torch
 
 from ..base import Arg, MXNetError
+from .elemwise import _softrelu, _softsign
 from .registry import register
+
+_ACTIVATIONS = {"relu": lambda x: torch.clamp(x, min=0),
+                "sigmoid": torch.sigmoid, "tanh": torch.tanh,
+                "softrelu": _softrelu, "softsign": _softsign}
 
 
 @register("FullyConnected", input_names=("data", "weight", "bias"),
@@ -43,9 +48,10 @@ def _layer_norm(p, x, gamma, beta):
 @register("Activation", input_names=("data",),
           args=[Arg("act_type", str, required=True)])
 def _activation(p, x):
-    if p["act_type"] != "relu":
-        raise MXNetError(f"act_type {p['act_type']!r} is not ported yet")
-    return torch.clamp(x, min=0)
+    fn = _ACTIVATIONS.get(p["act_type"])
+    if fn is None:
+        raise MXNetError(f"unknown act_type {p['act_type']}")
+    return fn(x)
 
 
 @register("Dropout", input_names=("data",),
@@ -53,8 +59,10 @@ def _activation(p, x):
                 Arg("axes", "shape", ())],
           takes_is_train=True)
 def _dropout(p, x):
-    """The identity at inference; training-mode dropout comes with the
-    training slice (ROADMAP.md, queue item 3)."""
+    """The identity at inference and under ``record(train_mode=False)``.
+    Training-mode dropout (random masks from the port's generators, which
+    cannot give the JAX package's bits) is not ported yet: the
+    TransformerLM trains with dropout 0."""
     if p["p"] > 0.0 and (p["__is_train__"] or p["mode"] == "always"):
         raise NotImplementedError(
             "training-mode Dropout is not ported yet (ROADMAP.md, queue "

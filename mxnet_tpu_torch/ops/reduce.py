@@ -1,6 +1,13 @@
-"""Reductions and ordering ops: ``argmax``, ``topk``, ``sort``, ``argsort``.
+"""Reductions and ordering ops: ``sum``, ``mean``, ``prod``, ``max``,
+``min``, ``nansum``, ``nanprod``, ``argmax``, ``topk``, ``sort``,
+``argsort``.
 
-The counterpart of part of ``mxnet_tpu/ops/reduce.py``.  Indices come back
+The counterpart of part of ``mxnet_tpu/ops/reduce.py``.  The reductions
+take MXNet's ``axis`` (an int or a tuple; none means all), ``keepdims`` and
+``exclude`` (reduce over every axis but those), and each has its
+``<name>_axis`` alias.  An empty set of axes reduces nothing, as
+``jnp.sum(x, axis=())`` does (``torch.sum(x, dim=())`` would reduce all
+of them).  Indices come back
 as float32, as in MXNet; with no axis the flat index keeps the input dtype.
 Ties resolve to the first index, as ``jnp.argmax`` does.  ``topk`` and
 ``argsort`` take their indices from a stable sort (of ``-x`` when
@@ -13,6 +20,57 @@ import torch
 
 from ..base import Arg
 from .registry import register
+
+_REDUCE_ARGS = [Arg("axis", "shape", None), Arg("keepdims", bool, False),
+                Arg("exclude", bool, False)]
+
+
+def _norm_axis(p, ndim):
+    axis = p.get("axis")
+    if axis is None or axis == ():
+        axes = tuple(range(ndim))
+    else:
+        axes = tuple(a % ndim for a in axis)
+    if p.get("exclude"):
+        axes = tuple(a for a in range(ndim) if a not in axes)
+    return axes
+
+
+def _prod(x, dim, keepdim):
+    for d in sorted(dim, reverse=True):   # later axes first: no index shift
+        x = torch.prod(x, dim=d, keepdim=keepdim)
+    return x
+
+
+def _nanprod(x, dim, keepdim):
+    return _prod(torch.where(torch.isnan(x), torch.ones_like(x), x), dim,
+                 keepdim)
+
+
+_REDUCERS = {
+    "sum": (torch.sum, lambda x: x),
+    "mean": (torch.mean, lambda x: x),
+    "prod": (_prod, lambda x: x),
+    "max": (torch.amax, lambda x: x),
+    "min": (torch.amin, lambda x: x),
+    "nansum": (torch.nansum, lambda x: torch.nan_to_num(x, nan=0.0)),
+    "nanprod": (_nanprod,
+                lambda x: torch.where(torch.isnan(x), torch.ones_like(x), x)),
+}
+
+
+def _reduce(fn, over_nothing):
+    def run(p, x):
+        axes = _norm_axis(p, x.dim())
+        if not axes:
+            return over_nothing(x)
+        return fn(x, dim=axes, keepdim=bool(p.get("keepdims")))
+    return run
+
+
+for _name, (_fn, _none) in _REDUCERS.items():
+    register(_name, input_names=("data",), args=list(_REDUCE_ARGS),
+             aliases=(_name + "_axis",))(_reduce(_fn, _none))
 
 
 @register("argmax", input_names=("data",),

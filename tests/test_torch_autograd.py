@@ -1,0 +1,417 @@
+"""The port's autograd against the JAX package's, on the CPU.
+
+The same numpy inputs, from a seed, go through ``mxnet_tpu`` and
+``mxnet_tpu_torch`` (``ctx=cpu()``): the cases of ``tests/test_autograd.py``
+that the port supports, the reductions and ``pick`` with their gradients,
+and the flash-attention gradient, which on the CPU runs K1b's plain version
+(``kernels.flash_attention.bwd_reference``) through ``FlashAttentionFn``,
+against ``jax.grad`` through the JAX package's ``custom_vjp`` (``_fa_bwd``,
+its Pallas forward in interpret mode).
+
+Tolerances: 1e-5 for gradients of plain ops (float32 in both, summed in
+another order); the flash gradient at the JAX package's own pin
+(``tests/test_flash_attention.py:35-53``: rtol 1e-3, atol 1e-4), and 3e-2
+in bfloat16 (its bf16 pin).  The port's documented differences from the
+reference (ROADMAP.md §3) each have a test here that shows its behaviour.
+"""
+import gc
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import mxnet_tpu as mxj
+import mxnet_tpu_torch as mxt
+from mxnet_tpu.ops.flash_attention import _flash_attention as jax_flash
+from mxnet_tpu_torch import MXNetError
+from mxnet_tpu_torch.gluon.model_zoo.transformer import TransformerLM
+from mxnet_tpu_torch.kernels import flash_attention as kfa
+from mxnet_tpu_torch.ops.flash_attention import FlashAttentionFn
+
+CPU = mxt.cpu()
+
+
+class _Jax:
+    """The JAX package's spelling of the calls the cases make."""
+    mx = mxj
+
+    @staticmethod
+    def array(a):
+        return mxj.nd.array(a)
+
+    @staticmethod
+    def attach(x, req="write"):
+        x.attach_grad(grad_req=req)
+        return x
+
+    @staticmethod
+    def grad(x):
+        return x.grad.asnumpy()
+
+    @staticmethod
+    def numpy(x):
+        return x.asnumpy()
+
+
+class _Port:
+    mx = mxt
+
+    @staticmethod
+    def array(a):
+        return mxt.nd.array(a, ctx=CPU)
+
+    @staticmethod
+    def attach(x, req="write"):
+        return mxt.nd.attach_grad(x, req)
+
+    @staticmethod
+    def grad(x):
+        return mxt.nd.asnumpy(mxt.nd.grad(x))
+
+    @staticmethod
+    def numpy(x):
+        return mxt.nd.asnumpy(x)
+
+
+def _basic(api, rs):
+    x = api.attach(api.array(rs.randn(3, 4).astype("f")))
+    with api.mx.autograd.record():
+        y = (x * x + 2 * x).sum()
+    y.backward()
+    return [api.grad(x)]
+
+
+def _chain_and_branches(api, rs):
+    x = api.attach(api.array(rs.randn(3).astype("f")))
+    with api.mx.autograd.record():
+        a = x * 2
+        b = a + x
+        c = (b * b).sum()
+    c.backward()
+    return [api.grad(x)]
+
+
+def _grad_req_add(api, rs):
+    x = api.attach(api.array(rs.randn(2).astype("f")), "add")
+    for _ in range(3):
+        with api.mx.autograd.record():
+            y = (x * x).sum()
+        y.backward()
+    return [api.grad(x)]
+
+
+def _grad_req_write_overwrites(api, rs):
+    x = api.attach(api.array(rs.randn(2).astype("f")))
+    for k in (1.0, 5.0):
+        with api.mx.autograd.record():
+            y = (x * x * k).sum()
+        y.backward()
+    return [api.grad(x)]
+
+
+def _head_grads(api, rs):
+    x = api.attach(api.array(rs.randn(2).astype("f")))
+    with api.mx.autograd.record():
+        y = x * 3
+    api.mx.autograd.backward([y], [api.array(rs.randn(2).astype("f"))])
+    return [api.grad(x)]
+
+
+def _detach(api, rs):
+    x = api.attach(api.array(rs.randn(1).astype("f")))
+    with api.mx.autograd.record():
+        y = x * x
+        z = y.detach() * x
+    z.backward()
+    return [api.grad(x)]
+
+
+def _pause(api, rs):
+    x = api.attach(api.array(rs.randn(3).astype("f")))
+    with api.mx.autograd.record():
+        a = x * x
+        with api.mx.autograd.pause():
+            b = x * 10          # not recorded: a constant to the graph
+        y = (a + b).sum()
+    y.backward()
+    return [api.grad(x)]
+
+
+def _retain_graph(api, rs):
+    x = api.attach(api.array(rs.randn(1).astype("f")))
+    with api.mx.autograd.record():
+        y = x * x
+    api.mx.autograd.backward([y], retain_graph=True)
+    g1 = api.grad(x).copy()
+    api.mx.autograd.backward([y])
+    return [g1, api.grad(x)]
+
+
+def _mark_variables(api, rs):
+    x = api.array(rs.randn(2).astype("f"))
+    g = api.mx.nd.zeros((2,), ctx=api.mx.cpu())
+    api.mx.autograd.mark_variables([x], [g])
+    with api.mx.autograd.record():
+        y = (x ** 3).sum()
+    y.backward()
+    return [api.numpy(g)]
+
+
+def _custom_function(api, rs):
+    class Sigmoid(api.mx.autograd.Function):
+        def forward(self, x):
+            y = api.mx.nd.sigmoid(x)
+            self.save_for_backward(y)
+            return y
+
+        def backward(self, dy):
+            (y,) = self.saved_tensors
+            return dy * y * (1 - y)
+
+    x = api.attach(api.array(rs.randn(5).astype("f")))
+    with api.mx.autograd.record():
+        y = Sigmoid()(x)
+    api.mx.autograd.backward([y])
+    return [api.grad(x)]
+
+
+def _dropout_identity(api, rs):
+    x = api.attach(api.array(rs.randn(10, 10).astype("f")))
+    with api.mx.autograd.record(train_mode=False):
+        y = api.mx.nd.Dropout(x, p=0.5)
+    api.mx.autograd.backward([y])
+    return [api.grad(x)]
+
+
+def _recycling_stress(api, rs):
+    x = api.attach(api.array(rs.randn(4, 4).astype("f")))
+    with api.mx.autograd.record():
+        acc = x * 1.0
+        for i in range(8):
+            tmp = acc * 2.0
+            acc = tmp * 0.5 + x * 0.0
+            del tmp
+            if i % 7 == 0:
+                gc.collect()
+        loss = acc.sum()
+    loss.backward()
+    return [api.grad(x)]
+
+
+def _views(api, rs):
+    x = api.attach(api.array(rs.randn(3, 4).astype("f")))
+    with api.mx.autograd.record():
+        y = api.mx.nd.reshape(x, shape=(4, 3))
+        loss = (y[0:2] * 2).sum() + x[1].sum() + x[:, 0:2].sum()
+    loss.backward()
+    return [api.grad(x)]
+
+
+def _reductions(api, rs):
+    x = api.attach(api.array(rs.randn(2, 3, 4).astype("f")))
+    nd = api.mx.nd
+    with api.mx.autograd.record():
+        parts = [nd.sum(x, axis=1), nd.mean(x, axis=(0, 2), keepdims=True),
+                 nd.prod(x, axis=2), nd.max(x, axis=0),
+                 nd.min(x, axis=1, exclude=True), nd.nansum(x),
+                 nd.nanprod(x, axis=-1)]
+        w = [api.array(np.asarray(rs.randn(*api.numpy(p).shape), "f"))
+             for p in parts]
+        loss = sum((p * wi).sum() for p, wi in zip(parts, w))
+    loss.backward()
+    return [api.numpy(p) for p in parts] + [api.grad(x)]
+
+
+def _pick(api, rs):
+    x = api.attach(api.array(rs.randn(3, 5).astype("f")))
+    idx = api.array(np.array([0, 4, 2], "f"))
+    idx0 = api.array(np.array([1, 0, 7, -2, 3], "f"))   # clamped ids
+    with api.mx.autograd.record():
+        a = api.mx.nd.pick(x, idx, axis=-1)
+        b = api.mx.nd.pick(x, idx0, axis=0, keepdims=True)
+        loss = (a * 3).sum() + (b * b).sum()
+    loss.backward()
+    return [api.numpy(a), api.numpy(b), api.grad(x)]
+
+
+_CASES = [_basic, _chain_and_branches, _grad_req_add,
+          _grad_req_write_overwrites, _head_grads, _detach, _pause,
+          _retain_graph, _mark_variables, _custom_function,
+          _dropout_identity, _recycling_stress, _views, _reductions, _pick]
+
+
+@pytest.mark.parametrize("case", _CASES, ids=[c.__name__[1:] for c in _CASES])
+def test_gradients_match_jax(case):
+    want = case(_Jax, np.random.RandomState(0))
+    got = case(_Port, np.random.RandomState(0))
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        np.testing.assert_allclose(g, w, rtol=1e-5, atol=1e-5)
+
+
+def test_recording_state_matches_jax():
+    def states(ag):
+        seen = [(ag.is_recording(), ag.is_training())]
+        with ag.record():
+            seen.append((ag.is_recording(), ag.is_training()))
+            with ag.pause():
+                seen.append((ag.is_recording(), ag.is_training()))
+            seen.append((ag.is_recording(), ag.is_training()))
+        with ag.record(train_mode=False):
+            seen.append((ag.is_recording(), ag.is_training()))
+        with ag.train_mode():
+            seen.append((ag.is_recording(), ag.is_training()))
+        with ag.predict_mode():
+            seen.append((ag.is_recording(), ag.is_training()))
+        return seen
+
+    assert states(mxt.autograd) == states(mxj.autograd)
+    # recording is torch's grad mode, scoped
+    assert torch.is_grad_enabled()
+    with mxt.autograd.record():
+        assert torch.is_grad_enabled()
+        with mxt.autograd.pause():
+            assert not torch.is_grad_enabled()
+    assert torch.is_grad_enabled()
+
+
+def test_in_place_write_after_record_raises():
+    """The reference differentiates the value a variable had when its ops
+    were recorded (``tests/test_autograd.py::test_mutation_after_record``
+    gives 4.0).  Torch refuses: an in-place write to a variable raises, and
+    a write made under ``pause()`` makes the backward raise on the saved
+    value's version (ROADMAP.md §3)."""
+    x = mxt.nd.attach_grad(mxt.nd.array([2.0], ctx=CPU))
+    with mxt.autograd.record():
+        y = x * x
+    with pytest.raises(RuntimeError, match="in-place"):
+        x += 100
+    with mxt.autograd.pause():
+        x += 100
+    with pytest.raises(RuntimeError, match="modified by an inplace"):
+        y.backward()
+
+
+def test_grad_needs_variables_marked_before_recording():
+    """``autograd.grad`` of a variable never marked works in the reference
+    (its tape records every array); the port records through torch, so the
+    variable must be marked first (ROADMAP.md §3)."""
+    x = mxt.nd.array([1.0, 2.0], ctx=CPU)
+    with mxt.autograd.record():
+        y = (x * x).sum()
+    with pytest.raises(MXNetError, match="attach_grad"):
+        mxt.autograd.grad([y], [x])
+    mxt.nd.attach_grad(x)
+    with mxt.autograd.record():
+        y = (x * x).sum()
+    (g,) = mxt.autograd.grad([y], [x])
+    xj = mxj.nd.array([1.0, 2.0])
+    with mxj.autograd.record():
+        yj = (xj * xj).sum()
+    np.testing.assert_allclose(mxt.nd.asnumpy(g),
+                               mxj.autograd.grad([yj], [xj])[0].asnumpy())
+
+
+def test_no_graph_outside_record():
+    """Scoring, generation and the hybridized graph outside ``record()``
+    give tensors with no autograd history; the same net under ``record()``
+    does build one."""
+    net = TransformerLM(vocab=16, dim=16, num_layers=1, num_heads=2,
+                        max_len=8, attn_type="flash")
+    net.initialize(ctx=CPU)
+    toks = mxt.nd.array(np.random.RandomState(0).randint(0, 16, (2, 6)),
+                        ctx=CPU)
+    outs = [net(toks), net.generate(toks[:, :3], 3),
+            net.generate(toks[:, :3], 3, kv_cache=True)]
+    net.hybridize()
+    outs.append(net(toks))
+    assert all(o.grad_fn is None and not o.requires_grad for o in outs)
+    with mxt.autograd.record():
+        assert net(toks).grad_fn is not None
+
+
+def _qkv(seed, shape):
+    rs = np.random.RandomState(seed)
+    return [rs.normal(0, 1, shape).astype(np.float32) for _ in range(4)]
+
+
+def _jax_flash_grads(arrays, scale, causal, blk, dtype):
+    q, k, v, g = (jnp.asarray(a, dtype) for a in arrays)
+
+    def loss(q, k, v):
+        o = jax_flash(q, k, v, scale, causal, blk, blk)
+        return jnp.sum(o.astype(jnp.float32) * g.astype(jnp.float32))
+    return [np.asarray(t, np.float32)
+            for t in jax.grad(loss, argnums=(0, 1, 2))(q, k, v)]
+
+
+def _port_flash_grads(arrays, scale, causal, blk, dtype):
+    q, k, v, g = (torch.from_numpy(a).to(dtype) for a in arrays)
+    for t in (q, k, v):
+        t.requires_grad_(True)
+    if blk == q.shape[2]:
+        o = FlashAttentionFn.apply(q, k, v, scale, causal)
+    else:                      # the op's dense path: the block does not divide
+        o = mxt.nd.flash_attention(q, k, v, causal=causal, scale=scale,
+                                   block_q=blk, block_k=blk)
+    torch.autograd.backward([o], [g])
+    return [t.grad.float().numpy() for t in (q, k, v)]
+
+
+@pytest.mark.parametrize("shape,blk,dtype,causal", [
+    ((1, 2, 64, 16), 64, "float32", False),   # the JAX package's own check
+    ((1, 2, 64, 16), 64, "float32", True),
+    ((1, 2, 100, 16), 64, "float32", True),   # 64 does not divide 100: dense
+    ((1, 2, 64, 32), 64, "bfloat16", True)])
+def test_flash_gradient_matches_jax(shape, blk, dtype, causal):
+    arrays = _qkv(7, shape)
+    scale = shape[-1] ** -0.5
+    want = _jax_flash_grads(arrays, scale, causal, blk, jnp.dtype(dtype))
+    got = _port_flash_grads(arrays, scale, causal, blk,
+                            getattr(torch, dtype))
+    tol = dict(rtol=1e-3, atol=1e-4) if dtype == "float32" \
+        else dict(rtol=3e-2, atol=3e-2)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g, w, **tol)
+
+
+def test_flash_op_records_through_k1b(monkeypatch):
+    """Under ``record()`` the multi-head attention op reaches K1b's wrapper
+    once per call, with a contiguous dO (it arrives permuted); the plain
+    backward runs because the tensors lie on the CPU."""
+    calls = []
+    real = kfa.flash_attention_bwd
+
+    def spy(q, k, v, o, do, scale, causal):
+        calls.append(do.is_contiguous())
+        return real(q, k, v, o, do, scale, causal)
+
+    monkeypatch.setattr("mxnet_tpu_torch.ops.flash_attention."
+                        "flash_attention_bwd", spy)
+    qkv = mxt.nd.attach_grad(mxt.nd.array(_qkv(3, (2, 64, 48))[0], ctx=CPU))
+    with mxt.autograd.record():
+        out = mxt.nd.multihead_attention(qkv, num_heads=2, impl="flash")
+    mxt.autograd.backward([out])
+    assert calls == [False]
+    assert mxt.nd.grad(qkv).abs().sum() > 0
+
+
+def test_bwd_wrapper_routes_by_device(monkeypatch):
+    """CPU tensors take the plain backward, meta tensors get empty
+    outputs, anything else launches or raises; nothing launches here."""
+    q, k, v, g = (torch.from_numpy(a) for a in _qkv(5, (1, 2, 64, 16)))
+    o = kfa.dense_reference(q, k, v, 0.25, True)
+    before = (kfa.LAUNCHES, kfa.BWD_LAUNCHES)
+    got = kfa.flash_attention_bwd(q, k, v, o, g, 0.25, True)
+    want = kfa.bwd_reference(q, k, v, o, g, 0.25, True)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    monkeypatch.setattr(kfa, "bwd_reference", None)
+    meta = [torch.empty(t.shape, device="meta") for t in (q, k, v, o, g)]
+    outs = kfa.flash_attention_bwd(*meta, 0.25, True)
+    assert [t.device.type for t in outs] == ["meta"] * 3
+    with pytest.raises(MXNetError):
+        kfa.flash_attention_bwd(meta[0], k, v, o, g, 0.25, True)
+    assert (kfa.LAUNCHES, kfa.BWD_LAUNCHES) == before
