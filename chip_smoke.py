@@ -18,10 +18,13 @@ own entry points and holds every kernel against its plain version:
    D 16 and 32 in bfloat16 (gates ``TOL_*`` below: float32 absolute,
    bfloat16 absolute and over the largest output); both kernels causal at
    the short sequences the serving buckets send them (B=4, T 1, 2, 16 and
-   64), the sm90 kernel timed there; then their times at
+   64), the sm90 kernel timed there; the sm90 kernel's row log-sum-exp
+   (written for the backward) within ``TOL_LSE`` of the plain version's,
+   and its O bitwise equal with and without it; then their times at
    the scoring and decode shapes beside the plain version's, the bound and
    ``scaled_dot_product_attention``'s (the yardstick; the port never calls
-   it), with the f32 kernel timed on the same bf16 inputs as well;
+   it), with the sm90 kernel also timed writing lse and the f32 kernel
+   timed on the same bf16 inputs as well;
 3. scoring in float32: ``net(tokens)`` at B=4, T=1024 launches the kernel
    once per layer, and its logits agree with the same net's with dense
    attention;
@@ -63,12 +66,19 @@ own entry points and holds every kernel against its plain version:
    dispatch and host-copy time per bucket; and a ``ResilientServer`` that
    sheds a burst with ``Overloaded`` and fails a request past its deadline
    with ``DeadlineExceeded``;
-9. training: the flash backward K1b (``csrc/flash_attention_bwd.cu``)
-   against its plain version at the training shape (B=8, H=16, T=1024,
-   D=64, causal, bf16 and float32; non-causal; T=64 at D 16 and 32; a
-   ragged T=100), gated at ``TOL_BWD_*`` of each output's largest
-   magnitude, and its time beside the plain version's, the bound and the
-   backward of ``scaled_dot_product_attention`` (the yardstick); a float32
+9. training: the flash backward K1b, two kernels routed as the forward:
+   ``sm90`` (``csrc/flash_attention_bwd_sm90.cu``, bf16 at D 64/128, the
+   tensor cores, the forward's lse) at the training and gradient check
+   batches (B=8 and B=2, H=16, T=1024, D 64 and 128, causal and not),
+   T=128, a ragged T=100, T=2 and T=7, against its plain version and
+   against the FMA kernel on the same bf16 inputs, and bitwise equal when
+   run twice; the
+   FMA kernel ``f32`` (``csrc/flash_attention_bwd.cu``) in float32 at the
+   training shape, T=64 (D 16, 32) and T=100, and in bf16 at D 16 and 32;
+   all gated at ``TOL_BWD_*`` of each output's largest magnitude; both
+   kernels' times beside the plain version's, the bound and the backward
+   of ``scaled_dot_product_attention`` (the yardstick), the sm90 kernel
+   gated at ``BWD_SDPA_RATIO`` times the latter; a float32
    gradient check of a 2-layer full-width flash net against the same net
    with attention's gradient taken by autograd of the dense formula
    (``TOL_GRAD_F32``); then the training main path: the bf16 ``TrainStep``
@@ -76,10 +86,12 @@ own entry points and holds every kernel against its plain version:
    multi_precision)``, every kernel count set to 0, 6 steps on one batch
    of B=8, T=1024 (finite, falling loss; the first step's float32 master of
    one weight moved by -lr * rescale_grad * grad, within ``TOL_MASTER``;
-   12 sm90 and 12 K1b launches and no f32 one per step), its step time,
+   12 sm90 K1 and 12 sm90 K1b launches and no f32 one per step; the
+   gradient check's 2 K1b launches all on f32), its step time,
    tokens/s and peak memory, then one step under torch.profiler;
 10. a ``kernels`` JSON line (the forward kernels' ``launches`` are phase
-   8's, with phase 9's as ``training_launches``; K1b's are phase 9's),
+   8's, with phase 9's as ``training_launches``; the two K1b kernels' are
+   phase 9's main path, the FMA one's 0 there),
    then the last line ``{"ok": true, "device": {...}}``.
 
 The model is ``experiments/lm_mfu_probe.py``'s default width (vocab 32768,
@@ -144,6 +156,12 @@ GRAD_BATCH = 2
 # float32 at the flash forward's pin, bfloat16 at the reference's bf16 pin
 TOL_BWD_F32 = 1e-4
 TOL_BWD_BF16 = 3e-2
+# the sm90 forward's row log-sum-exp against the plain version's
+# (torch.logsumexp of the float32 scores), absolute: the kernel's m + log l
+# sums the same exponentials in another order
+TOL_LSE = 1e-3
+# the sm90 K1b's device time against the backward of SDPA in the same run
+BWD_SDPA_RATIO = 3.0
 # K1b's parameter gradients through 2 full-width layers against the same
 # net with a dense-formula attention gradient, float32, max |diff| over the
 # gradient's largest magnitude
@@ -275,6 +293,7 @@ def phase_kernel(mx):
                 for _ in range(3)]
 
     errs = {}      # (variant, dtype, B, T, D, causal) -> (abs, rel) err
+    lse_errs = {}  # (B, T, D, causal) -> sm90 lse abs err
     short_times = {}   # T -> ({name: device ms}, bound) at B=4, bf16
     cases = [(4, 16, 1024, 64, None), (1, 16, 1024, 64, None),
              (TRAIN_BATCH, 16, 1024, 64, None),     # phase 9's main path
@@ -308,9 +327,25 @@ def phase_kernel(mx):
                       f"{what}: max err / max |ref| {rel:.3e} > "
                       f"{TOL_BF16_REL:.3e}")
                 errs[(variant, dtype, B, T, D, causal)] = (err, rel)
-                print(f"  flash {variant:4s} B={B} H={H} T={T} D={D} "
-                      f"{str(dtype)[6:]} causal={causal}: max err {err:.3e}, "
-                      f"over max |ref| {rel:.3e}")
+                line = (f"  flash {variant:4s} B={B} H={H} T={T} D={D} "
+                        f"{str(dtype)[6:]} causal={causal}: max err "
+                        f"{err:.3e}, over max |ref| {rel:.3e}")
+                if variant == "sm90":
+                    # the row log-sum-exp the backward reads, and O
+                    # unchanged by writing it
+                    o_lse, lse = kfa.flash_attention_fwd(
+                        q, k, v, D ** -0.5, causal, return_lse=True)
+                    _, lse_ref = kfa.dense_reference(
+                        q, k, v, D ** -0.5, causal, return_lse=True)
+                    torch.cuda.synchronize()
+                    check(torch.equal(o_lse, out), f"{what}: O with lse "
+                          "differs from O without")
+                    lse_err = (lse - lse_ref).abs().max().item()
+                    check(lse_err <= TOL_LSE, f"{what}: lse max err "
+                          f"{lse_err:.3e} > {TOL_LSE}")
+                    lse_errs[(B, T, D, causal)] = lse_err
+                    line += f"; lse max err {lse_err:.3e}, O bitwise equal"
+                print(line)
     # the short sequences the serving buckets send through the kernels
     # (phase 8), causal: T below both kernels' q and k tiles (and the sm90
     # kernel's TMA boxes)
@@ -362,7 +397,9 @@ def phase_kernel(mx):
             variant = kfa._variant(dtype, 64)
             fns = {variant: lambda: kfa.flash_attention_fwd(q, k, v, 0.125,
                                                             causal)}
-            if variant != "f32":   # the f32 kernel on the same bf16 inputs
+            if variant != "f32":   # with lse; the f32 kernel on the same
+                fns["sm90_lse"] = lambda: kfa._launch(    # bf16 inputs
+                    "sm90", q, k, v, 0.125, causal, return_lse=True)
                 fns["f32"] = lambda: kfa._launch("f32", q, k, v, 0.125,
                                                  causal)
             fns["plain"] = lambda: kfa.dense_reference(q, k, v, 0.125, causal)
@@ -381,7 +418,7 @@ def phase_kernel(mx):
                       f"{name} {d:.4f} ({c:.4f})"
                       for name, (d, c) in row.items() if name != "bound")
                   + f"; bound {row['bound'][0]:.4f} ({row['bound'][1]})")
-    return errs, timings, short_times
+    return errs, lse_errs, timings, short_times
 
 
 def build_nets(mx):
@@ -484,12 +521,14 @@ def reset_counts():
         mod.LAUNCHES = 0
     for variant in kfa.VARIANT_LAUNCHES:
         kfa.VARIANT_LAUNCHES[variant] = 0
+    for variant in kfa.BWD_VARIANT_LAUNCHES:
+        kfa.BWD_VARIANT_LAUNCHES[variant] = 0
     kfa.BWD_LAUNCHES = 0
 
 
 def read_counts():
     """{kernel module: launches}, with the flash forward also by variant
-    and the flash backward (K1b) on its own."""
+    and the flash backward (K1b) on its own, in all and by variant."""
     from mxnet_tpu_torch import kernels
     from mxnet_tpu_torch.kernels import flash_attention as kfa
     counts = {mod.__name__.rsplit(".", 1)[1]: mod.LAUNCHES
@@ -497,6 +536,8 @@ def read_counts():
     counts.update({f"flash_attention.{v}": n
                    for v, n in kfa.VARIANT_LAUNCHES.items()})
     counts["flash_attention.bwd"] = kfa.BWD_LAUNCHES
+    counts.update({f"flash_attention.bwd.{v}": n
+                   for v, n in kfa.BWD_VARIANT_LAUNCHES.items()})
     return counts
 
 
@@ -1040,72 +1081,138 @@ def train_step_block(mx, net):
 
 
 def phase_train_kernel(mx):
-    """K1b against its plain version at the training shape and the short
-    ones, then its time beside the plain version's, the bound and the
-    backward of ``scaled_dot_product_attention`` (the yardstick)."""
+    """K1b against its plain version, then the times.
+
+    The sm90 kernel (bf16 at D 64 and 128, with the forward's lse) at the
+    training and gradient check batches (B=8 and B=2, H=16, T=1024, D 64
+    and 128, causal and not), T=128 and a ragged T=100 at D=64, and T=2
+    and T=7: against the plain version, against the f32 FMA kernel on the
+    same bf16 inputs, and run twice for a bitwise-equal result.  The FMA
+    kernel at the shapes it serves: float32 at the training shape, T=64
+    (D 16, 32) and T=100, and bf16 at D 16 and 32.  Then the times at the
+    training shape of both
+    kernels beside the plain version's, the bound and the backward of
+    ``scaled_dot_product_attention`` (the yardstick), the sm90 kernel gated
+    at BWD_SDPA_RATIO times the latter."""
     import torch
     from mxnet_tpu_torch.kernels import flash_attention as kfa
+    bf16, f32 = torch.bfloat16, torch.float32
     gen = torch.Generator(device="cpu").manual_seed(1)
 
     def inputs(B, H, T, D, dtype, causal):
         q, k, v, do = (torch.randn(B, H, T, D, generator=gen).to(
             "cuda", dtype) for _ in range(4))
-        return q, k, v, kfa.flash_attention_fwd(q, k, v, D ** -0.5,
-                                                causal), do
+        o, lse = kfa.flash_attention_fwd(q, k, v, D ** -0.5, causal,
+                                         return_lse=True)
+        return q, k, v, o, do, lse
 
-    errs = {}
-    for B, H, T, D, causal in ((TRAIN_BATCH, 16, 1024, 64, True),
-                               (TRAIN_BATCH, 16, 1024, 64, False),
-                               (1, 2, 64, 16, True), (1, 2, 64, 32, True),
-                               (1, 2, 100, 64, True)):
-        for dtype, tol in ((torch.float32, TOL_BWD_F32),
-                           (torch.bfloat16, TOL_BWD_BF16)):
-            q, k, v, o, do = inputs(B, H, T, D, dtype, causal)
-            before = kfa.BWD_LAUNCHES
-            got = kfa.flash_attention_bwd(q, k, v, o, do, D ** -0.5, causal)
-            want = kfa.bwd_reference(q, k, v, o, do, D ** -0.5, causal)
-            torch.cuda.synchronize()
-            check(kfa.BWD_LAUNCHES == before + 1,
-                  f"K1b did not launch at {(B, H, T, D)} {dtype}")
-            worst = (0.0, 0.0)
-            for g, w, name in zip(got, want, ("dq", "dk", "dv")):
-                check(g.shape == w.shape and g.dtype == dtype
-                      and bool(torch.isfinite(g).all()),
-                      f"K1b {name} malformed at {(B, H, T, D)} {dtype}")
-                err = (g.float() - w.float()).abs().max().item()
-                rel = err / w.float().abs().max().item()
-                check(rel <= tol, f"K1b {name} vs plain at B={B} H={H} T={T}"
-                      f" D={D} {dtype} causal={causal}: max err {err:.3e}, "
-                      f"over max |ref| {rel:.3e} > {tol}")
-                worst = max(worst, (rel, err))
-            errs[(dtype, B, T, D, causal)] = (worst[1], worst[0])
-            print(f"  K1b B={B} H={H} T={T} D={D} {str(dtype)[6:]} "
-                  f"causal={causal}: max err {worst[1]:.3e}, over max |ref| "
-                  f"{worst[0]:.3e} (worst of dq, dk, dv)")
+    def worst(got, want, dtype, tol, what):
+        """The largest of dq's, dk's and dv's max |got - want| over max
+        |want|, gated at tol; returns (abs, rel) of that output."""
+        rows = []
+        for g, w, name in zip(got, want, ("dq", "dk", "dv")):
+            check(g.shape == w.shape and g.dtype == dtype
+                  and bool(torch.isfinite(g).all()),
+                  f"K1b {name} malformed {what}")
+            err = (g.float() - w.float()).abs().max().item()
+            rel = err / w.float().abs().max().item()
+            check(rel <= tol, f"K1b {name} {what}: max err {err:.3e}, over "
+                  f"max |ref| {rel:.3e} > {tol}")
+            rows.append((rel, err))
+        rel, err = max(rows)
+        return err, rel
+
+    errs = {}      # (variant, dtype, B, T, D, causal) -> (abs, rel) vs plain
+    fma_errs = {}  # (B, T, D, causal) -> (abs, rel) sm90 vs the FMA kernel
+    sm90_cases = [(B, 16, 1024, D, causal) for B in (TRAIN_BATCH, GRAD_BATCH)
+                  for D in (64, 128) for causal in (True, False)]
+    sm90_cases += [(1, 2, T, 64, causal) for T in (128, 100)
+                   for causal in (True, False)]
+    # sequences shorter than a tile, whose statistics rows once made the
+    # kernel's 1-D TMA map too small to load
+    sm90_cases += [(1, 2, 2, 64, True), (2, 3, 7, 128, True)]
+    for B, H, T, D, causal in sm90_cases:
+        q, k, v, o, do, lse = inputs(B, H, T, D, bf16, causal)
+        before = kfa.BWD_VARIANT_LAUNCHES["sm90"]
+        got = kfa.flash_attention_bwd(q, k, v, o, do, D ** -0.5, causal, lse)
+        again = kfa.flash_attention_bwd(q, k, v, o, do, D ** -0.5, causal,
+                                        lse)
+        fma = kfa._bwd_launch("f32", q, k, v, o, do, D ** -0.5, causal)
+        want = kfa.bwd_reference(q, k, v, o, do, D ** -0.5, causal)
+        torch.cuda.synchronize()
+        what = f"at B={B} H={H} T={T} D={D} bf16 causal={causal}"
+        check(kfa.BWD_VARIANT_LAUNCHES["sm90"] == before + 2,
+              f"K1b did not launch sm90 {what}")
+        check(all(torch.equal(a, b) for a, b in zip(got, again)),
+              f"K1b sm90 is not bitwise repeatable {what}")
+        errs[("sm90", bf16, B, T, D, causal)] = worst(
+            got, want, bf16, TOL_BWD_BF16, f"sm90 vs plain {what}")
+        fma_errs[(B, T, D, causal)] = worst(
+            got, fma, bf16, TOL_BWD_BF16, f"sm90 vs the FMA kernel {what}")
+        err, rel = errs[("sm90", bf16, B, T, D, causal)]
+        print(f"  K1b sm90 B={B} H={H} T={T} D={D} bf16 causal={causal}: "
+              f"max err {err:.3e}, over max |ref| {rel:.3e}; vs the FMA "
+              f"kernel {fma_errs[(B, T, D, causal)][1]:.3e}; bitwise "
+              "repeatable (worst of dq, dk, dv)")
+    fma_cases = [(TRAIN_BATCH, 16, 1024, 64, True, f32),
+                 (TRAIN_BATCH, 16, 1024, 64, False, f32),
+                 (1, 2, 100, 64, True, f32)]
+    fma_cases += [(1, 2, 64, D, True, dtype) for D in (16, 32)
+                  for dtype in (f32, bf16)]
+    for B, H, T, D, causal, dtype in fma_cases:
+        q, k, v, o, do, _ = inputs(B, H, T, D, dtype, causal)
+        before = kfa.BWD_VARIANT_LAUNCHES["f32"]
+        got = kfa.flash_attention_bwd(q, k, v, o, do, D ** -0.5, causal)
+        want = kfa.bwd_reference(q, k, v, o, do, D ** -0.5, causal)
+        torch.cuda.synchronize()
+        what = f"at B={B} H={H} T={T} D={D} {dtype} causal={causal}"
+        check(kfa.BWD_VARIANT_LAUNCHES["f32"] == before + 1,
+              f"K1b did not launch f32 {what}")
+        tol = TOL_BWD_F32 if dtype == f32 else TOL_BWD_BF16
+        err, rel = errs[("f32", dtype, B, T, D, causal)] = worst(
+            got, want, dtype, tol, f"f32 vs plain {what}")
+        print(f"  K1b f32  B={B} H={H} T={T} D={D} {str(dtype)[6:]} "
+              f"causal={causal}: max err {err:.3e}, over max |ref| "
+              f"{rel:.3e} (worst of dq, dk, dv)")
     times = {}
-    for dtype in (torch.bfloat16, torch.float32):
-        q, k, v, o, do = inputs(TRAIN_BATCH, 16, 1024, 64, dtype, True)
+    for dtype in (bf16, f32):
+        q, k, v, o, do, lse = inputs(TRAIN_BATCH, 16, 1024, 64, dtype, True)
         qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
         out = torch.nn.functional.scaled_dot_product_attention(
             qs, ks, vs, is_causal=True, scale=0.125)
-        row = {"k1b": device_ms(lambda: kfa.flash_attention_bwd(
-                   q, k, v, o, do, 0.125, True)),
-               "plain": device_ms(lambda: kfa.bwd_reference(
-                   q, k, v, o, do, 0.125, True)),
-               "sdpa_bwd": device_ms(lambda: torch.autograd.grad(
-                   out, (qs, ks, vs), do, retain_graph=True))}
-        rate = H100_BF16_FLOPS if dtype == torch.bfloat16 else H100_F32_FLOPS
+        row = {}
+        if dtype == bf16:
+            row["sm90"] = device_ms(lambda: kfa.flash_attention_bwd(
+                q, k, v, o, do, 0.125, True, lse))
+        row["f32"] = device_ms(lambda: kfa._bwd_launch(
+            "f32", q, k, v, o, do, 0.125, True))
+        row["plain"] = device_ms(lambda: kfa.bwd_reference(
+            q, k, v, o, do, 0.125, True))
+        row["sdpa_bwd"] = device_ms(lambda: torch.autograd.grad(
+            out, (qs, ks, vs), do, retain_graph=True))
+        rate = H100_BF16_FLOPS if dtype == bf16 else H100_F32_FLOPS
         # the backward's five products (S, dO V^T, dV, dQ, dK) and its
-        # eight tensors (q, k, v, o, dO in; dq, dk, dv out)
+        # eight tensors (q, k, v, o, dO in; dq, dk, dv out); the sm90
+        # design's own floor: S and dO V^T twice, 14 D per pair
         row["bound"] = attention_bound_ms(
             TRAIN_BATCH, 16, 1024, 64, True, q.element_size(), rate,
             ops_per_pair=10, tensors=8)
+        line = (f"  time K1b B={TRAIN_BATCH} H=16 T=1024 D=64 "
+                f"{str(dtype)[6:]} causal, device ms: " + ", ".join(
+                    f"{n} {t:.4f}" for n, t in row.items() if n != "bound")
+                + f"; bound {row['bound'][0]:.4f} ({row['bound'][1]})")
+        if dtype == bf16:
+            row["floor"] = attention_bound_ms(
+                TRAIN_BATCH, 16, 1024, 64, True, q.element_size(), rate,
+                ops_per_pair=14, tensors=8)
+            line += f", the sm90 design's 14 D floor {row['floor'][0]:.4f}"
         times[dtype] = row
-        print(f"  time K1b B={TRAIN_BATCH} H=16 T=1024 D=64 "
-              f"{str(dtype)[6:]} causal, device ms: " + ", ".join(
-                  f"{n} {t:.4f}" for n, t in row.items() if n != "bound")
-              + f"; bound {row['bound'][0]:.4f} ({row['bound'][1]})")
-    return errs, times
+        print(line)
+    ratio = times[bf16]["sm90"] / times[bf16]["sdpa_bwd"]
+    print(f"  K1b sm90 / SDPA backward: {ratio:.2f} (limit {BWD_SDPA_RATIO})")
+    check(ratio <= BWD_SDPA_RATIO, f"K1b sm90 takes {ratio:.2f}x the "
+          f"backward of SDPA, over {BWD_SDPA_RATIO}")
+    return errs, fma_errs, times
 
 
 def phase_grad_check(mx):
@@ -1134,7 +1241,7 @@ def phase_grad_check(mx):
     params = flash.collect_params()
 
     def dense_formula_backward(ctx, do):
-        q, k, v, _ = ctx.saved_tensors
+        q, k, v = ctx.saved_tensors[:3]
         with torch.enable_grad():
             qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
             o = kfa.dense_reference(qs, ks, vs, ctx.scale, ctx.causal)
@@ -1144,12 +1251,16 @@ def phase_grad_check(mx):
 
     def grads(want_bwd):
         before = kfa.BWD_LAUNCHES
+        before_f32 = kfa.BWD_VARIANT_LAUNCHES["f32"]
         with mx.autograd.record():
             loss = step(x, y)
         loss.backward()
         torch.cuda.synchronize()
-        check(kfa.BWD_LAUNCHES - before == want_bwd, f"K1b launched "
-              f"{kfa.BWD_LAUNCHES - before} times, want {want_bwd}")
+        check(kfa.BWD_LAUNCHES - before == want_bwd and
+              kfa.BWD_VARIANT_LAUNCHES["f32"] - before_f32 == want_bwd,
+              f"K1b launched {kfa.BWD_LAUNCHES - before} times, "
+              f"{kfa.BWD_VARIANT_LAUNCHES['f32'] - before_f32} on f32, "
+              f"want {want_bwd} on f32")
         return loss.item(), {n: p.grad().clone() for n, p in params.items()}
 
     f32_before = kfa.VARIANT_LAUNCHES["f32"]
@@ -1263,8 +1374,11 @@ def phase_train(mx):
     check(losses[-1] < losses[0], f"training loss did not fall: {losses}")
     for i, c in enumerate(per_step):
         check(c["flash_attention.sm90"] == L and c["flash_attention.f32"] == 0
-              and c["flash_attention.bwd"] == L,
-              f"step {i}: launches {c}; want {L} sm90, 0 f32 and {L} K1b")
+              and c["flash_attention.bwd"] == L
+              and c["flash_attention.bwd.sm90"] == L
+              and c["flash_attention.bwd.f32"] == 0,
+              f"step {i}: launches {c}; want {L} sm90, 0 f32, {L} K1b, all "
+              "on sm90")
 
     def one_step():
         with mx.autograd.record():
@@ -1275,7 +1389,7 @@ def phase_train(mx):
     # where a step's time goes, outside the counted run
     rows = kernel_rows(one_step)
     if rows:
-        groups = {"K1b": ("dq_kernel", "dkdv_kernel"),
+        groups = {"K1b": ("dq_kernel", "dkdv_kernel", "delta_kernel"),
                   "K1": ("flash_attention_fwd",),
                   "GEMM": ("nvjet", "gemm", "xmma", "cutlass")}
         busy = sum(r[0] for r in rows)
@@ -1317,7 +1431,7 @@ def main():
         print("== phase 1: setup")
         k0 = phase_setup(mx)
         print("== phase 2: flash kernels vs plain version")
-        errs, timings, short_times = phase_kernel(mx)
+        errs, lse_errs, timings, short_times = phase_kernel(mx)
         print("== phase 3: scoring, float32, flash vs dense")
         flash, dense = build_nets(mx)
         rs = np.random.RandomState(42)
@@ -1339,7 +1453,7 @@ def main():
         counts = phase_serving(mx, prompts, L)
         print("== phase 9: training")
         t_train = time.perf_counter()
-        bwd_errs, bwd_times = phase_train_kernel(mx)
+        bwd_errs, bwd_fma_errs, bwd_times = phase_train_kernel(mx)
         phase_grad_check(mx)
         train_counts, _ = phase_train(mx)
         print(f"phase 9: {time.perf_counter() - t_train:.1f} s")
@@ -1372,6 +1486,8 @@ def main():
         entry["max_err_all_shapes"] = max(
             e[0] for key, e in errs.items() if key[0] == variant)
         if variant == "sm90":
+            entry["lse_ms"] = timings[(bf16, 4, True)]["sm90_lse"][0]
+            entry["max_lse_err"] = max(lse_errs.values())
             entry["short"] = {
                 f"B=4 H=16 T={T} D=64 bf16 causal": {
                     "max_abs_err": errs[(variant, bf16, 4, T, 64, True)][0],
@@ -1381,28 +1497,33 @@ def main():
                 for T, (t, bound) in short_times.items()}
         return entry
 
-    def bwd_entry():
-        """K1b at the training shape in bf16 (its launches are phase 9's
-        main path), the float32 numbers beside it."""
-        entry = {"name": "flash_attention_bwd", "route": "cuda",
-                 "source": "mxnet_tpu_torch/csrc/flash_attention_bwd.cu",
+    def bwd_entry(name, variant, source, dtype):
+        """K1b's kernel ``variant`` at the training shape, causal, in
+        ``dtype``: bf16 for the sm90 kernel, whose launches are phase 9's
+        main path; float32 for the FMA kernel, with its time on the bf16
+        inputs beside it."""
+        t = bwd_times[dtype]
+        err, rel = bwd_errs[(variant, dtype, TRAIN_BATCH, 1024, 64, True)]
+        entry = {"name": name, "route": "cuda", "source": source,
                  "replaces": "mxnet_tpu/ops/flash_attention.py:224",
                  "replaces_function": "mxnet_tpu/ops/flash_attention.py:"
                                       "_fa_bwd (plain jnp, not Pallas)",
-                 "launches": train_counts["flash_attention.bwd"]}
-        for dtype in (bf16, f32):
-            t = bwd_times[dtype]
-            err, rel = bwd_errs[(dtype, TRAIN_BATCH, 1024, 64, True)]
-            nums = {"shape": f"B={TRAIN_BATCH} H=16 T=1024 D=64 "
-                             f"{str(dtype)[6:]} causal",
-                    "max_abs_err": err, "max_rel_err": rel, "ms": t["k1b"],
-                    "plain_ms": t["plain"], "bound_ms": t["bound"][0],
-                    "bound_by": t["bound"][1], "library_ms": t["sdpa_bwd"]}
-            if dtype == bf16:
-                entry.update(nums)
-            else:
-                entry["f32"] = nums
-        entry["max_rel_err_all_shapes"] = max(e[1] for e in bwd_errs.values())
+                 "launches": train_counts[f"flash_attention.bwd.{variant}"],
+                 "shape": f"B={TRAIN_BATCH} H=16 T=1024 D=64 "
+                          f"{str(dtype)[6:]} causal",
+                 "max_abs_err": err, "max_rel_err": rel, "ms": t[variant],
+                 "plain_ms": t["plain"], "bound_ms": t["bound"][0],
+                 "bound_by": t["bound"][1], "library_ms": t["sdpa_bwd"],
+                 "max_rel_err_all_shapes": max(
+                     e[1] for key, e in bwd_errs.items()
+                     if key[0] == variant)}
+        if variant == "sm90":
+            entry["floor_ms_14D"] = t["floor"][0]
+            entry["max_rel_err_vs_fma"] = max(
+                e[1] for e in bwd_fma_errs.values())
+        else:
+            entry["grad_check_launches"] = GRAD_LAYERS
+            entry["bf16_inputs_ms"] = bwd_times[bf16]["f32"]
         return entry
 
     kernels_line = {"kernels": [
@@ -1419,7 +1540,10 @@ def main():
         flash_entry("flash_attention_fwd", "f32",
                     "mxnet_tpu_torch/csrc/flash_attention_fwd.cu", f32,
                     counts["flash_attention.f32"]),
-        bwd_entry(),
+        bwd_entry("flash_attention_bwd_sm90", "sm90",
+                  "mxnet_tpu_torch/csrc/flash_attention_bwd_sm90.cu", bf16),
+        bwd_entry("flash_attention_bwd", "f32",
+                  "mxnet_tpu_torch/csrc/flash_attention_bwd.cu", f32),
     ]}
     for entry, variant in zip(kernels_line["kernels"][1:3], ("sm90", "f32")):
         entry["training_launches"] = train_counts[f"flash_attention.{variant}"]

@@ -28,10 +28,8 @@
 //    empty mbarriers, so the next tile's copy overlaps this tile's math.
 //    The mbarrier phase of tile i is (i / STAGES) & 1.
 //  * Swizzle agreement: every tile is stored with the 128-byte swizzle,
-//    written by TMA (CU_TENSOR_MAP_SWIZZLE_128B) and read by wgmma through
-//    descriptors of the same mode.  A row of 64 bf16 is exactly 128 bytes;
-//    D = 128 is two 64-column boxes, stored one after the other.  Every
-//    tile starts on a 1024-byte boundary (one 8-row swizzle atom).
+//    written by TMA and read by wgmma through descriptors of the same mode
+//    (sm90.cuh, shared with the backward).
 //  * S = Q K^T by wgmma m64n64k16 from shared memory, f32 accumulate.  Q
 //    (64 x D) and K (BN x D) are both K-major: no transpose.  A k16 step
 //    moves the descriptor 32 bytes along the swizzled row.
@@ -48,6 +46,10 @@
 //    commit_group, wait_group 0, and an empty asm that pins the registers
 //    the async product reads or writes until after the wait.  The consumer
 //    frees a stage only after the P V product that reads its V is done.
+//  * Row statistics: where the caller passes `lse`, the epilogue writes
+//    each row's log-sum-exp m + log l (natural log) for the backward
+//    (flash_attention_bwd_sm90.cu), from the lanes that hold column 0 of
+//    the row; with lse null it writes nothing, and O is the same either way.
 //  * The tensor maps are encoded on the host for each call (the pointers
 //    change) by cuTensorMapEncodeTiled, looked up at run time with
 //    cudaGetDriverEntryPoint, so the library needs no -lcuda; they reach
@@ -60,8 +62,11 @@
 #include <atomic>
 
 #include "common.cuh"
+#include "sm90.cuh"
 
 namespace {
+
+using namespace sm90;
 
 constexpr int BM = 64;            // query rows per CTA
 constexpr int BN = 128;           // keys per k-tile
@@ -69,10 +74,6 @@ constexpr int SB = BN / 64;       // 64-key blocks of S, one wgmma N each
 constexpr int STAGES = 2;         // K/V ring depth
 constexpr int CONSUMERS = 128;    // one consumer warpgroup
 constexpr int THREADS = CONSUMERS + 32;
-constexpr int ROW = 128;          // bytes in one swizzled row: 64 bf16
-constexpr int ATOM = 8 * ROW;     // one 8-row swizzle atom
-constexpr float NEG_BIG = -1e30f;
-constexpr float LOG2E = 1.4426950408889634f;
 
 // Byte offsets from a 1024-aligned base of dynamic shared memory.
 template <int D>
@@ -88,127 +89,13 @@ struct Layout {
   static constexpr int ALLOC = QBAR + 8 + 1024;         // + room to align
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void bar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;"
-               :: "r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void bar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
-               :: "r"(bar), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void bar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];"
-               :: "r"(bar) : "memory");
-}
-
-// Waits until the phase of parity `parity` of the barrier has completed.
-__device__ __forceinline__ void bar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-  } while (!done);
-}
-
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int d0, int t0,
-                                         int bh) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5}], [%2];"
-      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(d0),
-         "r"(t0), "r"(bh)
-      : "memory");
-}
-
-// wgmma shared-memory descriptor, 128-byte swizzle: start address, leading
-// and stride byte offsets, all in 16-byte units.
-__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo,
-                                               uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(lbo >> 4) << 16) |
-         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wg_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
-}
-
-// Keeps the compiler from touching registers an async wgmma still owns.
-__device__ __forceinline__ void pin(float (&d)[32]) {
-#pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
-}
-__device__ __forceinline__ void pin(uint32_t (&a)[4]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(a[i]) :: "memory");
-}
-
-#define MXT_D32(d)                                                          \
-  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),   \
-  "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),              \
-  "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),          \
-  "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),          \
-  "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),          \
-  "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),          \
-  "+f"(d[31])
-
-#define MXT_D32_OPERANDS                                                    \
-  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
-  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
-  "%30, %31}"
-
-// d (64 x 64, f32) (+)= A (64 x 16) B (16 x 64), A and B K-major in shared
-// memory; accumulate = 0 overwrites d.
-__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
-                                         uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
-      " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      MXT_D32_OPERANDS ", %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : MXT_D32(d)
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-// d (64 x 64, f32) += A (64 x 16, bf16 pairs in registers) B (16 x 64), B
-// MN-major in shared memory.
-__device__ __forceinline__ void wgmma_rs(float (&d)[32],
-                                         const uint32_t (&a)[4],
-                                         uint64_t db) {
-  asm volatile(
-      "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
-      " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      MXT_D32_OPERANDS ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : MXT_D32(d)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
 template <int D>
 __global__ void __launch_bounds__(THREADS)
 flash_attention_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
                                 const __grid_constant__ CUtensorMap tm_k,
                                 const __grid_constant__ CUtensorMap tm_v,
-                                __nv_bfloat16* __restrict__ o, int tq, int tk,
+                                __nv_bfloat16* __restrict__ o,
+                                float* __restrict__ lse, int tq, int tk,
                                 float scale, int causal) {
   using L = Layout<D>;
   constexpr int HALVES = D / 64;  // 64-column boxes per row
@@ -383,6 +270,11 @@ flash_attention_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
     const int row = q0 + r0 + 8 * r;
     if (row >= tq) continue;
     const float denom = fmaxf(l[r], 1e-30f);
+    // the row's log-sum-exp of the scaled scores, natural log: m is the
+    // row max of scale * s (exp2 takes it times LOG2E), l the sum of
+    // exp(x - m)
+    if (lse != nullptr && c0 == 0)
+      lse[(size_t)bh * tq + row] = m[r] + logf(denom);
 #pragma unroll
     for (int h = 0; h < HALVES; ++h)
 #pragma unroll
@@ -395,52 +287,10 @@ flash_attention_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
 }
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-#if CUDART_VERSION >= 12050
-    cudaDriverEntryPointQueryResult status;
-    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                         cudaEnableDefault, &status) !=
-            cudaSuccess ||
-        status != cudaDriverEntryPointSuccess)
-      p = nullptr;
-#else
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                cudaEnableDefault) != cudaSuccess)
-      p = nullptr;
-#endif
-    return reinterpret_cast<EncodeTiled>(p);
-  }();
-  return fn;
-}
-
-// A 3-D map over a contiguous (bh, t, d) bf16 tensor, read in boxes of
-// 64 columns x `rows` rows of one head, 128-byte swizzled, zero past t.
-bool make_map(EncodeTiled encode, CUtensorMap* map, const void* ptr, int bh,
-              int t, int d, int rows) {
-  const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)t, (cuuint64_t)bh};
-  const cuuint64_t strides[2] = {(cuuint64_t)d * 2, (cuuint64_t)t * d * 2};
-  const cuuint32_t box[3] = {64, (cuuint32_t)rows, 1};
-  const cuuint32_t elem_strides[3] = {1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
-                const_cast<void*>(ptr), dims, strides, box, elem_strides,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   int bh, int tq, int tk, float scale, int causal,
-                   cudaStream_t stream) {
+                   float* lse, int bh, int tq, int tk, float scale,
+                   int causal, cudaStream_t stream) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return cudaErrorNotSupported;
   CUtensorMap mq, mk, mv;
@@ -455,28 +305,33 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   if (err != cudaSuccess) return err;
   const dim3 grid(bh, (tq + BM - 1) / BM);
   kernel<<<grid, THREADS, Layout<D>::ALLOC, stream>>>(
-      mq, mk, mv, static_cast<__nv_bfloat16*>(o), tq, tk, scale, causal);
+      mq, mk, mv, static_cast<__nv_bfloat16*>(o), lse, tq, tk, scale,
+      causal);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // The arguments of mxt_flash_attention_fwd: q (bh, tq, d), k and v
-// (bh, tk, d), o (bh, tq, d), contiguous and 16-byte aligned.  Takes
-// dtype 1 (bfloat16) with d = 64 or 128 only.  Returns the cudaError_t.
+// (bh, tk, d), o (bh, tq, d), contiguous and 16-byte aligned, and lse,
+// float32 (bh, tq) or null: where given, each row's log-sum-exp of the
+// scaled, masked scores (natural log, as torch.logsumexp) is written there
+// for the backward (flash_attention_bwd_sm90.cu).  Takes dtype 1 (bfloat16)
+// with d = 64 or 128 only.  Returns the cudaError_t.
 extern "C" int mxt_flash_attention_fwd_sm90(const void* q, const void* k,
-                                            const void* v, void* o, int bh,
-                                            int tq, int tk, int d, float scale,
-                                            int causal, int dtype,
-                                            void* stream) {
+                                            const void* v, void* o, void* lse,
+                                            int bh, int tq, int tk, int d,
+                                            float scale, int causal,
+                                            int dtype, void* stream) {
   if (bh <= 0 || tq <= 0 || tk <= 0 || dtype != 1 ||
       (tq + BM - 1) / BM > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
   cudaError_t err;
   switch (d) {
-    case 64: err = launch<64>(q, k, v, o, bh, tq, tk, scale, causal, s); break;
-    case 128: err = launch<128>(q, k, v, o, bh, tq, tk, scale, causal, s); break;
+    case 64: err = launch<64>(q, k, v, o, l, bh, tq, tk, scale, causal, s); break;
+    case 128: err = launch<128>(q, k, v, o, l, bh, tq, tk, scale, causal, s); break;
     default: err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);

@@ -22,6 +22,7 @@ on the graph path, by shape inference over the traced graph.
 from __future__ import annotations
 
 import copy
+import re
 import threading
 from typing import Dict, List
 
@@ -151,11 +152,19 @@ class Block(torch.nn.Module):
     def params(self) -> ParameterDict:
         return self._params
 
-    def collect_params(self) -> ParameterDict:
+    def collect_params(self, select=None) -> ParameterDict:
+        """This block's and its children's parameters; with ``select``, a
+        regular expression, only those whose full name it matches (from the
+        start, as ``re.match``)."""
         ret = ParameterDict(self._params.prefix)
-        ret.update(self.params)
+        if select is None:
+            ret.update(self.params)
+        else:
+            pattern = re.compile(select)
+            ret.update({name: value for name, value in self.params.items()
+                        if pattern.match(name)})
         for cld in self._children:
-            ret.update(cld.collect_params())
+            ret.update(cld.collect_params(select))
         return ret
 
     def register_child(self, block, name=None):

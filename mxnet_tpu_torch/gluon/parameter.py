@@ -151,6 +151,46 @@ class Parameter:
         self._deferred_init = (init, ctx, default_init)
         self._finish_deferred_init()
 
+    def set_data(self, data):
+        """Replace the value with ``data`` (a tensor, array or list), cast to
+        this parameter's dtype.  An initialized parameter is written in
+        place on its device; a deferred one takes ``data`` as its
+        initial value, and its shape from it."""
+        if not isinstance(data, torch.Tensor):
+            data = torch.as_tensor(_np.asarray(data))
+        if self._data is None:
+            if not self._deferred_init:
+                raise MXNetError(f"Parameter {self.name} has not been "
+                                 "initialized")
+            ctx = self._deferred_init[1]
+            self.shape = tuple(data.shape)
+            self._deferred_init = ()
+            self._init_impl(data, ctx)
+            return
+        with torch.no_grad():
+            self._data.copy_(data.reshape(self._data.shape))
+
+    def list_data(self):
+        return [self.data()]
+
+    def reset_ctx(self, ctx):
+        """Move the data to ``ctx`` (a context, or a list of them whose first
+        is used), as ``.to(device)``; a deferred parameter will initialize
+        there.  A ``gpu`` context with no CUDA device raises."""
+        if isinstance(ctx, (Context, torch.device, str)):
+            ctx = [ctx]
+        device = as_device(ctx[0])
+        if self._data is not None:
+            self._ctx = list(ctx)
+            self._set_data(self._data.detach().to(device))
+        elif self._deferred_init:
+            init, _, default_init = self._deferred_init
+            self._deferred_init = (init, list(ctx), default_init)
+        else:
+            raise ValueError(f"Cannot reset context for Parameter "
+                             f"{self.name} because it has not been "
+                             "initialized.")
+
     def data(self, ctx=None) -> torch.Tensor:
         if self._data is not None:
             return self._data
@@ -289,6 +329,21 @@ class ParameterDict:
             init = initializer.Uniform()
         for _, v in self.items():
             v.initialize(None, ctx, init, force_reinit=force_reinit)
+
+    def zero_grad(self):
+        """Set every parameter's gradient to zero."""
+        for p in self.values():
+            p.zero_grad()
+
+    def reset_ctx(self, ctx):
+        for p in self.values():
+            p.reset_ctx(ctx)
+
+    def setattr(self, name, value):
+        """Set attribute ``name`` of every parameter to ``value`` (e.g.
+        ``grad_req``)."""
+        for p in self.values():
+            setattr(p, name, value)
 
     def save(self, filename, strip_prefix=""):
         """Write every parameter to ``filename`` (``nd.save``'s container),

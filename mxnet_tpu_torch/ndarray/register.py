@@ -11,12 +11,16 @@ from __future__ import annotations
 
 import torch
 
-from ..autograd import is_training
+from ..autograd import is_recording, is_training
 from ..ops import registry as _reg
 
 
 def invoke(op_name: str, inputs, kwargs):
-    """Execute a registered op eagerly on tensors."""
+    """Execute a registered op eagerly on tensors.  Under ``record()`` the
+    outputs of an op registered with ``differentiable=False`` are detached:
+    the JAX package records only differentiable ops
+    (``mxnet_tpu/ndarray/register.py:92``), so no gradient flows through
+    them."""
     op = _reg.get_op(op_name)
     kwargs = dict(kwargs)
     kwargs.pop("name", None)
@@ -29,6 +33,8 @@ def invoke(op_name: str, inputs, kwargs):
     if op.takes_is_train:
         params["__is_train__"] = is_training()
     outs = _reg.apply_op(op, params, inputs)
+    if not op.differentiable and is_recording():
+        outs = tuple(o.detach() for o in outs)
     return outs[0] if len(outs) == 1 else list(outs)
 
 

@@ -20,7 +20,34 @@ from .registry import register
 # Unary ops: one torch function per entry of the JAX package's table
 # ---------------------------------------------------------------------------
 def _softrelu(x):
+    if not x.is_floating_point():    # the JAX package's x64 promotion
+        x = x.to(torch.float64)
     return torch.logaddexp(x, torch.zeros_like(x))
+
+
+def _maximum(x, s):
+    """max(x, s) for a Python number s, as ``jnp.maximum``: at a tie the
+    gradient is split half and half (``torch.clamp`` gives all of it to
+    x).  s rides as a 0-dim CPU tensor, which adds no device kernel."""
+    return torch.maximum(x, torch.tensor(s, dtype=torch.result_type(x, s)))
+
+
+def _minimum(x, s):
+    """min(x, s), the ties split as in ``_maximum``."""
+    return torch.minimum(x, torch.tensor(s, dtype=torch.result_type(x, s)))
+
+
+def _abs(x):
+    """|x| with the gradient 1 at 0, as ``jnp.abs`` (``torch.abs``
+    gives 0)."""
+    return torch.where(x >= 0, x, -x)
+
+
+def _hypot(a, b):
+    """hypot in float32 for integer inputs, as the JAX package gives."""
+    if not (a.is_floating_point() or b.is_floating_point()):
+        a, b = a.float(), b.float()
+    return torch.hypot(a, b)
 
 
 def _softsign(x):
@@ -36,12 +63,12 @@ def _logical_not(x):
 
 
 _UNARY = {
-    "relu": lambda x: torch.clamp(x, min=0),
+    "relu": lambda x: _maximum(x, 0),
     "sigmoid": torch.sigmoid,
     "softsign": _softsign,
     "negative": torch.neg,
     "reciprocal": lambda x: 1.0 / x,
-    "abs": torch.abs,
+    "abs": _abs,
     "sign": torch.sign,
     "round": torch.round,          # half to even, as jnp.round
     "rint": torch.round,
@@ -99,7 +126,7 @@ _BINARY = {
     "power": torch.pow,
     "maximum": torch.maximum,
     "minimum": torch.minimum,
-    "hypot": torch.hypot,
+    "hypot": _hypot,
     "equal": _bool_out(torch.eq),
 }
 
@@ -126,9 +153,9 @@ _SCALAR = {
     "_rdiv_scalar": lambda x, s: s / x,
     "_power_scalar": lambda x, s: torch.pow(x, s),
     "_rpower_scalar": lambda x, s: torch.pow(s, x),
-    "_maximum_scalar": lambda x, s: torch.clamp(x, min=s),
-    "_minimum_scalar": lambda x, s: torch.clamp(x, max=s),
-    "_hypot_scalar": lambda x, s: torch.hypot(x, torch.full_like(x, s)),
+    "_maximum_scalar": _maximum,
+    "_minimum_scalar": _minimum,
+    "_hypot_scalar": lambda x, s: _hypot(x, torch.full_like(x, s)),
     "_equal_scalar": lambda x, s: (x == s).to(x.dtype),
 }
 

@@ -27,21 +27,24 @@ _dense_reference = dense_reference
 
 
 class FlashAttentionFn(torch.autograd.Function):
-    """K1 forward, K1b backward; the residuals are q, k, v and o, as in the
-    JAX package's ``_fa_fwd``."""
+    """K1 forward, K1b backward.  The residuals are q, k, v and o, as in the
+    JAX package's ``_fa_fwd``, and the forward's row log-sum-exp where the
+    kernel that served it keeps one (the sm90 kernel; the plain version on
+    the CPU): the sm90 backward reads it instead of recomputing it, 4 bytes
+    per query row.  The gradient is the same function."""
 
     @staticmethod
     def forward(ctx, q, k, v, scale, causal):
-        o = flash_attention_fwd(q, k, v, scale, causal)
-        ctx.save_for_backward(q, k, v, o)
+        o, lse = flash_attention_fwd(q, k, v, scale, causal, return_lse=True)
+        ctx.save_for_backward(q, k, v, o, lse)
         ctx.scale, ctx.causal = scale, causal
         return o
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, o = ctx.saved_tensors
+        q, k, v, o, lse = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd(q, k, v, o, do, ctx.scale,
-                                         ctx.causal)
+                                         ctx.causal, lse)
         return dq, dk, dv, None, None
 
 

@@ -140,10 +140,14 @@ def _take_rows(a, idx, axis):
 @register("take", input_names=("a", "indices"), f32_inputs=(1,),
           args=[Arg("axis", int, 0), Arg("mode", str, "clip")])
 def _take(p, a, idx):
-    # 'raise' clips, as in the JAX package (no data-dependent error on device)
-    if p["mode"] not in ("clip", "raise"):
-        raise MXNetError(f"take: mode {p['mode']!r} is not ported yet")
-    ids = torch.clamp(_ids(idx), 0, a.shape[p["axis"]] - 1)
+    # 'wrap' takes the ids modulo the axis; 'raise' clips, as in the JAX
+    # package (no data-dependent error on device)
+    if p["mode"] not in ("clip", "raise", "wrap"):
+        raise MXNetError(f"take: mode {p['mode']!r} is not one of 'clip', "
+                         "'wrap', 'raise'")
+    n = a.shape[p["axis"]]
+    ids = torch.remainder(_ids(idx), n) if p["mode"] == "wrap" \
+        else torch.clamp(_ids(idx), 0, n - 1)
     return _take_rows(a, ids, p["axis"])
 
 

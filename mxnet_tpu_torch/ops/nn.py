@@ -11,10 +11,10 @@ from __future__ import annotations
 import torch
 
 from ..base import Arg, MXNetError
-from .elemwise import _softrelu, _softsign
+from .elemwise import _maximum, _softrelu, _softsign
 from .registry import register
 
-_ACTIVATIONS = {"relu": lambda x: torch.clamp(x, min=0),
+_ACTIVATIONS = {"relu": lambda x: _maximum(x, 0),
                 "sigmoid": torch.sigmoid, "tanh": torch.tanh,
                 "softrelu": _softrelu, "softsign": _softsign}
 

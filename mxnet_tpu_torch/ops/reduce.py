@@ -47,9 +47,19 @@ def _nanprod(x, dim, keepdim):
                  keepdim)
 
 
+def _inexact(x):
+    """x, integers as float32: the JAX package's mean of an int32 or uint8
+    array is float32."""
+    return x if x.is_floating_point() else x.float()
+
+
+def _mean(x, dim, keepdim):
+    return torch.mean(_inexact(x), dim=dim, keepdim=keepdim)
+
+
 _REDUCERS = {
     "sum": (torch.sum, lambda x: x),
-    "mean": (torch.mean, lambda x: x),
+    "mean": (_mean, _inexact),
     "prod": (_prod, lambda x: x),
     "max": (torch.amax, lambda x: x),
     "min": (torch.amin, lambda x: x),

@@ -380,14 +380,16 @@ def test_flash_gradient_matches_jax(shape, blk, dtype, causal):
 
 def test_flash_op_records_through_k1b(monkeypatch):
     """Under ``record()`` the multi-head attention op reaches K1b's wrapper
-    once per call, with a contiguous dO (it arrives permuted); the plain
-    backward runs because the tensors lie on the CPU."""
+    once per call, with a contiguous dO (it arrives permuted) and the
+    forward's row log-sum-exp; the plain backward runs because the tensors
+    lie on the CPU."""
     calls = []
     real = kfa.flash_attention_bwd
 
-    def spy(q, k, v, o, do, scale, causal):
+    def spy(q, k, v, o, do, scale, causal, lse=None):
+        assert lse is not None and lse.shape == q.shape[:3]
         calls.append(do.is_contiguous())
-        return real(q, k, v, o, do, scale, causal)
+        return real(q, k, v, o, do, scale, causal, lse)
 
     monkeypatch.setattr("mxnet_tpu_torch.ops.flash_attention."
                         "flash_attention_bwd", spy)
@@ -415,3 +417,75 @@ def test_bwd_wrapper_routes_by_device(monkeypatch):
     with pytest.raises(MXNetError):
         kfa.flash_attention_bwd(meta[0], k, v, o, g, 0.25, True)
     assert (kfa.LAUNCHES, kfa.BWD_LAUNCHES) == before
+
+
+@pytest.mark.parametrize("shape,causal", [((1, 2, 64, 16), True),
+                                          ((1, 2, 64, 16), False)])
+def test_flash_gradient_through_lse_matches_jax(shape, causal, monkeypatch):
+    """On the CPU ``FlashAttentionFn`` keeps the plain forward's row
+    log-sum-exp (``dense_reference(return_lse=True)``) and its backward
+    takes P = exp(s - lse) from it (``bwd_reference(lse=...)``), as the
+    sm90 kernels do on the card; against ``jax.grad`` of the JAX package's
+    flash attention (interpret mode) at 1e-4, float32."""
+    seen = []
+    real = kfa.bwd_reference
+
+    def spy(*args):
+        seen.append(args[7])
+        return real(*args)
+
+    monkeypatch.setattr(kfa, "bwd_reference", spy)
+    arrays = _qkv(7, shape)
+    scale = shape[-1] ** -0.5
+    want = _jax_flash_grads(arrays, scale, causal, 64, jnp.float32)
+    got = _port_flash_grads(arrays, scale, causal, 64, torch.float32)
+    assert len(seen) == 1 and seen[0].shape == shape[:3] \
+        and seen[0].dtype == torch.float32
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g, w, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("T,causal", [(64, True), (64, False), (100, True)])
+def test_lse_matches_jax_logsumexp(T, causal):
+    """The row log-sum-exp the sm90 forward writes, in its plain version:
+    ``jax.nn.logsumexp`` of the JAX package's scaled, masked scores."""
+    q, k, v, _ = _qkv(11, (1, 2, T, 32))
+    scale = 32 ** -0.5
+    s = jnp.einsum("bhqd,bhkd->bhqk", q, k) * scale
+    if causal:
+        s = jnp.where(jnp.tril(jnp.ones((T, T), bool)), s, -1e30)
+    want = np.asarray(jax.nn.logsumexp(s, axis=-1))
+    o, lse = kfa.dense_reference(*(torch.from_numpy(a) for a in (q, k, v)),
+                                 scale, causal, return_lse=True)
+    assert lse.shape == (1, 2, T) and lse.dtype == torch.float32
+    np.testing.assert_allclose(lse.numpy(), want, rtol=1e-5, atol=1e-5)
+
+
+def _sm90_bwd_emulation(q, k, v, o, do, scale, causal, lse):
+    """The sm90 backward's arithmetic: bf16 inputs, f32 scores times
+    scale, P = exp(s - lse) in f32, P and dS rounded to bf16 before the
+    products that take them from registers (dV, dK, dQ), f32 sums."""
+    qf, kf, vf, of, gf = (t.float() for t in (q, k, v, o, do))
+    s = kfa._scores(q, k, scale, causal)
+    p = torch.exp(s - lse[..., None])
+    delta = (gf * of).sum(-1)
+    ds = p * (torch.einsum("bhqd,bhkd->bhqk", gf, vf) - delta[..., None])
+    pb, dsb = p.to(torch.bfloat16).float(), ds.to(torch.bfloat16).float()
+    dv = torch.einsum("bhqk,bhqd->bhkd", pb, gf)
+    dk = torch.einsum("bhqk,bhqd->bhkd", dsb, qf) * scale
+    dq = torch.einsum("bhqk,bhkd->bhqd", dsb, kf) * scale
+    return [t.to(torch.bfloat16).float().numpy() for t in (dq, dk, dv)]
+
+
+def test_sm90_bwd_rounding_matches_jax():
+    """bf16 P and dS in the second products are the roundings the
+    reference lacks: the sm90 backward's arithmetic stays within the bf16
+    pin of ``jax.grad`` through the JAX package's flash attention."""
+    arrays = _qkv(7, (1, 2, 64, 32))
+    scale = 32 ** -0.5
+    want = _jax_flash_grads(arrays, scale, True, 64, jnp.bfloat16)
+    q, k, v, g = (torch.from_numpy(a).to(torch.bfloat16) for a in arrays)
+    o, lse = kfa.dense_reference(q, k, v, scale, True, return_lse=True)
+    got = _sm90_bwd_emulation(q, k, v, o, g, scale, True, lse)
+    for g_, w in zip(got, want):
+        np.testing.assert_allclose(g_, w, rtol=3e-2, atol=3e-2)

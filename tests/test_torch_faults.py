@@ -1,0 +1,198 @@
+"""Faults of the port against the JAX package, one case each, on the CPU.
+
+Each case runs the same calls, on the same numpy inputs, through
+``mxnet_tpu`` and ``mxnet_tpu_torch`` (``ctx=cpu()``) and compares what
+they return: values (float32, 1e-6, the same arithmetic), dtypes, names.
+Where the two packages differed the port now follows the JAX package
+(ROADMAP.md §3).
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import mxnet_tpu as mxj
+import mxnet_tpu_torch as mxt
+
+CPU = mxt.cpu()
+
+
+class _Jax:
+    mx = mxj
+
+    @staticmethod
+    def array(a, dtype=None):
+        return mxj.nd.array(a, dtype=dtype) if dtype else mxj.nd.array(a)
+
+    @staticmethod
+    def attach(x):
+        x.attach_grad()
+        return x
+
+    @staticmethod
+    def grad(x):
+        return x.grad.asnumpy()
+
+    @staticmethod
+    def numpy(x):
+        return x.asnumpy()
+
+    @staticmethod
+    def dtype(x):
+        return np.dtype(x.dtype).name
+
+
+class _Port:
+    mx = mxt
+
+    @staticmethod
+    def array(a, dtype=None):
+        return mxt.nd.array(a, ctx=CPU, dtype=dtype)
+
+    @staticmethod
+    def attach(x):
+        return mxt.nd.attach_grad(x)
+
+    @staticmethod
+    def grad(x):
+        return mxt.nd.asnumpy(mxt.nd.grad(x))
+
+    @staticmethod
+    def numpy(x):
+        return mxt.nd.asnumpy(x)
+
+    @staticmethod
+    def dtype(x):
+        return str(x.dtype).replace("torch.", "")
+
+
+def _grad_of(api, fn, values):
+    x = api.attach(api.array(np.asarray(values, np.float32)))
+    with api.mx.autograd.record():
+        y = fn(x)
+    api.mx.autograd.backward([y])
+    return [api.numpy(y), api.grad(x)]
+
+
+def _non_differentiable_op(api):
+    """An op registered ``differentiable=False`` passes no gradient."""
+    nd = api.mx.nd
+    return _grad_of(api, lambda x: nd.sum(nd.topk(x, k=2, ret_typ="value")),
+                    [[1.0, 3.0, 2.0]])
+
+
+def _relu_tie(api):
+    """max(x, 0) splits the gradient at x == 0 (``jnp.maximum``), in every
+    op that computes it; and min as well."""
+    nd = api.mx.nd
+    x = [0.0, -1.0, 2.0, 0.5]
+    return sum([_grad_of(api, lambda t: (f(t) * w).sum(), x) for f, w in (
+        (nd.relu, 1.0),
+        (lambda t: nd.Activation(t, act_type="relu"), 2.0),
+        (lambda t: nd._maximum_scalar(t, scalar=0.5), 3.0),
+        (lambda t: nd._minimum_scalar(t, scalar=0.5), 4.0))], [])
+
+
+def _abs_at_zero(api):
+    return _grad_of(api, lambda t: api.mx.nd.abs(t).sum(), [0.0, -1.0, 2.0])
+
+
+def _integer_inputs(api):
+    """mean, hypot and softrelu of int32 and uint8 arrays compute, in the
+    JAX package's dtypes."""
+    nd = api.mx.nd
+    out = []
+    for dtype in ("int32", "uint8"):
+        x = api.array(np.array([[1, 2], [3, 4]]), dtype)
+        y = api.array(np.array([[2, 0], [1, 5]]), dtype)
+        for r in (nd.mean(x), nd.mean(x, axis=1), nd.broadcast_hypot(x, y),
+                  nd._hypot_scalar(x, scalar=2.0), nd.softrelu(x)):
+            out += [api.numpy(r), api.dtype(r)]
+    return out
+
+
+def _take_wrap(api):
+    nd = api.mx.nd
+    a = api.array(np.arange(12, dtype=np.float32).reshape(3, 4))
+    ids = api.array(np.array([-1.0, 3.0, 4.0, 7.0, 0.0], np.float32))
+    return [api.numpy(nd.take(a, ids, mode="wrap")),
+            api.numpy(nd.take(a, ids, axis=1, mode="wrap"))]
+
+
+def _net(api):
+    api.mx.random.seed(0)
+    nn = api.mx.gluon.nn
+    net = nn.HybridSequential(prefix="model_")
+    with net.name_scope():
+        net.add(nn.Dense(4, in_units=3, prefix="fc1_"),
+                nn.Dense(2, in_units=4, prefix="fc2_"))
+    net.initialize(ctx=api.mx.cpu())
+    return net
+
+
+def _collect_params_select(api):
+    net = _net(api)
+    return [sorted(net.collect_params(".*fc2.*").keys()),
+            sorted(net.collect_params("model_fc1_w").keys()),
+            sorted(net.collect_params().keys())]
+
+
+def _gluon_methods(api):
+    """Parameter.set_data / list_data / reset_ctx and ParameterDict
+    zero_grad / setattr / reset_ctx."""
+    net = _net(api)
+    params = net.collect_params()
+    w = params["model_fc1_weight"]
+    w.set_data(api.array(np.arange(12, dtype=np.float32).reshape(4, 3)))
+    out = [api.numpy(d) for d in w.list_data()]
+    x = api.array(np.ones((2, 3), np.float32))
+    with api.mx.autograd.record():
+        y = net(x).sum()
+    y.backward()
+    out.append(api.numpy(w.grad()))
+    params.zero_grad()
+    out += [api.numpy(p.grad()) for p in params.values()]
+    params.reset_ctx(api.mx.cpu())
+    w.reset_ctx(api.mx.cpu())
+    out += [api.numpy(net(x)), api.numpy(w.data())]
+    params.setattr("grad_req", "null")
+    out.append([p.grad_req for p in params.values()])
+    return out
+
+
+_CASES = [_non_differentiable_op, _relu_tie, _abs_at_zero, _integer_inputs,
+          _take_wrap, _collect_params_select, _gluon_methods]
+
+
+@pytest.mark.parametrize("case", _CASES, ids=[c.__name__[1:] for c in _CASES])
+def test_fault_repaired_matches_jax(case):
+    want = case(_Jax)
+    got = case(_Port)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        if isinstance(w, np.ndarray):
+            assert g.shape == w.shape and g.dtype == w.dtype
+            np.testing.assert_allclose(g, w, rtol=1e-6, atol=1e-6)
+        else:
+            assert g == w
+
+
+def test_torch_maximum_splits_ties_as_jax():
+    """The ReLU repair rests on torch.maximum's gradient at a tie: half to
+    each side, as jnp.maximum's."""
+    x = torch.tensor([0.0, -1.0, 2.0], requires_grad=True)
+    torch.maximum(x, torch.tensor(0.0)).sum().backward()
+    want = jax.grad(lambda t: jnp.maximum(t, 0.0).sum())(
+        jnp.asarray([0.0, -1.0, 2.0], jnp.float32))
+    np.testing.assert_array_equal(x.grad.numpy(), np.asarray(want))
+
+
+def test_reset_ctx_refuses_an_invisible_gpu():
+    """reset_ctx moves data as .to(device) does: to a CUDA device this
+    process cannot see it raises, and the data stays where it was."""
+    net = _net(_Port)
+    w = net.collect_params()["model_fc1_weight"]
+    with pytest.raises(mxt.MXNetError):
+        w.reset_ctx(mxt.context.Context("gpu", 64))
+    assert w.data().device.type == "cpu"

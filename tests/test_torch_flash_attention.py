@@ -166,3 +166,33 @@ def test_variant_routes_by_dtype_and_head_dim(dtype, d, variant):
 def test_variant_refuses_unsupported_inputs(dtype, d):
     with pytest.raises(MXNetError):
         kfa._variant(dtype, d)
+
+
+@pytest.mark.parametrize("dtype,d,variant", [
+    (BF16, 64, "sm90"), (BF16, 128, "sm90"), (BF16, 16, "f32"),
+    (BF16, 32, "f32"), (torch.float32, 64, "f32"),
+    (torch.float32, 128, "f32")])
+def test_bwd_variant_routes_as_the_forward(dtype, d, variant):
+    """K1b's sm90 kernel reads the row log-sum-exp that only the sm90
+    forward writes, so the two are routed alike."""
+    assert kfa._bwd_variant(dtype, d) == kfa._variant(dtype, d) == variant
+
+
+@pytest.mark.parametrize("dtype,d", [(torch.float16, 64), (BF16, 48)])
+def test_bwd_variant_refuses_unsupported_inputs(dtype, d):
+    with pytest.raises(MXNetError, match="flash_attention_bwd"):
+        kfa._bwd_variant(dtype, d)
+
+
+def test_lse_only_where_a_kernel_keeps_it():
+    """``return_lse``: the plain version gives (O, lse) with O unchanged;
+    meta tensors give an empty float32 (B, H, Tq) lse."""
+    q, k, v = [torch.from_numpy(a) for a in _inputs(8, (1, 2, 64, 16))]
+    o, lse = kfa.flash_attention_fwd(q, k, v, 0.25, True, return_lse=True)
+    assert torch.equal(o, kfa.flash_attention_fwd(q, k, v, 0.25, True))
+    assert lse.shape == (1, 2, 64) and lse.dtype == torch.float32
+    meta = torch.empty((1, 2, 64, 16), device="meta", dtype=BF16)
+    o, lse = kfa.flash_attention_fwd(meta, meta, meta, 0.25, True,
+                                     return_lse=True)
+    assert o.device.type == lse.device.type == "meta"
+    assert lse.shape == (1, 2, 64) and lse.dtype == torch.float32
