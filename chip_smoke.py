@@ -4,8 +4,9 @@
     python3 chip_smoke.py
 
 Run from the root of a checkout on a machine with a CUDA card and nvcc.
-It serves the full-width flash-attention TransformerLM through the port's
-own entry points and holds every kernel against its plain version:
+It serves and trains the full-width flash-attention TransformerLM and
+trains ResNet-50 v1 through the port's own entry points, and holds every
+kernel against its plain version:
 
 1. setup: the card's name and power limit; build every kernel from
    ``mxnet_tpu_torch/csrc`` (one nvcc per source, in parallel); launch the
@@ -89,16 +90,36 @@ own entry points and holds every kernel against its plain version:
    12 sm90 K1 and 12 sm90 K1b launches and no f32 one per step; the
    gradient check's 2 K1b launches all on f32), its step time,
    tokens/s and peak memory, then one step under torch.profiler;
-10. a ``kernels`` JSON line (the forward kernels' ``launches`` are phase
+10. the vision path, which runs none of the kernels above (PyTorch's
+   cuDNN convolutions and pooling, its batch-norm kernels): the seven
+   model-zoo goldens of ``tests/golden`` in float32 within ``TOL_GOLDEN``;
+   then the main path, ``bench.py``'s ResNet-50 configuration:
+   ``get_model("resnet50_v1")``, Xavier gaussian 'in' magnitude 2 from seed
+   0, bf16 with float32 masters (``Trainer("sgd", lr 0.05, momentum 0.9,
+   wd 1e-4, multi_precision)``), hybridized, ``VISION_STEPS`` steps on one
+   resident class-correlated batch of B=256 at 224x224 (finite loss, the
+   last below the first; no kernel launch counted); the first BatchNorm's
+   moving mean after step 1 within ``TOL_BN_MEAN`` of 0.1 x the batch mean
+   of its input, and every moving variance moved off 1; the first step,
+   the median of the others, images/s and peak memory; an eval-mode
+   forward at B=256 (an image's logits the same in two batches, within
+   ``TOL_EVAL_ROW``) and its images/s; one step's kernels by group
+   (``KERNEL_GROUPS``) and its host gaps; a ``DataLoader`` feeding two
+   batches to the card, scored with ``metric.Accuracy``; and one float32
+   step of ``resnet18_v1`` (B=2, 64x64) against the same step on the CPU
+   (``TOL_GRAD_CPU``, ``TOL_AUX_CPU``);
+11. a ``kernels`` JSON line (the forward kernels' ``launches`` are phase
    8's, with phase 9's as ``training_launches``; the two K1b kernels' are
    phase 9's main path, the FMA one's 0 there),
    then the last line ``{"ok": true, "device": {...}}``.
 
-The model is ``experiments/lm_mfu_probe.py``'s default width (vocab 32768,
-dim 1024, 16 heads, ffn 4096, 12 layers, max_len 1024; about 219 M
-parameters) with random weights from seed 0.  Nothing is cut but the
-number of training steps (6, where the probe times 20) and the gradient
-check's depth (2 layers).
+The language model is ``experiments/lm_mfu_probe.py``'s default width
+(vocab 32768, dim 1024, 16 heads, ffn 4096, 12 layers, max_len 1024;
+about 219 M parameters) with random weights from seed 0.  Nothing is cut
+but the number of training steps (6, where the probe times 20) and the
+gradient check's depth (2 layers).  ResNet-50 v1 runs at full width and
+depth (about 25.6 M parameters); only the steps are cut (8, where
+``bench.py`` times 16 after 8 to warm up).
 
 Times: ``device`` is the CUDA-event time of 20 back-to-back calls queued
 behind a spin kernel, per call (L2 warm): the kernels and the gaps between
@@ -1410,6 +1431,336 @@ def phase_train(mx):
                     "losses": losses}
 
 
+# --------------------------------------------------------------------------
+# phase 10: the vision path
+# --------------------------------------------------------------------------
+GOLDEN_SHAPES = {"alexnet": (2, 3, 224, 224), "densenet121": (1, 3, 224, 224),
+                 "inception_v3": (1, 3, 299, 299),
+                 "mobilenet0_25": (2, 3, 64, 64),
+                 "resnet18_v1": (2, 3, 64, 64), "resnet18_v2": (2, 3, 64, 64),
+                 "squeezenet1_0": (2, 3, 64, 64)}
+TOL_GOLDEN = 1e-4   # the fixtures' own pin (tests/test_golden_forward.py)
+VISION_MODEL = "resnet50_v1"
+VISION_BATCH = 256  # bench.py's ResNet-50 configuration: B=256, 224x224,
+VISION_IMG = 224    # SGD momentum 0.9, wd 1e-4, lr 0.05, multi_precision
+VISION_STEPS = 8
+VISION_LR = 0.05
+# the first BatchNorm's moving mean after one step against 0.1 x the batch
+# mean of its input, max |diff| over the largest: the reference's bf16 pin
+TOL_BN_MEAN = 3e-2
+# resnet18_v1 at B=2, 64x64, float32, one step on the card against the
+# same step on the CPU: each gradient within this share of its largest
+# magnitude, the updated moving statistics within TOL_AUX_CPU absolute
+TOL_GRAD_CPU = 1e-3
+TOL_AUX_CPU = 1e-4
+GRAD_VISION_SHAPE = (2, 3, 64, 64)
+# the eval-mode forward: the same image in two batches, max |diff| of its
+# logits over their largest magnitude (bf16)
+TOL_EVAL_ROW = 3e-2
+# kernel-name groups of a vision step's breakdown, first match wins:
+# cuDNN's layout transposes around its NHWC bf16 kernels; implicit-GEMM
+# convolutions forward (fprop, precomputed_convolve) and backward (dgrad,
+# wgrad); PyTorch's native batch-norm kernels; cuBLAS/CUTLASS GEMMs (the
+# Dense layer and the convolutions cuDNN runs as plain GEMMs); the rest of
+# cuDNN's helpers; PyTorch's elementwise, reduction, fill and copy kernels
+KERNEL_GROUPS = (
+    ("layout transposes", ("nchwToNhwc", "nhwcToNchw")),
+    ("conv forward", ("fprop", "convolve")),
+    ("conv backward", ("dgrad", "wgrad")),
+    ("batch norm", ("batch_norm",)),
+    ("pooling", ("pool",)),
+    ("GEMM", ("gemm", "nvjet")),
+    ("other cuDNN", ("cudnn", "xmma", "cask")),
+    ("elementwise and reductions", ("elementwise", "reduce", "Memset",
+                                    "Memcpy", "softmax", "scatter_gather")),
+)
+
+
+def golden_net(mx, name, ctx):
+    """The JAX package's golden case built with the port: seed 0, Xavier
+    gaussian 'in' magnitude 2, input from RandomState(42)."""
+    import numpy as np
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+    mx.random.seed(0)
+    net = getattr(vision, name)()
+    net.initialize(mx.init.Xavier(rnd_type="gaussian", factor_type="in",
+                                  magnitude=2), ctx=ctx)
+    rs = np.random.RandomState(42)
+    x = mx.nd.array(rs.normal(0, 1, GOLDEN_SHAPES[name]).astype(np.float32),
+                    ctx=ctx)
+    return net, x
+
+
+def phase_goldens(mx):
+    """The seven vision goldens on the card in float32 (TF32 off)."""
+    import numpy as np
+    errs = {}
+    for name in sorted(GOLDEN_SHAPES):
+        net, x = golden_net(mx, name, mx.gpu(0))
+        got = mx.nd.asnumpy(net(x))
+        want = np.load(os.path.join(ROOT, "tests", "golden",
+                                    f"{name}.npz"))["logits"]
+        check(got.shape == want.shape, f"golden {name}: shape {got.shape}")
+        err = float(np.abs(got - want).max())
+        over = float((np.abs(got - want) - TOL_GOLDEN * np.abs(want)).max())
+        errs[name] = err
+        print(f"  golden {name} {GOLDEN_SHAPES[name]}: max |diff| {err:.3e} "
+              f"(largest logit {np.abs(want).max():.3f})")
+        check(over <= TOL_GOLDEN, f"golden {name} off by {err:.3e} "
+              f"(limit {TOL_GOLDEN} + {TOL_GOLDEN} x |logit|)")
+    return errs
+
+
+def vision_batch(mx, n, seed=0):
+    """``bench.py``'s synthetic batch: normal images whose first channel's
+    top-left 4x4 corner is shifted by the class (labels / 500 - 1), so the
+    classes are learnable; images bf16 and labels float32, on the card."""
+    import numpy as np
+    import torch
+    rs = np.random.RandomState(seed)
+    labels = rs.randint(0, 1000, n).astype(np.float32)
+    data = torch.from_numpy(rs.normal(0, 1, (n, 3, VISION_IMG, VISION_IMG))
+                            .astype(np.float32))
+    data[:, 0, :4, :4] += torch.from_numpy(labels / 500.0 - 1.0)[:, None,
+                                                                    None]
+    return (data.to(mx.context.as_device(mx.gpu(0)), torch.bfloat16),
+            mx.nd.array(labels, ctx=mx.gpu(0)))
+
+
+def bn_params(net):
+    return [p for n, p in net.collect_params().items()
+            if n.endswith("running_var")]
+
+
+def vision_step(mx, net, trainer, loss_fn, x, y):
+    with mx.autograd.record():
+        loss = loss_fn(mx.nd.Cast(net(x), dtype="float32"), y)
+    mx.autograd.backward([loss])
+    trainer.step(x.shape[0])
+    return loss
+
+
+def phase_vision_train(mx):
+    """ResNet-50 v1 through Gluon in bfloat16 with float32 masters, as
+    ``bench.py`` configures it: VISION_STEPS steps on one resident batch,
+    the moving statistics after the first, then an eval-mode forward."""
+    import gc
+    import numpy as np
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    mx.random.seed(0)
+    net = mx.gluon.model_zoo.vision.get_model(VISION_MODEL)
+    net.initialize(mx.init.Xavier(rnd_type="gaussian", factor_type="in",
+                                  magnitude=2), ctx=mx.gpu(0))
+    x, y = vision_batch(mx, VISION_BATCH)
+    net(x[:1].float())       # the first forward resolves deferred shapes
+    net.cast("bfloat16")
+    net.hybridize()
+    trainer = mx.gluon.Trainer(net.collect_params(), "sgd",
+                               {"learning_rate": VISION_LR, "momentum": 0.9,
+                                "wd": 1e-4, "multi_precision": True})
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    n_params = sum(p.data().numel() for p in net.collect_params().values())
+    print(f"  {VISION_MODEL}: {n_params} parameters ({len(bn_params(net))} "
+          f"BatchNorms), bf16 with f32 masters, built in "
+          f"{time.perf_counter() - t0:.1f} s; batch B={VISION_BATCH} "
+          f"{VISION_IMG}x{VISION_IMG} resident on the card")
+    # the first BatchNorm's input at the first step: the stem conv's output
+    stem, bn0 = net.features[0], net.features[1]
+    with torch.no_grad():
+        stem_mean = stem(x).float().mean(dim=(0, 2, 3))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    losses, walls = [], []
+    for i in range(VISION_STEPS):
+        t0 = time.perf_counter()
+        loss = vision_step(mx, net, trainer, loss_fn, x, y)
+        losses.append(loss.mean().item())       # synchronizes
+        walls.append(time.perf_counter() - t0)
+        if i == 0:
+            rm = bn0.running_mean.data().float()
+            want = 0.1 * stem_mean
+            bn_err = (rm - want).abs().max().item() / want.abs().max().item()
+            still = [p.name for p in bn_params(net)
+                     if torch.equal(p.data(), torch.ones_like(p.data()))]
+    peak = torch.cuda.max_memory_allocated()
+    counts = read_counts()
+    steady = statistics.median(walls[1:])
+    print(f"  losses {[round(v, 4) for v in losses]}")
+    print(f"  step times (host clock, synchronized) "
+          f"{[round(w * 1e3, 1) for w in walls]} ms; first {walls[0] * 1e3:.1f}"
+          f" ms; after it: median {steady * 1e3:.1f} ms, "
+          f"{VISION_BATCH / steady:.1f} images/s; peak memory "
+          f"{peak / 2 ** 30:.2f} GiB (max_memory_allocated)")
+    print(f"  first BatchNorm after step 1: running_mean against 0.1 x the "
+          f"batch mean of its input, max |diff| over the largest {bn_err:.3e}"
+          f" (limit {TOL_BN_MEAN}); running_var still all ones in "
+          f"{len(still)} of {len(bn_params(net))} BatchNorms")
+    check(all(np.isfinite(losses)), f"vision losses not finite: {losses}")
+    check(losses[-1] < losses[0], f"vision loss did not fall: {losses}")
+    check(bn_err <= TOL_BN_MEAN, f"moving mean off by {bn_err:.3e}")
+    check(not still, f"running_var never moved: {still}")
+    check(not any(counts.values()), f"the vision path launched a flash "
+          f"kernel: {counts}")
+
+    # inference: the moving statistics normalise, so an image's logits do
+    # not depend on the rest of its batch
+    other = torch.flip(x, dims=(3,))
+    other[-1] = x[0]
+    with mx.autograd.predict_mode():
+        a, b = net(x), net(other)
+    row_err = ((a[0].float() - b[-1].float()).abs().max()
+               / a[0].float().abs().max()).item()
+    infer_ms = host_clock_ms(lambda: net(x))
+    print(f"  eval forward B={VISION_BATCH}: {infer_ms:.1f} ms (host clock, "
+          f"median of 5), {VISION_BATCH / infer_ms * 1e3:.1f} images/s; the "
+          f"same image in two batches: max |diff| over max |logit| "
+          f"{row_err:.3e} (limit {TOL_EVAL_ROW})")
+    check(row_err <= TOL_EVAL_ROW, "eval mode depends on the batch: "
+          f"{row_err:.3e}")
+    breakdown = phase_vision_profile(mx, net, trainer, loss_fn, x, y,
+                                     steady * 1e3)
+    return net, {"step_ms": steady * 1e3, "first_ms": walls[0] * 1e3,
+                 "images_s": VISION_BATCH / steady, "peak_gib": peak / 2 ** 30,
+                 "infer_ms": infer_ms, "losses": losses,
+                 "breakdown": breakdown}
+
+
+def group_rows(rows):
+    """{group: (ms, launches)} of profiler rows by KERNEL_GROUPS, first
+    match wins; the rest under "other"."""
+    out = {}
+    for ms, count, key in rows:
+        group = next((g for g, keys in KERNEL_GROUPS
+                      if any(k in key for k in keys)), "other")
+        t, c = out.get(group, (0.0, 0))
+        out[group] = (t + ms, c + count)
+    return out
+
+
+def phase_vision_profile(mx, net, trainer, loss_fn, x, y, step_ms):
+    """Where one training step's time goes: forward and backward under one
+    torch.profiler session, the optimizer step under another (its
+    gradients marked fresh again, as a backward would), each kernel put in
+    a group; host gaps are the median step less both."""
+    live = [p for p in net.collect_params().values() if p.grad_req != "null"]
+
+    def fwd_bwd():
+        with mx.autograd.record():
+            loss = loss_fn(mx.nd.Cast(net(x), dtype="float32"), y)
+        mx.autograd.backward([loss])
+
+    def opt_step():
+        for p in live:
+            p.fresh_grad = True
+        trainer.step(VISION_BATCH)
+
+    fb_wall = host_clock_ms(fwd_bwd)
+    opt_wall = host_clock_ms(opt_step)
+    fb_rows = kernel_rows(fwd_bwd)
+    opt_rows = kernel_rows(opt_step)
+    print(f"  one step by part (host clock, medians of 5): forward+backward "
+          f"{fb_wall:.1f} ms, optimizer step {opt_wall:.1f} ms")
+    if not fb_rows or not opt_rows:
+        print("  kernel time not measured: torch.profiler saw no device time")
+        return {"fwd_bwd_ms": fb_wall, "optimizer_ms": opt_wall}
+    groups = group_rows(fb_rows)
+    fb_busy = sum(r[0] for r in fb_rows)
+    opt_busy = sum(r[0] for r in opt_rows)
+    groups["optimizer (per-tensor ops)"] = (opt_busy,
+                                            sum(r[1] for r in opt_rows))
+    gaps = step_ms - fb_busy - opt_busy
+    print(f"  kernel time: forward+backward {fb_busy:.3f} ms in "
+          f"{sum(r[1] for r in fb_rows)} launches, optimizer {opt_busy:.3f} ms"
+          f"; host gaps (median step less both) {gaps:.3f} ms")
+    for g, (ms, count) in sorted(groups.items(), key=lambda kv: -kv[1][0]):
+        print(f"    {g}: {ms:.3f} ms, {count} launches, "
+              f"{100 * ms / step_ms:.1f}% of the step")
+    for ms, count, key in fb_rows[:12]:
+        print(f"    {ms:8.3f} ms  x{count:<4d} {key[:100]}")
+    out = {g: ms for g, (ms, _) in groups.items()}
+    out["host gaps"] = gaps
+    return out
+
+
+def phase_vision_grad(mx):
+    """One float32 step of resnet18_v1 (B=2, 64x64, hybridized, SGD with
+    momentum) on the card and on the CPU from the same seed: every
+    gradient within TOL_GRAD_CPU of its largest magnitude, the moving
+    statistics within TOL_AUX_CPU."""
+    import numpy as np
+    rs = np.random.RandomState(3)
+    xs = rs.normal(size=GRAD_VISION_SHAPE).astype(np.float32)
+    ys = rs.randint(0, 1000, GRAD_VISION_SHAPE[0]).astype(np.float32)
+    res = []
+    for ctx in (mx.cpu(), mx.gpu(0)):
+        mx.random.seed(0)
+        net = mx.gluon.model_zoo.vision.resnet18_v1()
+        net.initialize(mx.init.Xavier(rnd_type="gaussian", factor_type="in",
+                                      magnitude=2), ctx=ctx)
+        net.hybridize()
+        trainer = mx.gluon.Trainer(net.collect_params(), "sgd",
+                                   {"learning_rate": 0.1, "momentum": 0.9})
+        x, y = mx.nd.array(xs, ctx=ctx), mx.nd.array(ys, ctx=ctx)
+        with mx.autograd.record():
+            loss = mx.gluon.loss.SoftmaxCrossEntropyLoss()(net(x), y)
+        mx.autograd.backward([loss])
+        params = net.collect_params()
+        res.append((
+            mx.nd.asnumpy(loss),
+            {n[len(net.prefix):]: mx.nd.asnumpy(p.grad())
+             for n, p in params.items() if p.grad_req != "null"},
+            {n[len(net.prefix):]: mx.nd.asnumpy(p.data())
+             for n, p in params.items() if "running" in n}))
+        trainer.step(GRAD_VISION_SHAPE[0])
+    (lc, gc_, ac), (lg, gg, ag) = res
+    grad_err = max(np.abs(gg[n] - g).max() / max(np.abs(g).max(), 1e-30)
+                   for n, g in gc_.items())
+    aux_err = max(np.abs(ag[n] - a).max() for n, a in ac.items())
+    print(f"  resnet18_v1 f32 B={GRAD_VISION_SHAPE[0]} "
+          f"{GRAD_VISION_SHAPE[2]}x{GRAD_VISION_SHAPE[3]}, card against CPU:"
+          f" loss {lg.mean():.6f} / {lc.mean():.6f}; {len(gc_)} gradients, "
+          f"max |diff| over each's largest {grad_err:.3e} (limit "
+          f"{TOL_GRAD_CPU}); {len(ac)} moving statistics, max |diff| "
+          f"{aux_err:.3e} (limit {TOL_AUX_CPU})")
+    check(grad_err <= TOL_GRAD_CPU, f"card gradients off: {grad_err:.3e}")
+    check(aux_err <= TOL_AUX_CPU, f"card moving statistics off: {aux_err:.3e}")
+    return grad_err, aux_err
+
+
+def phase_vision_data(mx, net):
+    """A DataLoader over an ArrayDataset feeds two small batches to the
+    card; the trained net scores them in eval mode and ``metric``
+    counts them."""
+    import numpy as np
+    import torch
+    rs = np.random.RandomState(9)
+    images = rs.normal(size=(8, 3, VISION_IMG, VISION_IMG)).astype(np.float32)
+    labels = rs.randint(0, 1000, 8).astype(np.float32)
+    loader = mx.gluon.data.DataLoader(
+        mx.gluon.data.ArrayDataset(images, labels), batch_size=4,
+        shuffle=True, num_workers=2)
+    acc = mx.metric.Accuracy()
+    seen = []
+    dev = mx.context.as_device(mx.gpu(0))
+    with mx.gpu(0):
+        for i, (xb, yb) in enumerate(loader):
+            check(xb.device == dev and yb.device == dev,
+                  f"batch {i} not on the card: {xb.device}")
+            seen += mx.nd.asnumpy(yb).tolist()
+            with mx.autograd.predict_mode():
+                out = net(xb.to(torch.bfloat16))
+            acc.update([yb], [out])
+            if i == 1:
+                break
+    check(sorted(seen) == sorted(labels.tolist()), "the loader lost samples")
+    print(f"  DataLoader: 2 batches of 4 on {xb.device}, shuffled, 2 workers;"
+          f" scored by the trained net, {acc.get()}")
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1457,6 +1808,14 @@ def main():
         phase_grad_check(mx)
         train_counts, _ = phase_train(mx)
         print(f"phase 9: {time.perf_counter() - t_train:.1f} s")
+        print("== phase 10: the vision path")
+        t_vision = time.perf_counter()
+        phase_goldens(mx)
+        vnet, _ = phase_vision_train(mx)
+        phase_vision_data(mx, vnet)
+        del vnet
+        phase_vision_grad(mx)
+        print(f"phase 10: {time.perf_counter() - t_vision:.1f} s")
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

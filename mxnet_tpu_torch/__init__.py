@@ -13,8 +13,11 @@ one); ``mx.predictor`` and ``mx.serving`` serve such a graph: the
 flash-attention TransformerLM behind shape buckets, a micro-batcher and an
 admission-controlled server.  ``mx.autograd``, ``mx.optimizer``,
 ``mx.lr_scheduler``, ``gluon.loss`` and ``gluon.Trainer`` train it, with
-the flash kernel's hand-written backward.  It imports torch and numpy,
-never jax or the JAX package.
+the flash kernel's hand-written backward; ``gluon.model_zoo.vision``,
+``gluon.data`` and ``mx.metric`` train and score the vision families
+(ResNet, VGG, AlexNet, SqueezeNet, DenseNet, Inception, MobileNet) on
+PyTorch's cuDNN convolutions.  It imports torch and numpy, never jax or
+the JAX package.
 """
 
 __version__ = "1.0.0.torch0"
@@ -39,6 +42,7 @@ from .initializer import init
 from . import kernels
 from . import lr_scheduler
 from . import optimizer
+from . import metric
 from . import gluon
 from . import convert
 from . import observability

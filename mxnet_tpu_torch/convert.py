@@ -5,8 +5,10 @@ arrays, ``{name: np.ndarray}`` (for example
 ``{n: p.data().asnumpy() for n, p in net.collect_params().items()}``), and
 loads them into the port's network.  Names are matched relative to each
 network's prefix, so ``transformerlm3_l0_attn_qkv_weight`` lands on the
-port's ``transformerlm0_l0_attn_qkv_weight``.  A missing name, an extra
-name or a shape that differs raises.
+port's ``transformerlm0_l0_attn_qkv_weight``.  Aux states (BatchNorm's
+``running_mean`` and ``running_var``) are parameters in both packages and
+move like the others.  A missing name, an extra name or a shape that
+differs raises.
 """
 from __future__ import annotations
 

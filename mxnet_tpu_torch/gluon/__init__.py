@@ -3,5 +3,6 @@ from .parameter import DeferredInitializationError, Parameter, ParameterDict
 from .block import Block, CachedOp, HybridBlock, SymbolBlock
 from . import nn
 from . import loss
+from . import data
 from . import model_zoo
 from .trainer import Trainer

@@ -28,11 +28,12 @@ from typing import Dict, List
 
 import torch
 
-from ..base import MXNetError, np_dtype
+from ..base import np_dtype
 from .. import autograd
 from .. import ndarray as nd
 from .. import symbol as sym_mod
 from ..symbol import Symbol
+from ..ndarray.register import write_back
 from ..symbol.graph import GraphPlan, infer_shapes_types
 from .parameter import DeferredInitializationError, Parameter, ParameterDict
 
@@ -183,6 +184,10 @@ class Block(torch.nn.Module):
         self.collect_params().load(filename, ctx, allow_missing, ignore_extra,
                                    self.prefix)
 
+    # upstream MXNet's later names for the same two calls
+    save_parameters = save_params
+    load_parameters = load_params
+
     def hybridize(self, active=True, **kwargs):
         for cld in self._children:
             cld.hybridize(active, **kwargs)
@@ -215,15 +220,22 @@ class CachedOp:
     train mode when ``autograd.is_training()``.  Under
     ``autograd.record()`` its ops record like any others, so the graph is
     differentiable as a whole (the JAX package takes the vjp of the jitted
-    graph instead)."""
+    graph instead).  The aux tensors (BatchNorm's moving statistics) are
+    read by the graph and, after a train-mode run, overwritten in place
+    with their updated values, as ``mxnet_tpu/gluon/block.py`` does: the
+    write is not recorded, and no recorded op saved them, so it passes
+    torch's in-place check."""
 
     def __init__(self, symbol: Symbol):
         self.symbol = symbol
         self.plan = GraphPlan(symbol)
 
-    def __call__(self, arg_arrays: Dict[str, torch.Tensor]):
-        outs, _ = self.plan.run(arg_arrays,
-                                is_train=autograd.is_training())
+    def __call__(self, arg_arrays: Dict[str, torch.Tensor],
+                 aux_arrays: Dict[str, torch.Tensor] = None):
+        aux_arrays = aux_arrays or {}
+        outs, new_aux = self.plan.run(arg_arrays, aux_arrays,
+                                      is_train=autograd.is_training())
+        write_back((tgt, new_aux[name]) for name, tgt in aux_arrays.items())
         return outs
 
 
@@ -327,13 +339,16 @@ class HybridBlock(Block):
             params = {p.name: p for p in self.collect_params().values()}
             self._cached_op = CachedOp(out)
             entry["op"] = (self._cached_op, [i.name for i in inputs],
-                           {n: params[n] for n in out.list_inputs()
+                           {n: params[n] for n in out.list_arguments()
+                            if n in params},
+                           {n: params[n] for n in out.list_auxiliary_states()
                             if n in params})
-        op, input_names, params = entry["op"]
+        op, input_names, params, aux_params = entry["op"]
         arg_dict = dict(zip(input_names, flat_args))
         for name, p in params.items():
             arg_dict[name] = p.data()
-        ret, _ = _regroup(op(arg_dict), entry["out_format"])
+        aux_dict = {name: p.data() for name, p in aux_params.items()}
+        ret, _ = _regroup(op(arg_dict, aux_dict), entry["out_format"])
         return ret
 
     def _run_graph(self, x, *args):
@@ -354,10 +369,15 @@ class HybridBlock(Block):
 
     def _infer_param_shapes(self, x, *args):
         """Fix the unknown dimensions of this block's own parameters from
-        its first input; blocks with deferred parameters override this."""
-        raise MXNetError(
-            f"{self.name}: cannot infer the shapes of its deferred "
-            f"parameters {sorted(self._reg_params)}")
+        its first input, by shape inference over its graph (the JAX
+        package's ``_deferred_infer_shape``); Dense and LayerNorm read
+        them off the input directly."""
+        try:
+            self.infer_shape(x, *args)
+        except Exception as e:
+            raise ValueError(
+                f"Deferred initialization failed because shape cannot be "
+                f"inferred: {e}") from e
 
     def forward(self, x, *args):
         if isinstance(x, Symbol):
@@ -399,6 +419,10 @@ class SymbolBlock(HybridBlock):
             if name not in input_names:
                 self.params.get(name, allow_deferred_init=True)._attach(
                     self, name)
+        for name in outputs.list_auxiliary_states():
+            if name not in input_names:
+                self.params.get(name, grad_req="null",
+                                allow_deferred_init=True)._attach(self, name)
         self._symbol_graph = (list(inputs), outputs)
 
     def _trace(self, flat_args, in_format):

@@ -1,0 +1,79 @@
+"""gluon.data datasets (parity: python/mxnet/gluon/data/dataset.py).
+
+``Dataset``, ``SimpleDataset`` and ``ArrayDataset``.  ``RecordFileDataset``
+needs ``recordio`` and is not ported yet (ROADMAP.md, queue item 3).
+"""
+from __future__ import annotations
+
+import torch
+
+
+class Dataset:
+    def __getitem__(self, idx):
+        raise NotImplementedError
+
+    def __len__(self):
+        raise NotImplementedError
+
+    def transform(self, fn, lazy=True):
+        trans = _LazyTransformDataset(self, fn)
+        if lazy:
+            return trans
+        return SimpleDataset([trans[i] for i in range(len(trans))])
+
+    def transform_first(self, fn, lazy=True):
+        def base_fn(x, *args):
+            if args:
+                return (fn(x),) + args
+            return fn(x)
+        return self.transform(base_fn, lazy)
+
+
+class SimpleDataset(Dataset):
+    def __init__(self, data):
+        self._data = data
+
+    def __len__(self):
+        return len(self._data)
+
+    def __getitem__(self, idx):
+        return self._data[idx]
+
+
+class _LazyTransformDataset(Dataset):
+    def __init__(self, data, fn):
+        self._data = data
+        self._fn = fn
+
+    def __len__(self):
+        return len(self._data)
+
+    def __getitem__(self, idx):
+        item = self._data[idx]
+        if isinstance(item, tuple):
+            return self._fn(*item)
+        return self._fn(item)
+
+
+class ArrayDataset(Dataset):
+    """Dataset zipping multiple arrays (parity: data/dataset.py ArrayDataset)."""
+
+    def __init__(self, *args):
+        assert len(args) > 0
+        self._length = len(args[0])
+        self._data = []
+        for i, data in enumerate(args):
+            assert len(data) == self._length, \
+                f"All arrays must have the same length; input {i} has length " \
+                f"{len(data)} while the first has {self._length}."
+            if isinstance(data, torch.Tensor) and data.dim() == 1:
+                data = data.detach().cpu().numpy()
+            self._data.append(data)
+
+    def __getitem__(self, idx):
+        if len(self._data) == 1:
+            return self._data[0][idx]
+        return tuple(data[idx] for data in self._data)
+
+    def __len__(self):
+        return self._length

@@ -1,0 +1,106 @@
+"""SqueezeNet 1.0/1.1 (parity: gluon/model_zoo/vision/squeezenet.py)."""
+from ...block import HybridBlock
+from ... import nn
+
+
+def _make_fire(squeeze_channels, expand1x1_channels, expand3x3_channels):
+    out = nn.HybridSequential(prefix="")
+    out.add(_make_fire_conv(squeeze_channels, 1))
+    paths = HybridConcurrent(axis=1, prefix="")
+    paths.add(_make_fire_conv(expand1x1_channels, 1))
+    paths.add(_make_fire_conv(expand3x3_channels, 3, 1))
+    out.add(paths)
+    return out
+
+
+def _make_fire_conv(channels, kernel_size, padding=0):
+    out = nn.HybridSequential(prefix="")
+    out.add(nn.Conv2D(channels, kernel_size, padding=padding))
+    out.add(nn.Activation("relu"))
+    return out
+
+
+class HybridConcurrent(nn.HybridSequential):
+    """Concat outputs of children along axis (parity: gluon.contrib.
+    HybridConcurrent, used by squeezenet/densenet/inception)."""
+
+    def __init__(self, axis=1, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+        self.axis = axis
+
+    def hybrid_forward(self, F, x):
+        out = []
+        for block in self._children:
+            out.append(block(x))
+        return F.Concat(*out, dim=self.axis)
+
+
+class SqueezeNet(HybridBlock):
+    def __init__(self, version, classes=1000, **kwargs):
+        super().__init__(**kwargs)
+        assert version in ["1.0", "1.1"], \
+            "Unsupported SqueezeNet version {version}: 1.0 or 1.1 expected"
+        with self.name_scope():
+            self.features = nn.HybridSequential(prefix="")
+            if version == "1.0":
+                self.features.add(nn.Conv2D(96, kernel_size=7, strides=2))
+                self.features.add(nn.Activation("relu"))
+                self.features.add(nn.MaxPool2D(pool_size=3, strides=2,
+                                               ceil_mode=True))
+                self.features.add(_make_fire(16, 64, 64))
+                self.features.add(_make_fire(16, 64, 64))
+                self.features.add(_make_fire(32, 128, 128))
+                self.features.add(nn.MaxPool2D(pool_size=3, strides=2,
+                                               ceil_mode=True))
+                self.features.add(_make_fire(32, 128, 128))
+                self.features.add(_make_fire(48, 192, 192))
+                self.features.add(_make_fire(48, 192, 192))
+                self.features.add(_make_fire(64, 256, 256))
+                self.features.add(nn.MaxPool2D(pool_size=3, strides=2,
+                                               ceil_mode=True))
+                self.features.add(_make_fire(64, 256, 256))
+            else:
+                self.features.add(nn.Conv2D(64, kernel_size=3, strides=2))
+                self.features.add(nn.Activation("relu"))
+                self.features.add(nn.MaxPool2D(pool_size=3, strides=2,
+                                               ceil_mode=True))
+                self.features.add(_make_fire(16, 64, 64))
+                self.features.add(_make_fire(16, 64, 64))
+                self.features.add(nn.MaxPool2D(pool_size=3, strides=2,
+                                               ceil_mode=True))
+                self.features.add(_make_fire(32, 128, 128))
+                self.features.add(_make_fire(32, 128, 128))
+                self.features.add(nn.MaxPool2D(pool_size=3, strides=2,
+                                               ceil_mode=True))
+                self.features.add(_make_fire(48, 192, 192))
+                self.features.add(_make_fire(48, 192, 192))
+                self.features.add(_make_fire(64, 256, 256))
+                self.features.add(_make_fire(64, 256, 256))
+            self.features.add(nn.Dropout(0.5))
+            self.output = nn.HybridSequential(prefix="")
+            self.output.add(nn.Conv2D(classes, kernel_size=1))
+            self.output.add(nn.Activation("relu"))
+            self.output.add(nn.GlobalAvgPool2D())
+            self.output.add(nn.Flatten())
+
+    def hybrid_forward(self, F, x):
+        x = self.features(x)
+        x = self.output(x)
+        return x
+
+
+def get_squeezenet(version, pretrained=False, ctx=None, root=None, **kwargs):
+    net = SqueezeNet(version, **kwargs)
+    if pretrained:
+        from ..model_store import get_model_file
+        net.load_params(get_model_file(f"squeezenet{version}", root=root),
+                        ctx=ctx)
+    return net
+
+
+def squeezenet1_0(**kwargs):
+    return get_squeezenet("1.0", **kwargs)
+
+
+def squeezenet1_1(**kwargs):
+    return get_squeezenet("1.1", **kwargs)

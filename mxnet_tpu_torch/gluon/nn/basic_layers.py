@@ -1,15 +1,48 @@
-"""gluon.nn basic layers of the serving slice (parity: gluon/nn/basic_layers.py).
+"""gluon.nn basic layers (parity: gluon/nn/basic_layers.py).
 
-HybridSequential, Dense, Activation, Dropout, Embedding and LayerNorm, with
-the JAX package's parameter names, shapes and initializers.  Dense and
-LayerNorm defer their input-sized parameters and resolve them from the
-first input's trailing dimension(s).
+Sequential, HybridSequential, Dense, Activation, Dropout, BatchNorm,
+LeakyReLU, Embedding, Flatten, InstanceNorm, LayerNorm, Lambda and
+HybridLambda, with the JAX package's parameter names, shapes and
+initializers.  Dense and LayerNorm resolve their deferred input-sized
+parameters from the first input's trailing dimension(s); the others by
+shape inference over their graph.
 """
 from __future__ import annotations
 
 import math
+import warnings
 
-from ..block import HybridBlock
+from ..block import Block, HybridBlock
+
+
+class Sequential(Block):
+    """Runs its children in order, eagerly."""
+
+    def __init__(self, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+
+    def add(self, *blocks):
+        for block in blocks:
+            self.register_child(block)
+
+    def forward(self, x):
+        for block in self._children:
+            x = block(x)
+        return x
+
+    def __getitem__(self, i):
+        return self._children[i]
+
+    def __len__(self):
+        return len(self._modules)
+
+    def hybridize(self, active=True, **kwargs):
+        if self._children and all(isinstance(c, HybridBlock)
+                                  for c in self._children):
+            warnings.warn(
+                "All children of this Sequential layer are HybridBlocks. "
+                "Consider using HybridSequential for the best performance.")
+        super().hybridize(active, **kwargs)
 
 
 class HybridSequential(HybridBlock):
@@ -96,6 +129,61 @@ class Dropout(HybridBlock):
         return F.Dropout(x, p=self._rate, axes=self._axes, name="fwd")
 
 
+class BatchNorm(HybridBlock):
+    """Batch normalisation over ``axis``; ``running_mean`` and
+    ``running_var`` are aux states (``grad_req="null"``), updated in train
+    mode with MXNet's ``momentum``.  ``scale=False`` fixes gamma at 1."""
+
+    def __init__(self, axis=1, momentum=0.9, epsilon=1e-5, center=True,
+                 scale=True, use_global_stats=False, beta_initializer="zeros",
+                 gamma_initializer="ones", running_mean_initializer="zeros",
+                 running_variance_initializer="ones", in_channels=0, **kwargs):
+        super().__init__(**kwargs)
+        self._kwargs = {"axis": axis, "eps": epsilon, "momentum": momentum,
+                        "fix_gamma": not scale,
+                        "use_global_stats": use_global_stats}
+        if in_channels != 0:
+            self.in_channels = in_channels
+        self.gamma = self.params.get("gamma",
+                                     grad_req="write" if scale else "null",
+                                     shape=(in_channels,),
+                                     init=gamma_initializer,
+                                     allow_deferred_init=True,
+                                     differentiable=scale)
+        self.beta = self.params.get("beta",
+                                    grad_req="write" if center else "null",
+                                    shape=(in_channels,),
+                                    init=beta_initializer,
+                                    allow_deferred_init=True,
+                                    differentiable=center)
+        self.running_mean = self.params.get("running_mean", grad_req="null",
+                                            shape=(in_channels,),
+                                            init=running_mean_initializer,
+                                            allow_deferred_init=True,
+                                            differentiable=False)
+        self.running_var = self.params.get("running_var", grad_req="null",
+                                           shape=(in_channels,),
+                                           init=running_variance_initializer,
+                                           allow_deferred_init=True,
+                                           differentiable=False)
+
+    def hybrid_forward(self, F, x, gamma, beta, running_mean, running_var):
+        out = F.BatchNorm(x, gamma, beta, running_mean, running_var,
+                          name="fwd", **self._kwargs)
+        if isinstance(out, (list, tuple)):
+            return out[0]
+        return out
+
+
+class LeakyReLU(HybridBlock):
+    def __init__(self, alpha, **kwargs):
+        super().__init__(**kwargs)
+        self._alpha = alpha
+
+    def hybrid_forward(self, F, x):
+        return F.LeakyReLU(x, act_type="leaky", slope=self._alpha, name="fwd")
+
+
 class Embedding(HybridBlock):
     def __init__(self, input_dim, output_dim, dtype="float32",
                  weight_initializer=None, sparse_grad=False, **kwargs):
@@ -108,6 +196,38 @@ class Embedding(HybridBlock):
 
     def hybrid_forward(self, F, x, weight):
         return F.Embedding(x, weight, name="fwd", **self._kwargs)
+
+
+class Flatten(HybridBlock):
+    def hybrid_forward(self, F, x):
+        return F.Flatten(x)
+
+
+class InstanceNorm(HybridBlock):
+    def __init__(self, axis=1, epsilon=1e-5, center=True, scale=False,
+                 beta_initializer="zeros", gamma_initializer="ones",
+                 in_channels=0, **kwargs):
+        super().__init__(**kwargs)
+        self._axis = axis
+        self._epsilon = epsilon
+        self.gamma = self.params.get("gamma",
+                                     grad_req="write" if scale else "null",
+                                     shape=(in_channels,),
+                                     init=gamma_initializer,
+                                     allow_deferred_init=True)
+        self.beta = self.params.get("beta",
+                                    grad_req="write" if center else "null",
+                                    shape=(in_channels,),
+                                    init=beta_initializer,
+                                    allow_deferred_init=True)
+
+    def hybrid_forward(self, F, x, gamma, beta):
+        if self._axis == 1:
+            return F.InstanceNorm(x, gamma, beta, name="fwd",
+                                  eps=self._epsilon)
+        x = x.swapaxes(1, self._axis)
+        return F.InstanceNorm(x, gamma, beta, name="fwd",
+                              eps=self._epsilon).swapaxes(1, self._axis)
 
 
 class LayerNorm(HybridBlock):
@@ -137,3 +257,49 @@ class LayerNorm(HybridBlock):
         if isinstance(out, (list, tuple)):
             return out[0]
         return out
+
+
+class Lambda(Block):
+    """Wraps a function, or the name of an ``nd`` function, as a Block."""
+
+    def __init__(self, function, prefix=None):
+        super().__init__(prefix=prefix)
+        if isinstance(function, str):
+            from ... import ndarray as F
+            if not hasattr(F, function):
+                raise ValueError(f"Function name {function} is not found in "
+                                 "ndarray.")
+            self._func_impl = getattr(F, function)
+        elif callable(function):
+            self._func_impl = function
+        else:
+            raise ValueError("Unrecognized function in lambda: "
+                             f"{function} of type {type(function)}")
+        self._func_name = getattr(self._func_impl, "__name__", "custom")
+
+    def forward(self, *args):
+        return self._func_impl(*args)
+
+
+class HybridLambda(HybridBlock):
+    """Wraps ``function(F, x, *args)``, or the name of a function both
+    ``nd`` and ``sym`` have, as a HybridBlock."""
+
+    def __init__(self, function, prefix=None):
+        super().__init__(prefix=prefix)
+        if isinstance(function, str):
+            from ... import ndarray, symbol
+            if not (hasattr(ndarray, function) and hasattr(symbol, function)):
+                raise ValueError(f"Function name {function} is not found in "
+                                 "ndarray/symbol.")
+            self._func = lambda F, *args: getattr(F, function)(*args)
+            self._func_name = function
+        elif callable(function):
+            self._func = function
+            self._func_name = getattr(function, "__name__", "custom")
+        else:
+            raise ValueError("Unrecognized function in lambda: "
+                             f"{function} of type {type(function)}")
+
+    def hybrid_forward(self, F, x, *args):
+        return self._func(F, x, *args)

@@ -47,7 +47,8 @@ class Parameter:
         self.shape = tuple(shape) if shape is not None else None
         self.dtype = np_dtype(dtype)
         self._grad_req = None
-        self.grad_req = grad_req if differentiable else "null"
+        self._differentiable = differentiable
+        self.grad_req = grad_req
         self.lr_mult = lr_mult
         self.wd_mult = wd_mult
         self.init = init
@@ -66,9 +67,13 @@ class Parameter:
 
     @grad_req.setter
     def grad_req(self, req):
+        """A parameter made with ``differentiable=False`` (BatchNorm's
+        moving statistics) stays at "null" whatever is asked."""
         if req not in ("write", "add", "null"):
             raise MXNetError(f"grad_req must be one of 'write', 'add', or "
                              f"'null', but got '{req}'")
+        if not self._differentiable:
+            req = "null"
         self._grad_req = req
         if self._data is not None:
             autograd.mark_variable(self._data, None, req)

@@ -5,7 +5,8 @@ registered op (and alias).  Positional tensors are the op's inputs, any
 positional values after them fill the schema's arguments in declared order,
 keywords are normalized by the op's ``Arg`` schema, and ``name=`` is
 accepted and dropped.  Ops run eagerly on ``torch.Tensor``s; an op with
-several outputs returns a list.
+several outputs returns a list.  An op with aux states writes their
+updated values back into the tensors passed for them.
 """
 from __future__ import annotations
 
@@ -33,9 +34,26 @@ def invoke(op_name: str, inputs, kwargs):
     if op.takes_is_train:
         params["__is_train__"] = is_training()
     outs = _reg.apply_op(op, params, inputs)
+    n_vis = len(outs) - len(op.aux_inputs)
+    write_back((inputs[i], new) for i, new in zip(op.aux_inputs, outs[n_vis:])
+               if i < len(inputs) and inputs[i] is not None)
+    outs = outs[:n_vis]
     if not op.differentiable and is_recording():
         outs = tuple(o.detach() for o in outs)
     return outs[0] if len(outs) == 1 else list(outs)
+
+
+def write_back(pairs) -> None:
+    """Copy each updated aux value (BatchNorm's moving statistics) into its
+    target tensor, as the JAX package writes them back
+    (``mxnet_tpu/ndarray/register.py``).  ``pairs`` yields (target, new
+    value).  The write is not recorded: it runs under ``no_grad`` and skips
+    a value the op returned unchanged, so a tensor that a recorded op saved
+    for its backward is never written."""
+    with torch.no_grad():
+        for tgt, new in pairs:
+            if new is not tgt:
+                tgt.copy_(new)
 
 
 def _make_nd_func(op_name: str):

@@ -2,8 +2,9 @@
 
 The counterpart of part of ``mxnet_tpu/ops/matrix.py``: ``Reshape`` with
 MXNet's special codes, ``reshape_like`` (from ``mxnet_tpu/ops/compat.py``),
-``expand_dims``, ``slice_axis``, ``Concat``, ``broadcast_like``, ``tile``,
-``repeat``, ``where``, ``take``, ``pick``, ``Embedding`` and ``one_hot``.
+``expand_dims``, ``slice_axis``, ``Flatten``, ``Concat``,
+``broadcast_like``, ``tile``, ``repeat``, ``where``, ``take``, ``pick``,
+``Embedding`` and ``one_hot``.
 Ids arrive as float32 (MXNet's convention) and are truncated to integers.
 ``take``, ``pick`` and ``Embedding`` clamp out-of-range ids into range, as
 ``jnp.take(mode="clip")`` does; torch indexing would raise on them
@@ -95,6 +96,12 @@ def _slice_axis(p, x):
     idx = [slice(None)] * x.dim()
     idx[ax] = slice(p["begin"], p["end"])
     return x[tuple(idx)]
+
+
+@register("Flatten", input_names=("data",), aliases=("flatten",))
+def _flatten(p, x):
+    """(N, ...) to (N, product of the rest)."""
+    return x.reshape(x.shape[0], -1)
 
 
 @register("Concat", input_names=("args",), variadic=True, aliases=("concat",),

@@ -114,8 +114,12 @@ def _topk(p, x):
 @register("sort", input_names=("data",),
           args=[Arg("axis", int, -1), Arg("is_ascend", bool, True)])
 def _sort(p, x):
-    out = torch.sort(x, dim=p["axis"]).values
-    return out if p["is_ascend"] else torch.flip(out, dims=(p["axis"],))
+    """``axis=None`` sorts the flattened input, as ``jnp.sort`` does."""
+    axis = p["axis"]
+    if axis is None:
+        x, axis = x.reshape(-1), 0
+    out = torch.sort(x, dim=axis).values
+    return out if p["is_ascend"] else torch.flip(out, dims=(axis,))
 
 
 @register("argsort", input_names=("data",),
@@ -123,6 +127,9 @@ def _sort(p, x):
                 Arg("dtype", str, "float32")],
           differentiable=False)
 def _argsort(p, x):
+    """``axis=None`` gives indices into the flattened input."""
+    axis = p["axis"]
+    if axis is None:
+        x, axis = x.reshape(-1), 0
     key = x if p["is_ascend"] else -x
-    return torch.sort(key, dim=p["axis"], stable=True).indices.to(
-        torch.float32)
+    return torch.sort(key, dim=axis, stable=True).indices.to(torch.float32)

@@ -34,6 +34,10 @@ class Operator:
     input_names: List[str]
     schema: ParamSchema
     num_outputs: int = 1
+    # input positions that are auxiliary states (BatchNorm's moving
+    # statistics): fn returns one extra trailing output per aux input, its
+    # updated value, which the caller writes back into the aux tensor
+    aux_inputs: List[int] = field(default_factory=list)
     variadic: bool = False          # takes *args (Concat)
     takes_is_train: bool = False    # receives '__is_train__' in params
     differentiable: bool = True
@@ -82,6 +86,7 @@ def list_ops() -> List[str]:
 
 
 def apply_op(op: Operator, params: Dict[str, object], inputs) -> Tuple:
-    """Run the op eagerly on tensors; returns a tuple of its outputs."""
+    """Run the op eagerly on tensors; returns a tuple of all its outputs,
+    the updated aux values last."""
     out = op.fn(params, *inputs)
     return out if isinstance(out, tuple) else (out,)

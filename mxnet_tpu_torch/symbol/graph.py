@@ -11,8 +11,8 @@ they carry shape and dtype and no data, so nothing is computed and no
 kernel launches (the JAX package traces with ``jax.eval_shape`` instead).
 Parameter-shape hooks reproduce the reference ops' InferShape for
 auto-created weights (the FullyConnected weight from ``num_hidden`` and the
-data's trailing width, src/operator/nn/fully_connected-inl.h), for the ops
-the port has.
+data's trailing width, src/operator/nn/fully_connected-inl.h; convolution
+weights, BatchNorm's four per-channel vectors), for the ops the port has.
 
 Not ported: the channels-last layout pass (TPU only), per-layer profiler
 scopes (``introspect``, ROADMAP item 5), the RNN parameter hook (item 7)
@@ -42,6 +42,40 @@ def _fc_hook(p, shp):
     return out
 
 
+def _conv_hook(p, shp):
+    d = shp[0]
+    out = {1: (p["num_filter"], d[1] // p.get("num_group", 1))
+           + tuple(p["kernel"])}
+    if not p.get("no_bias"):
+        out[2] = (p["num_filter"],)
+    return out
+
+
+def _deconv_hook(p, shp):
+    d = shp[0]
+    out = {1: (d[1], p["num_filter"] // p.get("num_group", 1))
+           + tuple(p["kernel"])}
+    if not p.get("no_bias"):
+        out[2] = (p["num_filter"],)
+    return out
+
+
+def _bn_hook(p, shp):
+    c = shp[0][p.get("axis", 1) % len(shp[0])]
+    return {1: (c,), 2: (c,), 3: (c,), 4: (c,)}
+
+
+def _in_hook(p, shp):
+    c = shp[0][1]
+    return {1: (c,), 2: (c,)}
+
+
+def _prelu_hook(p, shp):
+    if p.get("act_type") == "prelu" and len(shp) > 1:
+        return {1: (shp[0][1] if len(shp[0]) > 1 else shp[0][0],)}
+    return {}
+
+
 def _ln_hook(p, shp):
     c = shp[0][p.get("axis", -1) % len(shp[0])]
     return {1: (c,), 2: (c,)}
@@ -53,19 +87,27 @@ def _emb_hook(p, shp):
 
 PARAM_SHAPE_HOOKS: Dict[str, Callable] = {
     "FullyConnected": _fc_hook,
+    "Convolution": _conv_hook,
+    "Deconvolution": _deconv_hook,
+    "BatchNorm": _bn_hook,
+    "InstanceNorm": _in_hook,
     "LayerNorm": _ln_hook,
     "Embedding": _emb_hook,
+    "LeakyReLU": _prelu_hook,
 }
 
 
 class _Step:
-    __slots__ = ("node", "op", "params", "in_refs", "fills_ctx")
+    __slots__ = ("node", "op", "params", "in_refs", "fills_ctx",
+                 "aux_var_names")
 
-    def __init__(self, node, op, params, in_refs):
+    def __init__(self, node, op, params, in_refs, aux_var_names):
         self.node = node
         self.op = op
         self.params = params      # normalized dict (without __is_train__)
         self.in_refs = in_refs    # ('var', name) | ('val', (step, out_idx))
+        # position among the op's aux inputs -> the variable feeding it
+        self.aux_var_names = aux_var_names
         # a creation op (no input tensor) with no ctx takes the run's device
         self.fills_ctx = (not in_refs and "ctx" in op.schema.args
                           and params.get("ctx") is None)
@@ -93,8 +135,11 @@ class GraphPlan:
                 ref = node_out[id(src)]
                 in_refs.append(ref if ref[0] == "var"
                                else ("val", (ref[1], oi)))
+            aux_map = {pos: n.inputs[ai][0].name
+                       for pos, ai in enumerate(op.aux_inputs)
+                       if ai < len(n.inputs) and n.inputs[ai][0].is_var}
             node_out[id(n)] = ("step", len(self.steps))
-            self.steps.append(_Step(n, op, params, in_refs))
+            self.steps.append(_Step(n, op, params, in_refs, aux_map))
         self.out_refs = []
         for node, oi in symbol._entries:
             ref = node_out[id(node)]
@@ -104,9 +149,13 @@ class GraphPlan:
     def run(self, arg_values: Dict[str, torch.Tensor],
             aux_values: Optional[Dict[str, torch.Tensor]] = None,
             is_train: bool = False, segments: int = 1):
-        """Execute the graph on ``arg_values`` ({name: tensor}).  Returns
-        (outputs, aux values).  Creation ops with no ``ctx`` make their
-        result on the device of the first argument."""
+        """Execute the graph on ``arg_values`` and ``aux_values`` ({name:
+        tensor}).  Returns (outputs, aux values): a step's trailing aux
+        outputs (BatchNorm's updated moving statistics, which differ from
+        its inputs only in train mode) replace the values of the variables
+        that fed them, and later steps read the new values.  Creation ops
+        with no ``ctx`` make their result on the device of the first
+        argument."""
         if segments and segments > 1:
             raise NotImplementedError(
                 "GraphPlan.run(segments > 1) rematerialises training "
@@ -135,7 +184,11 @@ class GraphPlan:
             if step.fills_ctx and device is not None:
                 p["ctx"] = str(device)
             out = step.op.fn(p, *ins)
-            values[si] = out if isinstance(out, tuple) else (out,)
+            out = out if isinstance(out, tuple) else (out,)
+            n_vis = len(out) - len(step.op.aux_inputs)
+            values[si] = out[:n_vis]
+            for pos, nm in step.aux_var_names.items():
+                aux_values[nm] = out[n_vis + pos]
         return [resolve(r) for r in self.out_refs], aux_values
 
 

@@ -20,7 +20,7 @@ from .symbol import Symbol, Variable, _Node, _truthy
 def _auto_input_names(op, params):
     """Which declared inputs this node needs, given params."""
     names = list(op.input_names)
-    if op.name == "FullyConnected":
+    if op.name in ("FullyConnected", "Convolution", "Deconvolution"):
         no_bias = dict(params).get("no_bias")
         if no_bias is None:
             no_bias = op.schema.args["no_bias"].default
@@ -55,6 +55,12 @@ def invoke_symbol(op_name: str, sym_inputs, kwargs, name=None,
 
     if op.variadic:
         inputs = [s._entries[0] for s in sym_inputs]
+        # LeakyReLU(act_type="prelu") takes its slope as a second input
+        if op.name == "LeakyReLU" and params.get("act_type") == "prelu" \
+                and len(inputs) == 1 and "gamma" not in named_inputs:
+            inputs.append(Variable(f"{node_name}_gamma")._entries[0])
+        if "gamma" in named_inputs:
+            inputs.append(named_inputs["gamma"]._entries[0])
         if "num_args" in op.schema.args:
             params["num_args"] = len(inputs)
     else:

@@ -41,8 +41,8 @@ class _Node:
         if self.is_var:
             return 1
         op = _reg.get_op(self.op)
-        if op.name == "LayerNorm":
-            return 1  # mean/std exposed only via output_mean_var
+        if op.name in ("BatchNorm", "LayerNorm"):
+            return 1  # mean/var exposed only via output_mean_var
         return max(op.num_outputs, 1)
 
 
@@ -107,14 +107,25 @@ class Symbol:
             visit(node)
         return order
 
+    def _aux_var_ids(self) -> set:
+        """The variables that feed an op's ``aux_inputs`` (BatchNorm's
+        moving statistics)."""
+        aux = set()
+        for node in self._topo():
+            if node.is_var:
+                continue
+            for ai in _reg.get_op(node.op).aux_inputs:
+                if ai < len(node.inputs) and node.inputs[ai][0].is_var:
+                    aux.add(id(node.inputs[ai][0]))
+        return aux
+
     def list_arguments(self) -> List[str]:
-        # no op of the port has auxiliary states yet (BatchNorm's moving
-        # statistics arrive with the training slice): every variable is an
-        # argument
-        return self.list_inputs()
+        aux = self._aux_var_ids()
+        return [n.name for n in self._topo() if n.is_var and id(n) not in aux]
 
     def list_auxiliary_states(self) -> List[str]:
-        return []
+        aux = self._aux_var_ids()
+        return [n.name for n in self._topo() if n.is_var and id(n) in aux]
 
     def list_inputs(self) -> List[str]:
         return [n.name for n in self._topo() if n.is_var]

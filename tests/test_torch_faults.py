@@ -161,8 +161,19 @@ def _gluon_methods(api):
     return out
 
 
+def _sort_axis_none(api):
+    """``sort`` and ``argsort`` with ``axis=None`` work on the flattened
+    input, ascending and descending."""
+    nd = api.mx.nd
+    x = api.array(np.random.RandomState(3).normal(size=(3, 4)).astype(
+        np.float32))
+    return [api.numpy(f(x, axis=None, is_ascend=asc))
+            for f in (nd.sort, nd.argsort) for asc in (True, False)]
+
+
 _CASES = [_non_differentiable_op, _relu_tie, _abs_at_zero, _integer_inputs,
-          _take_wrap, _collect_params_select, _gluon_methods]
+          _take_wrap, _collect_params_select, _gluon_methods,
+          _sort_axis_none]
 
 
 @pytest.mark.parametrize("case", _CASES, ids=[c.__name__[1:] for c in _CASES])

@@ -130,15 +130,15 @@ def test_training_ops_run_through_the_symbol_graph(op):
 def test_train_mode_reaches_the_cached_graph():
     """``autograd.train_mode()`` reaches the ops of a hybridized block
     through its ``CachedOp``: a Dropout of rate 0.5 is the identity in
-    predict mode and, in train mode, raises that training-mode dropout is
-    not ported."""
+    predict mode and, in train mode, drops values and scales the kept ones
+    by 2."""
     drop = mxt.gluon.nn.Dropout(0.5)
     drop.hybridize()
-    x = mxt.nd.array(np.ones((2, 3), "f"), ctx=CPU)
+    x = mxt.nd.array(np.ones((8, 16), "f"), ctx=CPU)
     assert torch.equal(drop(x), x)
     with mxt.autograd.train_mode():
-        with pytest.raises(NotImplementedError, match="Dropout"):
-            drop(x)
+        out = drop(x)
+    assert set(out.unique().tolist()) == {0.0, 2.0}
 
 
 def test_ctc_loss_names_its_roadmap_item():
