@@ -5,8 +5,9 @@
 
 Run from the root of a checkout on a machine with a CUDA card and nvcc.
 It serves and trains the full-width flash-attention TransformerLM and
-trains ResNet-50 v1 through the port's own entry points, and holds every
-kernel against its plain version:
+trains ResNet-50 v1 through the port's own entry points (Gluon, and the
+symbolic path of ``Module.fit``), and holds every kernel against its
+plain version:
 
 1. setup: the card's name and power limit; build every kernel from
    ``mxnet_tpu_torch/csrc`` (one nvcc per source, in parallel); launch the
@@ -108,9 +109,29 @@ kernel against its plain version:
    batches to the card, scored with ``metric.Accuracy``; and one float32
    step of ``resnet18_v1`` (B=2, 64x64) against the same step on the CPU
    (``TOL_GRAD_CPU``, ``TOL_AUX_CPU``);
-11. a ``kernels`` JSON line (the forward kernels' ``launches`` are phase
-   8's, with phase 9's as ``training_launches``; the two K1b kernels' are
-   phase 9's main path, the FMA one's 0 there),
+11. the symbolic path, ``bench.py``'s own: the ResNet-50 v1 symbol under
+   ``SoftmaxOutput``, ``Module(context=gpu(0))`` bound with bf16 data
+   (bf16 weights, float32 BatchNorm parameters and statistics), Xavier
+   gaussian 'in' magnitude 2 from seed 0, SGD lr 0.05, momentum 0.9, wd
+   1e-4, f32 masters on the ``tpu_sync`` kvstore (the optimizer runs on
+   its ``pushpull``), ``fit`` for 3 epochs over an ``NDArrayIter`` of 8
+   batches of B=256 resident on the card, the NLL kept on the card and one
+   synchronisation per epoch: ``bench.py:390-392``'s loss check, no
+   kernel launch counted, the step and images/s over the last two epochs
+   and peak memory beside phase 10's Gluon step, one step's host enqueue
+   time, kernel time and host gaps; resnet18_v1 in float32 (B=2, 64x64),
+   one Module step against one Gluon step from the same weights (each
+   parameter within ``TOL_MODULE_GLUON`` of its largest change, the moving
+   statistics within ``TOL_MODULE_AUX``); then the full-width
+   TransformerLM's bf16 symbol under ``SoftmaxOutput(preserve_shape=True,
+   normalization="valid")``, bound at phase 9's B=8, T=1024, every kernel
+   count set to 0, 3 steps of ``forward_backward`` + ``update`` (12 sm90
+   K1 and 12 sm90 K1b launches per step through ``Executor.backward``,
+   none on f32; finite NLL that falls), its step beside phase 9's;
+12. a ``kernels`` JSON line (the forward kernels' ``launches`` are phase
+   8's, with phase 9's as ``training_launches`` and phase 11's LM leg's as
+   ``module_launches``; the two K1b kernels' are phase 9's main path, with
+   phase 11's as ``module_launches``, the FMA one's 0 there),
    then the last line ``{"ok": true, "device": {...}}``.
 
 The language model is ``experiments/lm_mfu_probe.py``'s default width
@@ -118,8 +139,10 @@ The language model is ``experiments/lm_mfu_probe.py``'s default width
 about 219 M parameters) with random weights from seed 0.  Nothing is cut
 but the number of training steps (6, where the probe times 20) and the
 gradient check's depth (2 layers).  ResNet-50 v1 runs at full width and
-depth (about 25.6 M parameters); only the steps are cut (8, where
-``bench.py`` times 16 after 8 to warm up).
+depth (about 25.6 M parameters); phase 10 cuts only the steps (8, where
+``bench.py`` times 16 after 8 to warm up); phase 11 runs ``bench.py``'s 3
+epochs of 8 batches, on data drawn on the card (the same recipe, torch's
+generator in place of numpy's).  Phase 11's LM leg cuts the steps to 3.
 
 Times: ``device`` is the CUDA-event time of 20 back-to-back calls queued
 behind a spin kernel, per call (L2 warm): the kernels and the gaps between
@@ -1761,6 +1784,365 @@ def phase_vision_data(mx, net):
           f" scored by the trained net, {acc.get()}")
 
 
+# --------------------------------------------------------------------------
+# phase 11: the symbolic path (Symbol -> Module.fit -> Executor -> KVStore)
+# --------------------------------------------------------------------------
+MODULE_EPOCHS = 3   # bench.py's EPOCHS and BATCHES_PER_EPOCH: epoch 0 warms
+MODULE_BATCHES = 8  # up, epochs 1-2 are timed
+# resnet18_v1 f32 (B=2, 64x64): one Module step against one Gluon step from
+# the same weights, max |diff| of each parameter over its largest change,
+# and of the moving statistics absolute
+TOL_MODULE_GLUON = 1e-3
+TOL_MODULE_AUX = 1e-4
+LM_MODULE_STEPS = 3
+LM_MODULE_LR = 0.1  # SGD momentum 0.9 on the token-normalized gradient
+
+
+class DeviceNLL:
+    """``bench.py``'s LossMetric: each batch's NLL of the label under the
+    predicted probabilities kept on the card, no host copy per batch; all
+    of them read once at the end (``materialize``)."""
+
+    def __init__(self, mx):
+        import torch
+        self._torch = torch
+
+        class _Metric(mx.metric.EvalMetric):
+            def __init__(self):
+                super().__init__("nll")
+                self.vals = []
+
+            def update(self, labels, preds):
+                p = preds[0].float()
+                lab = labels[0].long().unsqueeze(-1)
+                self.vals.append(-torch.log(p.gather(-1, lab) + 1e-8).mean())
+                self.num_inst += 1
+
+            def get(self):
+                return ("nll", float(torch.stack(self.vals).mean())
+                        if self.vals else float("nan"))
+
+        self.metric = _Metric()
+
+    def materialize(self):
+        return [float(v) for v in self._torch.stack(self.metric.vals)]
+
+
+def resnet_symbol(mx, name):
+    """``bench.py``'s symbol: the model zoo's ``name`` on a data variable,
+    then ``SoftmaxOutput``."""
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+    net = getattr(vision, name)()
+    return mx.sym.SoftmaxOutput(net(mx.sym.Variable("data")), name="softmax")
+
+
+def module_data(mx, n):
+    """``bench.py``'s synthetic set (``vision_batch``'s recipe for ``n``
+    images), drawn on the card from seed 0 so that 2048 images need no
+    host round trip: bf16 images, float32 labels, resident."""
+    import torch
+    dev = mx.context.as_device(mx.gpu(0))
+    g = torch.Generator(device=dev).manual_seed(0)
+    labels = torch.randint(0, 1000, (n,), generator=g, device=dev).float()
+    data = torch.randn((n, 3, VISION_IMG, VISION_IMG), generator=g,
+                       device=dev)
+    data[:, 0, :4, :4] += (labels / 500.0 - 1.0)[:, None, None]
+    return data.to(torch.bfloat16), labels
+
+
+def phase_module_resnet(mx, gluon):
+    """``bench.py``'s path through the port: ResNet-50 v1's symbol,
+    ``Module`` on gpu(0) bound with bf16 data, Xavier, SGD with f32 masters
+    on the ``tpu_sync`` kvstore (updates on its pushpull), ``fit`` for 3
+    epochs of 8 resident batches with the NLL kept on the card and one
+    synchronisation per epoch."""
+    import gc
+    import numpy as np
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    sym = resnet_symbol(mx, VISION_MODEL)
+    n = VISION_BATCH * MODULE_BATCHES
+    data, labels = module_data(mx, n)
+    it = mx.io.NDArrayIter(data, labels, batch_size=VISION_BATCH)
+    mod = mx.mod.Module(sym, context=mx.gpu(0))
+    mod.bind(data_shapes=[mx.io.DataDesc(
+                 "data", (VISION_BATCH, 3, VISION_IMG, VISION_IMG),
+                 "bfloat16")],
+             label_shapes=[mx.io.DataDesc("softmax_label", (VISION_BATCH,),
+                                          np.float32)])
+    mx.random.seed(0)
+    mod.init_params(mx.init.Xavier(rnd_type="gaussian", factor_type="in",
+                                   magnitude=2))
+    mod.init_optimizer(kvstore="tpu_sync", optimizer="sgd",
+                       optimizer_params={"learning_rate": VISION_LR,
+                                         "momentum": 0.9, "wd": 1e-4,
+                                         "multi_precision": True})
+    ex = mod._exec
+    dtypes = {str(t.dtype)[6:] for t in ex.arg_dict.values()}
+    bn_f32 = all(t.dtype == torch.float32 for n_, t in
+                 list(ex.arg_dict.items()) + list(ex.aux_dict.items())
+                 if "batchnorm" in n_)
+    w_bf16 = all(t.dtype == torch.bfloat16 for n_, t in ex.arg_dict.items()
+                 if n_.endswith("_weight") and "batchnorm" not in n_)
+    print(f"  {VISION_MODEL} symbol: {len(sym.list_arguments())} arguments, "
+          f"{len(sym.list_auxiliary_states())} aux states; bound in "
+          f"{time.perf_counter() - t0:.1f} s (dtypes {sorted(dtypes)}; "
+          f"kvstore {mod._kvstore.type}, update on the store: "
+          f"{mod._update_on_kvstore}); {n} images resident on the card")
+    check(w_bf16 and bn_f32, "bf16 data did not give bf16 weights and "
+          "float32 BatchNorm parameters and statistics")
+    check(mod._kvstore is not None and mod._update_on_kvstore,
+          "tpu_sync did not give a store that updates")
+    metric = DeviceNLL(mx)
+    marks = []
+
+    def epoch_end(epoch, sym_, arg, aux):
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    marks.append(time.perf_counter())
+    mod.fit(it, num_epoch=MODULE_EPOCHS, eval_metric=metric.metric,
+            epoch_end_callback=epoch_end)
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    losses = metric.materialize()
+    epochs = [(b - a) * 1e3 for a, b in zip(marks, marks[1:])]
+    steps = [e / MODULE_BATCHES for e in epochs[1:]]
+    step = (marks[-1] - marks[1]) * 1e3 / (MODULE_BATCHES *
+                                           (MODULE_EPOCHS - 1))
+    final = float(np.mean(losses[-MODULE_BATCHES:]))
+    print(f"  fit: epochs {[round(e, 1) for e in epochs]} ms (host clock, "
+          f"one synchronisation each; the first warms up); per step over "
+          f"the timed epochs {[round(v, 1) for v in steps]} ms, {step:.1f} ms"
+          f" over both, {VISION_BATCH / step * 1e3:.1f} images/s; peak "
+          f"memory {peak / 2 ** 30:.2f} GiB (max_memory_allocated)")
+    print(f"  beside phase 10's Gluon step: {gluon['step_ms']:.1f} ms, "
+          f"{gluon['images_s']:.1f} images/s, peak {gluon['peak_gib']:.2f} "
+          f"GiB; Module over Gluon {step / gluon['step_ms']:.3f}x")
+    print(f"  NLL per batch {[round(v, 4) for v in losses]}; last epoch "
+          f"mean {final:.4f}")
+    check(np.isfinite(losses).all(), f"Module losses not finite: {losses}")
+    check(final < max(losses[0] * 1.2, np.log(1000.0) + 0.5),
+          f"bench.py's loss check failed: final {final:.4f}, first "
+          f"{losses[0]:.4f}")
+    check(not any(counts.values()), f"the Module vision path launched a "
+          f"kernel of the repo: {counts}")
+
+    # one step by part: the host's enqueue time and the kernels
+    batch = next(iter(it))
+    it.reset()
+
+    def one_step():
+        mod.forward_backward(batch)
+        mod.update()
+        mod.update_metric(metric.metric, batch.label)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    one_step()
+    enqueue = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    rows = kernel_rows(one_step)
+    out = {"step_ms": step, "images_s": VISION_BATCH / step * 1e3,
+           "first_epoch_ms": epochs[0], "peak_gib": peak / 2 ** 30,
+           "losses": losses, "enqueue_ms": enqueue}
+    if rows:
+        busy = sum(r[0] for r in rows)
+        out["kernel_ms"], out["host_gaps_ms"] = busy, step - busy
+        print(f"  one Module step: the call returns after {enqueue:.1f} ms "
+              f"(its last kernel queued; a full launch queue holds it back);"
+              f" kernel time {busy:.3f} ms"
+              f" in {sum(r[1] for r in rows)} launches; host gaps (the "
+              f"fit step less it) {step - busy:.3f} ms, beside phase 10's "
+              f"Gluon step's {gluon['breakdown'].get('host gaps', float('nan')):.3f}"
+              " ms")
+        for g, (ms, count) in sorted(group_rows(rows).items(),
+                                     key=lambda kv: -kv[1][0]):
+            print(f"    {g}: {ms:.3f} ms, {count} launches (phase 10's "
+                  f"Gluon step: {gluon['breakdown'].get(g, float('nan')):.3f}"
+                  " ms)")
+    else:
+        print(f"  one Module step: the call returns after {enqueue:.1f} ms;"
+              " kernel time not measured: torch.profiler saw no device "
+              "time")
+    del mod, ex, it, data, labels
+    return out
+
+
+def phase_module_vs_gluon(mx):
+    """resnet18_v1 in float32 (TF32 off), B=2 at 64x64, from the same
+    weights: one Module forward_backward + update with SoftmaxOutput
+    against one Gluon record/backward/Trainer.step(2) with
+    SoftmaxCrossEntropyLoss; both take (p - onehot) / batch."""
+    import numpy as np
+    import torch
+    rs = np.random.RandomState(3)
+    xs = rs.normal(size=GRAD_VISION_SHAPE).astype(np.float32)
+    ys = rs.randint(0, 1000, GRAD_VISION_SHAPE[0]).astype(np.float32)
+    ctx = mx.gpu(0)
+    opt = {"learning_rate": 0.1, "momentum": 0.9}
+    mx.random.seed(0)
+    net = mx.gluon.model_zoo.vision.resnet18_v1()
+    net.initialize(mx.init.Xavier(rnd_type="gaussian", factor_type="in",
+                                  magnitude=2), ctx=ctx)
+    x, y = mx.nd.array(xs, ctx=ctx), mx.nd.array(ys, ctx=ctx)
+    net(x)                                  # resolves the deferred shapes
+    params = {p.name: p for p in net.collect_params().values()}
+    start = {n: p.data().clone() for n, p in params.items()}
+    sym = mx.sym.SoftmaxOutput(net(mx.sym.var("data")), name="softmax")
+    aux_names = set(sym.list_auxiliary_states())
+    mod = mx.mod.Module(sym, context=ctx)
+    mod.bind([("data", GRAD_VISION_SHAPE)],
+             [("softmax_label", (GRAD_VISION_SHAPE[0],))])
+    mod.init_params(arg_params={n: t for n, t in start.items()
+                                if n not in aux_names},
+                    aux_params={n: t for n, t in start.items()
+                                if n in aux_names})
+    mod.init_optimizer(optimizer="sgd", optimizer_params=opt)
+    mod.forward_backward(mx.io.DataBatch([x], [y]))
+    mod.update()
+    m_arg, m_aux = mod.get_params()
+
+    trainer = mx.gluon.Trainer(net.collect_params(), "sgd", dict(opt))
+    with mx.autograd.record():
+        loss = mx.gluon.loss.SoftmaxCrossEntropyLoss()(net(x), y)
+    mx.autograd.backward([loss])
+    trainer.step(GRAD_VISION_SHAPE[0])
+    param_err, aux_err = 0.0, 0.0
+    for n, p in params.items():
+        got = (m_aux if n in aux_names else m_arg)[n].float()
+        want = p.data().float()
+        if n in aux_names:
+            aux_err = max(aux_err, (got - want).abs().max().item())
+        else:
+            moved = (want - start[n].float()).abs().max().item()
+            err = (got - want).abs().max().item()
+            param_err = max(param_err, err / moved if moved else err)
+    n_args = len(params) - len(aux_names)
+    print(f"  resnet18_v1 f32 B={GRAD_VISION_SHAPE[0]}, Module step "
+          f"against Gluon step from the same weights: {n_args} parameters, "
+          f"max |diff| over each one's largest change {param_err:.3e} (limit"
+          f" {TOL_MODULE_GLUON}); {len(aux_names)} moving statistics, max "
+          f"|diff| {aux_err:.3e} (limit {TOL_MODULE_AUX})")
+    check(param_err <= TOL_MODULE_GLUON, f"Module and Gluon steps differ: "
+          f"{param_err:.3e}")
+    check(aux_err <= TOL_MODULE_AUX, f"Module and Gluon moving statistics "
+          f"differ: {aux_err:.3e}")
+    del mod, net, trainer
+    torch.cuda.empty_cache()
+    return param_err, aux_err
+
+
+def phase_module_lm(mx, gluon):
+    """The full-width TransformerLM's symbol in bf16 under
+    ``SoftmaxOutput(preserve_shape=True, normalization="valid")`` over the
+    (8, 1024, 32768) logits, trained through ``Module`` at phase 9's batch:
+    every kernel count set to 0, then LM_MODULE_STEPS steps of
+    forward_backward + update, each launching K1 and K1b once per layer
+    on the sm90 kernels through ``Executor.backward``."""
+    import gc
+    import numpy as np
+    import torch
+    from mxnet_tpu_torch.gluon.model_zoo.transformer import TransformerLM
+    L, B, T = CONFIG["num_layers"], TRAIN_BATCH, CONFIG["max_len"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    mx.random.seed(0)
+    net = TransformerLM(**CONFIG, attn_type="flash")
+    net.initialize(mx.init.Xavier(), ctx=mx.gpu(0))
+    net(mx.nd.array(np.zeros((1, 8), np.float32), ctx=mx.gpu(0)))
+    net.cast("bfloat16")
+    sym = mx.sym.SoftmaxOutput(net(mx.sym.var("data")), preserve_shape=True,
+                               normalization="valid", name="softmax")
+    weights = {p.name: p.data() for p in net.collect_params().values()}
+    mod = mx.mod.Module(sym, context=mx.gpu(0))
+    mod.bind([mx.io.DataDesc("data", (B, T), np.float32)],
+             [mx.io.DataDesc("softmax_label", (B, T), np.float32)])
+    mod.init_params(arg_params=weights)
+    del net, weights
+    mod.init_optimizer(optimizer="sgd", optimizer_params={
+        "learning_rate": LM_MODULE_LR, "momentum": 0.9,
+        "multi_precision": True})
+    wdt = {str(t.dtype)[6:] for n, t in mod._exec.arg_dict.items()
+           if n not in ("data", "softmax_label")}
+    print(f"  LM symbol bound: {len(sym.list_arguments())} arguments "
+          f"({sorted(wdt)}), data and label float32, in "
+          f"{time.perf_counter() - t0:.1f} s")
+    check(wdt == {"bfloat16"}, f"LM weights bound as {wdt}, not bfloat16")
+    toks = np.random.RandomState(0).randint(0, CONFIG["vocab"], (B, T + 1))
+    batch = mx.io.DataBatch(
+        [mx.nd.array(toks[:, :-1].astype(np.float32), ctx=mx.gpu(0))],
+        [mx.nd.array(toks[:, 1:].astype(np.float32), ctx=mx.gpu(0))])
+    metric = DeviceNLL(mx)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    walls, per_step = [], []
+    for _ in range(LM_MODULE_STEPS):
+        before = read_counts()
+        t0 = time.perf_counter()
+        mod.forward_backward(batch)
+        mod.update()
+        mod.update_metric(metric.metric, batch.label)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        after = read_counts()
+        per_step.append({k: after[k] - before[k] for k in after})
+    counts = read_counts()
+    mod.forward(batch, is_train=False)      # the loss after the last update
+    mod.update_metric(metric.metric, batch.label)
+    losses = metric.materialize()
+    peak = torch.cuda.max_memory_allocated()
+    step = statistics.median(walls[1:])
+    print(f"  Module LM training bf16, B={B} T={T}: NLL {losses} (the last "
+          f"after {LM_MODULE_STEPS} updates); step times (host clock, "
+          f"synchronized) {[round(w, 1) for w in walls]} ms, after the "
+          f"first {step:.1f} ms, {B * T / step * 1e3:.0f} tokens/s; peak "
+          f"{peak / 2 ** 30:.2f} GiB; beside phase 9's Gluon step "
+          f"{gluon['step_ms']:.1f} ms, peak {gluon['peak_gib']:.2f} GiB")
+    print(f"  kernel launches: {counts}")
+    check(np.isfinite(losses).all(), f"Module LM losses not finite: {losses}")
+    check(losses[-1] < losses[0], f"Module LM loss did not fall: {losses}")
+    for i, c in enumerate(per_step):
+        check(c["flash_attention.sm90"] == L and c["flash_attention.f32"] == 0
+              and c["flash_attention.bwd.sm90"] == L
+              and c["flash_attention.bwd.f32"] == 0,
+              f"Module LM step {i}: launches {c}; want {L} sm90 K1 and {L} "
+              "sm90 K1b, none on f32")
+
+    def one_step():
+        mod.forward_backward(batch)
+        mod.update()
+
+    rows = kernel_rows(one_step)    # outside the counted, checked steps
+    if rows:
+        groups = {"K1b": ("dq_kernel", "dkdv_kernel", "delta_kernel"),
+                  "K1": ("flash_attention_fwd",),
+                  "GEMM": ("nvjet", "gemm", "xmma", "cutlass")}
+        busy = sum(r[0] for r in rows)
+        shares = {g: sum(r[0] for r in rows if any(k in r[2] for k in keys))
+                  for g, keys in groups.items()}
+        print(f"  one Module LM step under torch.profiler: {busy:.3f} ms of "
+              f"kernel time in {sum(r[1] for r in rows)} launches, host gaps "
+              f"(the median step less it) {step - busy:.3f} ms; "
+              + ", ".join(f"{g} {ms:.3f} ms" for g, ms in shares.items())
+              + f", other {busy - sum(shares.values()):.3f} ms")
+        for ms, count, key in rows[:8]:
+            print(f"    {ms:8.3f} ms  x{count:<4d} {key[:90]}")
+    else:
+        print("  Module LM step kernel time not measured: torch.profiler saw "
+              "no device time")
+    del mod, batch
+    return counts, {"step_ms": step, "peak_gib": peak / 2 ** 30,
+                    "losses": losses}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1806,16 +2188,22 @@ def main():
         t_train = time.perf_counter()
         bwd_errs, bwd_fma_errs, bwd_times = phase_train_kernel(mx)
         phase_grad_check(mx)
-        train_counts, _ = phase_train(mx)
+        train_counts, lm_gluon = phase_train(mx)
         print(f"phase 9: {time.perf_counter() - t_train:.1f} s")
         print("== phase 10: the vision path")
         t_vision = time.perf_counter()
         phase_goldens(mx)
-        vnet, _ = phase_vision_train(mx)
+        vnet, vision_gluon = phase_vision_train(mx)
         phase_vision_data(mx, vnet)
         del vnet
         phase_vision_grad(mx)
         print(f"phase 10: {time.perf_counter() - t_vision:.1f} s")
+        print("== phase 11: the symbolic path (Module.fit)")
+        t_module = time.perf_counter()
+        phase_module_resnet(mx, vision_gluon)
+        phase_module_vs_gluon(mx)
+        module_counts, _ = phase_module_lm(mx, lm_gluon)
+        print(f"phase 11: {time.perf_counter() - t_module:.1f} s")
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -1906,6 +2294,10 @@ def main():
     ]}
     for entry, variant in zip(kernels_line["kernels"][1:3], ("sm90", "f32")):
         entry["training_launches"] = train_counts[f"flash_attention.{variant}"]
+        entry["module_launches"] = module_counts[f"flash_attention.{variant}"]
+    for entry, variant in zip(kernels_line["kernels"][3:5], ("sm90", "f32")):
+        entry["module_launches"] = module_counts[
+            f"flash_attention.bwd.{variant}"]
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(kernels_line))
     print(json.dumps({"ok": True, "device": {

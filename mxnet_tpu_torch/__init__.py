@@ -16,8 +16,12 @@ admission-controlled server.  ``mx.autograd``, ``mx.optimizer``,
 the flash kernel's hand-written backward; ``gluon.model_zoo.vision``,
 ``gluon.data`` and ``mx.metric`` train and score the vision families
 (ResNet, VGG, AlexNet, SqueezeNet, DenseNet, Inception, MobileNet) on
-PyTorch's cuDNN convolutions.  It imports torch and numpy, never jax or
-the JAX package.
+PyTorch's cuDNN convolutions.  The symbolic path trains a Symbol:
+``Symbol.simple_bind``/``bind`` give an ``mx.executor.Executor``,
+``mx.mod.Module`` fits it from ``mx.io`` iterators through ``mx.kv``
+(``mx.kvstore``), with ``mx.model`` checkpoints, ``mx.callback`` and
+``mx.monitor``.  It imports torch and numpy, never jax or the JAX
+package.
 """
 
 __version__ = "1.0.0.torch0"
@@ -48,3 +52,12 @@ from . import convert
 from . import observability
 from . import predictor
 from . import serving
+from . import executor
+from . import kvstore
+from . import kvstore as kv
+from . import io
+from . import model
+from . import module
+from . import module as mod
+from . import callback
+from . import monitor

@@ -1,7 +1,7 @@
 """gluon.data datasets (parity: python/mxnet/gluon/data/dataset.py).
 
 ``Dataset``, ``SimpleDataset`` and ``ArrayDataset``.  ``RecordFileDataset``
-needs ``recordio`` and is not ported yet (ROADMAP.md, queue item 3).
+needs ``recordio`` and is not ported yet (ROADMAP.md, queue item 10).
 """
 from __future__ import annotations
 

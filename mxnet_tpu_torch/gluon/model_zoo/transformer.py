@@ -19,9 +19,9 @@ Decoding:
 The KV cell and the beam step re-compose the same sub-blocks and
 parameters as the forward.  The decode-step wrappers are active blocks:
 each traces itself into a Symbol graph once and runs it through its
-``CachedOp``.  The decode-step export needs ``model.save_checkpoint``
-(ROADMAP.md, queue item 3), and the sequence-parallel attention types need
-scale-out (queue item 6); both raise ``NotImplementedError``.
+``CachedOp``.  The decode-step export is not ported yet (ROADMAP.md, queue
+item 10), and the sequence-parallel attention types need scale-out (queue
+item 6); both raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -286,9 +286,9 @@ class TransformerLM(HybridBlock):
 
     def export_decode_step(self, prefix, batch_size=1):
         raise NotImplementedError(
-            "export_decode_step writes the KV cell's graph with "
-            "model.save_checkpoint, which is not ported yet (ROADMAP.md, "
-            "queue item 3: the executor and model checkpoints)")
+            "export_decode_step writes the KV cell's graph as a "
+            "checkpoint; it is not ported yet (ROADMAP.md, queue item 10: "
+            "the rest of the symbolic path)")
 
     @staticmethod
     def _sample(last, temperature, rng, top_k=0, top_p=0.0):

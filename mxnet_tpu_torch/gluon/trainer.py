@@ -1,25 +1,31 @@
 """gluon.Trainer (parity: python/mxnet/gluon/trainer.py:27,108-127,156).
 
 The counterpart of ``mxnet_tpu/gluon/trainer.py`` on one device: it
-applies an Optimizer to a ParameterDict through the per-parameter
-``Updater``.  On one device the JAX package creates no kvstore
-(``mxnet_tpu/model.py:_create_kvstore`` gives none for a kvstore name
-without "dist" or "tpu"), so ``allreduce_grads`` has nothing to reduce and
-``step`` is ``update`` with the gradients rescaled by 1/batch_size.
+applies an Optimizer to a ParameterDict.  The kvstore follows the JAX
+package's rules (``model._create_kvstore``): on one device a kvstore name
+without "dist" or "tpu" gives none, and ``step`` is ``update`` with the
+gradients rescaled by 1/batch_size through the per-parameter ``Updater``;
+a ``KVStore`` instance, or a "tpu"/"nccl" name, gives a one-device store,
+created at the first step, and ``step`` pushes each gradient to it and
+pulls the weight back (``pushpull``): the optimizer runs on the store,
+unless ``update_on_kvstore=False``, where the store only reduces (over one
+device) and the ``Updater`` runs here.
 
 A gradient that no backward has rewritten since the last step raises
 ``UserWarning`` (the reference's stale-gradient error), or with
-``ignore_stale_grad=True`` leaves its parameter out of the update.
+``ignore_stale_grad=True`` leaves its parameter out of the update (the
+kvstore route masks nothing, as in the reference).
 
 Not ported yet, and raising ``NotImplementedError`` that names the item:
-a kvstore object or a distributed kvstore name (ROADMAP.md, queue items
-3 and 6), parameters on several devices (item 6), gradient compression
-and ``save_states`` / ``load_states`` (queue item 4: the JAX package
-pickles its optimizer objects there).
+a distributed kvstore (ROADMAP.md, queue item 6), parameters on several
+devices (item 6), gradient compression and ``save_states`` /
+``load_states`` (queue item 4: the JAX package pickles its optimizer
+objects there).
 """
 from __future__ import annotations
 
 from .. import optimizer as opt
+from ..model import _create_kvstore
 from .parameter import Parameter, ParameterDict
 
 
@@ -40,25 +46,20 @@ class Trainer:
                     "First argument must be a list or dict of Parameters, "
                     f"got list of {type(param)}.")
             self._params.append(param)
-        if kvstore is not None and not (
-                isinstance(kvstore, str) and "dist" not in kvstore
-                and "tpu" not in kvstore):
+        if isinstance(kvstore, str) and "dist" in kvstore:
             raise NotImplementedError(
-                f"Trainer(kvstore={kvstore!r}): kvstores are not ported yet "
-                "(ROADMAP.md, queue item 3: local/device kvstore; item 6: "
-                "distributed)")
+                f"Trainer(kvstore={kvstore!r}): distributed kvstores are not "
+                "ported yet (ROADMAP.md, queue item 6: scale-out)")
         if compression_params:
             raise NotImplementedError(
                 "Trainer(compression_params=...): gradient compression is "
                 "not ported yet (ROADMAP.md, queue item 4: the fused step)")
-        if update_on_kvstore:
-            raise ValueError(
-                "update_on_kvstore=True requires a kvstore, but "
-                f"kvstore={kvstore!r} resolves to none on one device — set "
-                "update_on_kvstore=False or pass a kvstore")
         optimizer_params = optimizer_params or {}
         self._scale = float(optimizer_params.get("rescale_grad", 1.0))
         self._init_optimizer(optimizer, optimizer_params)
+        self._kvstore = kvstore
+        self._update_on_kvstore_arg = update_on_kvstore
+        self._kv_initialized = False
 
     def _init_optimizer(self, optimizer, optimizer_params):
         param_dict = {i: param for i, param in enumerate(self._params)}
@@ -73,6 +74,28 @@ class Trainer:
                                          **optimizer_params)
         self._updater = opt.get_updater(self._optimizer)
 
+    def _init_kvstore(self):
+        """The store by ``_create_kvstore``'s rules, each parameter's weight
+        stored under its index, the optimizer set on it unless
+        ``update_on_kvstore=False``."""
+        kvstore, update_on_kvstore = _create_kvstore(
+            self._kvstore, 1, {p.name: p.data() for p in self._params})
+        if self._update_on_kvstore_arg is not None:
+            update_on_kvstore = bool(self._update_on_kvstore_arg)
+            if update_on_kvstore and kvstore is None:
+                raise ValueError(
+                    "update_on_kvstore=True requires a kvstore, but "
+                    f"kvstore={self._kvstore!r} resolves to none on one "
+                    "device — set update_on_kvstore=False or pass a kvstore")
+        if kvstore is not None:
+            for i, param in enumerate(self._params):
+                kvstore.init(i, param.data())
+            if update_on_kvstore:
+                kvstore.set_optimizer(self._optimizer)
+        self._kv = kvstore
+        self._update_on_kvstore = update_on_kvstore and kvstore is not None
+        self._kv_initialized = True
+
     @property
     def learning_rate(self):
         return self._optimizer.lr_scheduler(self._optimizer.num_update) \
@@ -84,13 +107,37 @@ class Trainer:
     def step(self, batch_size, ignore_stale_grad=False):
         """One optimization step with the gradients scaled by
         1/batch_size."""
+        if not self._kv_initialized:
+            self._init_kvstore()
+        if self._update_on_kvstore:
+            self._optimizer.rescale_grad = self._scale / batch_size
+            # the reference never masks the kvstore's push set
+            live = self._live(ignore_stale_grad, mask=False)
+            self._kv.pushpull([i for i, _ in live],
+                              [p.list_grad() for _, p in live],
+                              out=[p.list_data() for _, p in live])
+            for _, p in live:
+                p.fresh_grad = False
+            return
+        self.allreduce_grads()
         self.update(batch_size, ignore_stale_grad)
 
     def allreduce_grads(self):
-        """Nothing to reduce: the parameters live on one device."""
+        """Reduce each gradient through the kvstore, if there is one (over
+        one device: the gradient itself)."""
+        if not self._kv_initialized:
+            self._init_kvstore()
+        if self._kv is None:
+            return
+        live = [(i, p) for i, p in enumerate(self._params)
+                if p.grad_req != "null"]
+        grads = [p.list_grad() for _, p in live]
+        self._kv.pushpull([i for i, _ in live], grads, out=grads)
 
-    def update(self, batch_size, ignore_stale_grad=False):
-        self._optimizer.rescale_grad = self._scale / batch_size
+    def _live(self, ignore_stale_grad, mask=True):
+        """The (index, parameter) pairs to update.  A stale gradient raises
+        ``UserWarning`` unless ``ignore_stale_grad``, and then leaves its
+        parameter out when ``mask``."""
         live = [(i, p) for i, p in enumerate(self._params)
                 if p.grad_req != "null"]
         for _, p in live:
@@ -100,20 +147,28 @@ class Trainer:
                     "devices: training over several devices is not ported "
                     "yet (ROADMAP.md, queue item 6: scale-out)")
         if ignore_stale_grad:
-            live = [(i, p) for i, p in live if p.fresh_grad]
-        else:
-            for _, p in live:
-                if not p.fresh_grad:
-                    raise UserWarning(
-                        f"Gradient of Parameter `{p.name}` on context "
-                        f"{p.list_ctx()[0]} has not been updated by backward "
-                        "since last `step`. This could mean a bug in your "
-                        "model that made it only use a subset of the "
-                        "Parameters (Blocks) for this iteration. If you are "
-                        "intentionally only using a subset, call step with "
-                        "ignore_stale_grad=True to suppress this warning and "
-                        "skip updating of Parameters with stale gradient")
-        for i, p in live:
+            return [(i, p) for i, p in live if p.fresh_grad or not mask]
+        for _, p in live:
+            if not p.fresh_grad:
+                raise UserWarning(
+                    f"Gradient of Parameter `{p.name}` on context "
+                    f"{p.list_ctx()[0]} has not been updated by backward "
+                    "since last `step`. This could mean a bug in your "
+                    "model that made it only use a subset of the "
+                    "Parameters (Blocks) for this iteration. If you are "
+                    "intentionally only using a subset, call step with "
+                    "ignore_stale_grad=True to suppress this warning and "
+                    "skip updating of Parameters with stale gradient")
+        return live
+
+    def update(self, batch_size, ignore_stale_grad=False):
+        if not self._kv_initialized:
+            self._init_kvstore()
+        if self._update_on_kvstore:
+            raise ValueError("update() when the optimizer runs on the "
+                             "kvstore: call step() instead")
+        self._optimizer.rescale_grad = self._scale / batch_size
+        for i, p in self._live(ignore_stale_grad):
             self._updater(i, p.grad(), p.data())
             p.fresh_grad = False
 

@@ -61,8 +61,21 @@ class Initializer:
             self._init_gamma(desc, arr)
         elif name.endswith("beta"):
             self._init_beta(desc, arr)
+        elif "moving_mean" in name or "running_mean" in name \
+                or "moving_avg" in name:
+            self._init_zero(desc, arr)
+        elif "moving_var" in name or "running_var" in name:
+            self._init_one(desc, arr)
+        elif name.endswith("min") or name.endswith("max"):
+            self._init_zero(desc, arr)
         else:
             self._init_default(desc, arr)
+
+    def _init_zero(self, desc, arr):
+        _fill(arr, 0.0)
+
+    def _init_one(self, desc, arr):
+        _fill(arr, 1.0)
 
     def _init_bias(self, desc, arr):
         _fill(arr, 0.0)

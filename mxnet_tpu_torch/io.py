@@ -1,0 +1,458 @@
+"""Data iterators (parity: python/mxnet/io.py and src/io/).
+
+The counterpart of ``mxnet_tpu/io.py``: ``DataDesc``, ``DataBatch``,
+``DataIter``, ``NDArrayIter``, ``ResizeIter``, ``PrefetchingIter`` (a
+background thread that keeps the next batches ready), ``MNISTIter`` (local
+idx files) and ``CSVIter``.
+
+``NDArrayIter`` keeps the JAX package's order: ``shuffle`` permutes with
+numpy's global RNG, ``last_batch_handle`` is ``pad``, ``discard`` or
+``roll_over``.  A source that is a tensor stays where it is and each batch
+is sliced from it on its device (a view, or a gather for a shuffled or
+wrapped batch): a source resident on the card never goes through the host.
+A numpy source gives CPU tensors, which ``Module`` copies into its bound
+buffers on the card.
+
+Not ported, and raising ``NotImplementedError`` that names the queue item
+(ROADMAP.md): ``ImageRecordIter``, ``ImageDetRecordIter`` and
+``TensorRecordIter`` wait for ``recordio``/``image`` (item 10),
+``LibSVMIter`` for sparse storage (item 6).
+"""
+from __future__ import annotations
+
+import gzip
+import queue
+import struct
+import threading
+from collections import namedtuple
+from typing import List
+
+import numpy as _np
+import torch
+
+from .base import MXNetError, np_dtype
+from .ndarray.ndarray import _from_numpy
+
+DataDesc = namedtuple("DataDesc", ["name", "shape", "dtype", "layout"])
+DataDesc.__new__.__defaults__ = (_np.float32, "NCHW")
+
+
+class DataBatch:
+    """One batch (parity: io.py DataBatch)."""
+
+    def __init__(self, data, label=None, pad=None, index=None,
+                 bucket_key=None, provide_data=None, provide_label=None):
+        if data is not None and not isinstance(data, (list, tuple)):
+            data = [data]
+        if label is not None and not isinstance(label, (list, tuple)):
+            label = [label]
+        self.data = data
+        self.label = label
+        self.pad = pad
+        self.index = index
+        self.bucket_key = bucket_key
+        self.provide_data = provide_data
+        self.provide_label = provide_label
+
+    def __str__(self):
+        data_shapes = [tuple(d.shape) for d in self.data]
+        label_shapes = [tuple(l.shape) for l in self.label] \
+            if self.label else None
+        return f"{self.__class__.__name__}: data shapes: {data_shapes} " \
+               f"label shapes: {label_shapes}"
+
+
+class DataIter:
+    """Base iterator (parity: io.py DataIter)."""
+
+    def __init__(self, batch_size=0):
+        self.batch_size = batch_size
+
+    def __iter__(self):
+        return self
+
+    def reset(self):
+        pass
+
+    def next(self) -> DataBatch:
+        if self.iter_next():
+            return DataBatch(data=self.getdata(), label=self.getlabel(),
+                             pad=self.getpad(), index=self.getindex())
+        raise StopIteration
+
+    def __next__(self):
+        return self.next()
+
+    def iter_next(self) -> bool:
+        raise NotImplementedError
+
+    def getdata(self):
+        raise NotImplementedError
+
+    def getlabel(self):
+        raise NotImplementedError
+
+    def getindex(self):
+        return None
+
+    def getpad(self):
+        raise NotImplementedError
+
+
+def _init_data(data, allow_empty, default_name):
+    """[(name, source)]: tensors stay tensors, the rest becomes numpy."""
+    assert data is not None or allow_empty
+    if data is None:
+        data = []
+    if isinstance(data, (_np.ndarray, torch.Tensor)):
+        data = [data]
+    if isinstance(data, list):
+        if not allow_empty:
+            assert len(data) > 0
+        if len(data) == 1:
+            data = {default_name: data[0]}
+        else:
+            data = {f"_{i}_{default_name}": d for i, d in enumerate(data)}
+    if not isinstance(data, dict):
+        raise MXNetError("Input must be a tensor, numpy.ndarray, list or "
+                         "dict")
+    return [(k, v if isinstance(v, torch.Tensor) else _np.asarray(v))
+            for k, v in data.items()]
+
+
+class NDArrayIter(DataIter):
+    """Iterate over in-memory arrays (parity: io.py:545)."""
+
+    def __init__(self, data, label=None, batch_size=1, shuffle=False,
+                 last_batch_handle="pad", data_name="data",
+                 label_name="softmax_label"):
+        super().__init__(batch_size)
+        self.data = _init_data(data, allow_empty=False, default_name=data_name)
+        self.label = _init_data(label, allow_empty=True,
+                                default_name=label_name)
+        self.idx = _np.arange(self.data[0][1].shape[0])
+        if shuffle:
+            _np.random.shuffle(self.idx)
+        self.shuffle = shuffle
+        self.last_batch_handle = last_batch_handle
+        self.num_data = self.idx.shape[0]
+        if last_batch_handle == "discard":
+            self.num_data = (self.num_data // batch_size) * batch_size
+        assert self.num_data >= batch_size, \
+            "batch_size must be smaller than data size"
+        self.cursor = -batch_size
+        self.batch_size = batch_size
+
+    def _descs(self, sources) -> List[DataDesc]:
+        return [DataDesc(k, (self.batch_size,) + tuple(v.shape[1:]),
+                         np_dtype(v.dtype)) for k, v in sources]
+
+    @property
+    def provide_data(self) -> List[DataDesc]:
+        return self._descs(self.data)
+
+    @property
+    def provide_label(self) -> List[DataDesc]:
+        return self._descs(self.label)
+
+    def hard_reset(self):
+        self.cursor = -self.batch_size
+
+    def reset(self):
+        if self.shuffle:
+            _np.random.shuffle(self.idx)
+        if self.last_batch_handle == "roll_over" and \
+                self.cursor > self.num_data:
+            self.cursor = -self.batch_size + (self.cursor % self.num_data) \
+                % self.batch_size
+        else:
+            self.cursor = -self.batch_size
+
+    def iter_next(self):
+        self.cursor += self.batch_size
+        return self.cursor < self.num_data
+
+    def next(self):
+        if self.iter_next():
+            return DataBatch(data=self.getdata(), label=self.getlabel(),
+                             pad=self.getpad(), index=None,
+                             provide_data=self.provide_data,
+                             provide_label=self.provide_label)
+        raise StopIteration
+
+    def _getdata(self, sources):
+        assert self.cursor < self.num_data, "DataIter needs reset."
+        lo, hi = self.cursor, self.cursor + self.batch_size
+        contiguous = hi <= self.num_data
+        if contiguous:
+            sel = self.idx[lo:hi]
+        else:
+            sel = _np.concatenate([self.idx[lo:],
+                                   self.idx[:hi - self.num_data]])
+        out = []
+        for _, src in sources:
+            if isinstance(src, torch.Tensor):
+                if contiguous and not self.shuffle:
+                    out.append(src[lo:hi])
+                else:
+                    out.append(src.index_select(0, torch.as_tensor(
+                        sel, device=src.device)))
+            else:
+                out.append(_from_numpy(src[sel]))
+        return out
+
+    def getdata(self):
+        return self._getdata(self.data)
+
+    def getlabel(self):
+        return self._getdata(self.label)
+
+    def getpad(self):
+        if self.last_batch_handle == "pad" and \
+                self.cursor + self.batch_size > self.num_data:
+            return self.cursor + self.batch_size - self.num_data
+        return 0
+
+
+class ResizeIter(DataIter):
+    """Resize another iterator to ``size`` batches per epoch (parity:
+    io.py ResizeIter)."""
+
+    def __init__(self, data_iter, size, reset_internal=True):
+        super().__init__(data_iter.batch_size)
+        self.data_iter = data_iter
+        self.size = size
+        self.reset_internal = reset_internal
+        self.cur = 0
+        self.current_batch = None
+        self.provide_data = data_iter.provide_data
+        self.provide_label = data_iter.provide_label
+        if hasattr(data_iter, "default_bucket_key"):
+            self.default_bucket_key = data_iter.default_bucket_key
+
+    def reset(self):
+        self.cur = 0
+        if self.reset_internal:
+            self.data_iter.reset()
+
+    def iter_next(self):
+        if self.cur == self.size:
+            return False
+        try:
+            self.current_batch = self.data_iter.next()
+        except StopIteration:
+            self.data_iter.reset()
+            self.current_batch = self.data_iter.next()
+        self.cur += 1
+        return True
+
+    def getdata(self):
+        return self.current_batch.data
+
+    def getlabel(self):
+        return self.current_batch.label
+
+    def getindex(self):
+        return self.current_batch.index
+
+    def getpad(self):
+        return self.current_batch.pad
+
+
+_END = object()
+
+
+class PrefetchingIter(DataIter):
+    """Read ahead of the consumer in a background thread (parity: io.py
+    PrefetchingIter, src/io/iter_prefetcher.h): up to ``depth`` batches of
+    the wrapped iterator wait in a queue.  An exception in the thread is
+    raised to the consumer.  Copying each batch to a device in the thread
+    (the JAX package's ``device=``) comes with ``prefetch_to_device``
+    (ROADMAP.md, queue item 8)."""
+
+    def __init__(self, iters, rename_data=None, rename_label=None,
+                 depth=2):
+        if not isinstance(iters, list):
+            iters = [iters]
+        if len(iters) != 1:
+            raise MXNetError("PrefetchingIter takes one iterator")
+        self.iter = iters[0]
+        super().__init__(self.iter.batch_size)
+        self.rename_data = rename_data
+        self.rename_label = rename_label
+        self._depth = int(depth)
+        self._thread = None
+        self._start()
+
+    def _renamed(self, descs, rename):
+        if rename is None:
+            return descs
+        return [DataDesc(rename[0].get(d.name, d.name), d.shape, d.dtype)
+                for d in descs]
+
+    @property
+    def provide_data(self):
+        return self._renamed(self.iter.provide_data, self.rename_data)
+
+    @property
+    def provide_label(self):
+        return self._renamed(self.iter.provide_label, self.rename_label)
+
+    def _start(self):
+        self._queue = q = queue.Queue(maxsize=max(self._depth, 1))
+        self._stop = stop = threading.Event()
+        source = self.iter
+
+        def put(item):
+            while not stop.is_set():
+                try:
+                    q.put(item, timeout=0.05)
+                    return True
+                except queue.Full:
+                    continue
+            return False
+
+        def work():
+            try:
+                while True:
+                    try:
+                        batch = source.next()
+                    except StopIteration:
+                        put(_END)
+                        return
+                    if not put(batch):
+                        return
+            except BaseException as e:  # handed to the consumer
+                put(e)
+
+        self._thread = threading.Thread(target=work, daemon=True)
+        self._thread.start()
+
+    def next(self):
+        if self._thread is None:
+            raise StopIteration
+        item = self._queue.get()
+        if item is _END:
+            self.close()
+            raise StopIteration
+        if isinstance(item, BaseException):
+            self.close()
+            raise item
+        return item
+
+    def iter_next(self):
+        raise NotImplementedError
+
+    def reset(self):
+        self.close()
+        self.iter.reset()
+        self._start()
+
+    def close(self):
+        """Stop the thread and drop what it read ahead."""
+        if self._thread is None:
+            return
+        self._stop.set()
+        self._thread.join()
+        self._thread = None
+
+    def __del__(self):
+        try:
+            self.close()
+        except Exception:
+            pass
+
+
+def _read_idx(path):
+    """An idx file (MNIST's format), gzipped or not, as a numpy array."""
+    opener = gzip.open if path.endswith(".gz") else open
+    with opener(path, "rb") as f:
+        data = f.read()
+    dtype_code, ndim = data[2], data[3]
+    dims = struct.unpack(">" + "I" * ndim, data[4:4 + 4 * ndim])
+    dt = {8: _np.uint8, 9: _np.int8, 11: _np.int16, 12: _np.int32,
+          13: _np.float32, 14: _np.float64}[dtype_code]
+    arr = _np.frombuffer(data, _np.dtype(dt).newbyteorder(">"),
+                         offset=4 + 4 * ndim)
+    return arr.astype(dt).reshape(dims)
+
+
+class _Wrapped(DataIter):
+    """An iterator that serves an inner ``NDArrayIter``."""
+
+    @property
+    def provide_data(self):
+        return self._inner.provide_data
+
+    @property
+    def provide_label(self):
+        return self._inner.provide_label
+
+    def reset(self):
+        self._inner.reset()
+
+    def next(self):
+        return self._inner.next()
+
+
+class MNISTIter(_Wrapped):
+    """MNIST idx-format reader over local files (parity:
+    src/io/iter_mnist.cc:260): images scaled to [0, 1], the last partial
+    batch discarded."""
+
+    def __init__(self, image="train-images-idx3-ubyte",
+                 label="train-labels-idx1-ubyte", batch_size=128,
+                 shuffle=True, flat=False, silent=False, seed=0,
+                 input_shape=None, **kwargs):
+        super().__init__(batch_size)
+        imgs = _read_idx(image)
+        labels = _read_idx(label)
+        if flat:
+            imgs = imgs.reshape(imgs.shape[0], -1)
+        else:
+            imgs = imgs.reshape(imgs.shape[0], 1, imgs.shape[1],
+                                imgs.shape[2])
+        imgs = imgs.astype(_np.float32) / 255.0
+        self._inner = NDArrayIter(imgs, labels.astype(_np.float32),
+                                  batch_size=batch_size, shuffle=shuffle,
+                                  last_batch_handle="discard")
+
+
+class CSVIter(_Wrapped):
+    """CSV reader (parity: src/io/iter_csv.cc:151)."""
+
+    def __init__(self, data_csv, data_shape, label_csv=None,
+                 label_shape=(1,), batch_size=1, round_batch=True, **kwargs):
+        super().__init__(batch_size)
+        data = _np.loadtxt(data_csv, delimiter=",", dtype=_np.float32,
+                           ndmin=2)
+        data = data.reshape((-1,) + tuple(data_shape))
+        if label_csv is not None:
+            label = _np.loadtxt(label_csv, delimiter=",", dtype=_np.float32,
+                                ndmin=2)
+            label = label.reshape((-1,) + tuple(label_shape))
+            if label.shape[-1] == 1:
+                label = label.reshape(label.shape[0])
+        else:
+            label = _np.zeros((data.shape[0],), _np.float32)
+        self._inner = NDArrayIter(
+            data, label, batch_size=batch_size,
+            last_batch_handle="pad" if round_batch else "discard")
+
+
+def _not_ported(name, what):
+    def fn(*args, **kwargs):
+        raise NotImplementedError(f"{name}: {what} (ROADMAP.md)")
+    fn.__name__ = name
+    return fn
+
+
+_RECORDIO = "recordio and image decoding are not ported yet (queue item " \
+            "10: the rest of the symbolic path)"
+ImageRecordIter = _not_ported("ImageRecordIter", _RECORDIO)
+ImageDetRecordIter = _not_ported("ImageDetRecordIter", _RECORDIO)
+TensorRecordIter = _not_ported("TensorRecordIter", _RECORDIO)
+LibSVMIter = _not_ported("LibSVMIter", "sparse storage is not ported yet "
+                                       "(queue item 6: scale-out and sparse)")
+
+MXDataIter = DataIter

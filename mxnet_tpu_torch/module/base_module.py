@@ -1,0 +1,358 @@
+"""BaseModule: the high-level train/predict interface (parity:
+python/mxnet/module/base_module.py: fit :376-487, score, predict, the
+forward/backward contract, parameter get/set).
+
+The counterpart of ``mxnet_tpu/module/base_module.py``.  The JAX module's
+flight-recorder, step and trace spans wait for observability (ROADMAP.md,
+queue item 5); ``fit``'s ``checkpoint_dir`` for the checkpoint manager
+(item 4) and ``supervise`` for the training supervisor (item 5).
+"""
+from __future__ import annotations
+
+import logging
+import time
+
+import torch
+
+from .. import metric as _metric
+from .. import ndarray as nd
+from ..context import cpu
+from ..model import BatchEndParam
+
+
+def _check_input_names(symbol, names, typename, throw):
+    args = symbol.list_arguments()
+    for name in names:
+        if name not in args:
+            msg = f"You created Module with Module(..., {typename}_names=" \
+                  f"{names}) but input with name '{name}' is not found in " \
+                  "symbol.list_arguments()."
+            if throw:
+                raise ValueError(msg)
+            logging.warning(msg)
+
+
+def _as_list(obj):
+    if obj is None:
+        return []
+    return obj if isinstance(obj, (list, tuple)) else [obj]
+
+
+class BaseModule:
+    def __init__(self, logger=logging):
+        self.logger = logger
+        self.binded = False
+        self.for_training = False
+        self.inputs_need_grad = False
+        self.params_initialized = False
+        self.optimizer_initialized = False
+        self._symbol = None
+
+    # -- high-level ----------------------------------------------------------
+    def forward_backward(self, data_batch) -> None:
+        self.forward(data_batch, is_train=True)
+        self.backward()
+
+    def score(self, eval_data, eval_metric, num_batch=None,
+              batch_end_callback=None, score_end_callback=None, reset=True,
+              epoch=0):
+        """Run ``eval_metric`` over ``eval_data`` in inference mode;
+        returns its (name, value) pairs."""
+        assert self.binded and self.params_initialized
+        if reset:
+            eval_data.reset()
+        if not isinstance(eval_metric, _metric.EvalMetric):
+            eval_metric = _metric.create(eval_metric)
+        eval_metric.reset()
+        actual_num_batch = 0
+        for nbatch, eval_batch in enumerate(eval_data):
+            if num_batch is not None and nbatch == num_batch:
+                break
+            self.forward(eval_batch, is_train=False)
+            self.update_metric(eval_metric, eval_batch.label)
+            if batch_end_callback is not None:
+                params = BatchEndParam(epoch=epoch, nbatch=nbatch,
+                                       eval_metric=eval_metric,
+                                       locals=locals())
+                for callback in _as_list(batch_end_callback):
+                    callback(params)
+            actual_num_batch += 1
+        if score_end_callback:
+            params = BatchEndParam(epoch=epoch, nbatch=actual_num_batch,
+                                   eval_metric=eval_metric, locals=locals())
+            for callback in _as_list(score_end_callback):
+                callback(params)
+        return eval_metric.get_name_value()
+
+    def iter_predict(self, eval_data, num_batch=None, reset=True):
+        """Yield (outputs without the padded rows, nbatch, batch)."""
+        assert self.binded and self.params_initialized
+        if reset:
+            eval_data.reset()
+        for nbatch, eval_batch in enumerate(eval_data):
+            if num_batch is not None and nbatch == num_batch:
+                break
+            self.forward(eval_batch, is_train=False)
+            pad = eval_batch.pad or 0
+            outputs = [out[0:out.shape[0] - pad] for out in self.get_outputs()]
+            yield (outputs, nbatch, eval_batch)
+
+    def predict(self, eval_data, num_batch=None, merge_batches=True,
+                reset=True, always_output_list=False):
+        """The outputs over ``eval_data`` without the padded rows, each
+        output's batches concatenated (``merge_batches``)."""
+        assert self.binded and self.params_initialized
+        if reset:
+            eval_data.reset()
+        output_list = []
+        for nbatch, eval_batch in enumerate(eval_data):
+            if num_batch is not None and nbatch == num_batch:
+                break
+            self.forward(eval_batch, is_train=False)
+            pad = eval_batch.pad or 0
+            output_list.append([out[0:out.shape[0] - pad].clone()
+                                for out in self.get_outputs()])
+        if len(output_list) == 0:
+            return output_list
+        if merge_batches:
+            num_outputs = len(output_list[0])
+            for out in output_list:
+                if len(out) != num_outputs:
+                    raise ValueError("Cannot merge batches: different number "
+                                     "of outputs")
+            output_list2 = [torch.cat([out[i] for out in output_list])
+                            for i in range(num_outputs)]
+            if num_outputs == 1 and not always_output_list:
+                return output_list2[0]
+            return output_list2
+        return output_list
+
+    def fit(self, train_data, eval_data=None, eval_metric="acc",
+            epoch_end_callback=None, batch_end_callback=None, kvstore="local",
+            optimizer="sgd", optimizer_params=(("learning_rate", 0.01),),
+            eval_end_callback=None, eval_batch_end_callback=None,
+            initializer=None, arg_params=None, aux_params=None,
+            allow_missing=False, force_rebind=False, force_init=False,
+            begin_epoch=0, num_epoch=None, validation_metric=None,
+            monitor=None, checkpoint_dir=None, checkpoint_period=1,
+            checkpoint_max_keep=None, supervise=False):
+        """Train loop (parity: base_module.py:376-487): bind, initialize
+        (an already initialized module keeps its parameters and optimizer),
+        then per epoch forward_backward, update and the metric per batch,
+        the callbacks, and ``score`` on ``eval_data``."""
+        assert num_epoch is not None, "please specify number of epochs"
+        if checkpoint_dir is not None:
+            raise NotImplementedError(
+                "fit(checkpoint_dir=...): the checkpoint manager is not "
+                "ported yet (ROADMAP.md, queue item 4: checkpoints); use "
+                "epoch_end_callback=mx.callback.do_checkpoint(prefix)")
+        if supervise:
+            raise NotImplementedError(
+                "fit(supervise=True): the training supervisor is not ported "
+                "yet (ROADMAP.md, queue item 5: observability and "
+                "resilience)")
+        from ..initializer import Uniform
+        if initializer is None:
+            initializer = Uniform(0.01)
+
+        self.bind(data_shapes=train_data.provide_data,
+                  label_shapes=train_data.provide_label,
+                  for_training=True, force_rebind=force_rebind)
+        if monitor is not None:
+            self.install_monitor(monitor)
+        self.init_params(initializer=initializer, arg_params=arg_params,
+                         aux_params=aux_params, allow_missing=allow_missing,
+                         force_init=force_init)
+        self.init_optimizer(kvstore=kvstore, optimizer=optimizer,
+                            optimizer_params=optimizer_params)
+        if validation_metric is None:
+            validation_metric = eval_metric
+        if not isinstance(eval_metric, _metric.EvalMetric):
+            eval_metric = _metric.create(eval_metric)
+        self._fit_epochs(train_data, eval_data, eval_metric,
+                         validation_metric, epoch_end_callback,
+                         batch_end_callback, eval_end_callback,
+                         eval_batch_end_callback, monitor, begin_epoch,
+                         num_epoch)
+
+    def _fit_epochs(self, train_data, eval_data, eval_metric,
+                    validation_metric, epoch_end_callback,
+                    batch_end_callback, eval_end_callback,
+                    eval_batch_end_callback, monitor, begin_epoch,
+                    num_epoch):
+        for epoch in range(begin_epoch, num_epoch):
+            tic = time.time()
+            eval_metric.reset()
+            nbatch = 0
+            data_iter = iter(train_data)
+            end_of_batch = False
+            next_data_batch = next(data_iter)
+            while not end_of_batch:
+                data_batch = next_data_batch
+                if monitor is not None:
+                    monitor.tic()
+                self.forward_backward(data_batch)
+                self.update()
+                try:
+                    next_data_batch = next(data_iter)
+                    self.prepare(next_data_batch)
+                except StopIteration:
+                    end_of_batch = True
+                self.update_metric(eval_metric, data_batch.label)
+                if monitor is not None:
+                    monitor.toc_print()
+                if batch_end_callback is not None:
+                    batch_end_params = BatchEndParam(
+                        epoch=epoch, nbatch=nbatch, eval_metric=eval_metric,
+                        locals=locals())
+                    for callback in _as_list(batch_end_callback):
+                        callback(batch_end_params)
+                nbatch += 1
+
+            for name, val in eval_metric.get_name_value():
+                self.logger.info("Epoch[%d] Train-%s=%f", epoch, name, val)
+            toc = time.time()
+            self.logger.info("Epoch[%d] Time cost=%.3f", epoch, (toc - tic))
+
+            arg_params_, aux_params_ = self.get_params()
+            self.set_params(arg_params_, aux_params_)
+            if epoch_end_callback is not None:
+                for callback in _as_list(epoch_end_callback):
+                    callback(epoch, self.symbol, arg_params_, aux_params_)
+            if eval_data:
+                res = self.score(eval_data, validation_metric,
+                                 score_end_callback=eval_end_callback,
+                                 batch_end_callback=eval_batch_end_callback,
+                                 epoch=epoch)
+                for name, val in res:
+                    self.logger.info("Epoch[%d] Validation-%s=%f", epoch,
+                                     name, val)
+            train_data.reset()
+
+    def _adopt_existing_bind(self, data_shapes, label_shapes, for_training,
+                             inputs_need_grad=False, grad_req="write"):
+        """A re-bind that matches the current one (data/label names,
+        shapes and dtypes, training mode, inputs_need_grad, grad_req) is a
+        no-op; one that conflicts raises (use ``force_rebind=True``)."""
+        from ..base import np_dtype
+        from ..io import DataDesc
+
+        def norm(descs):
+            out = []
+            for d in (descs or []):
+                d = d if isinstance(d, DataDesc) else DataDesc(*d)
+                out.append((d.name, tuple(d.shape), np_dtype(d.dtype).name))
+            return out
+
+        req = (norm(data_shapes), norm(label_shapes), bool(for_training),
+               bool(inputs_need_grad), grad_req)
+        cur = (norm(self.data_shapes), norm(self.label_shapes),
+               bool(self.for_training), bool(self.inputs_need_grad),
+               getattr(self, "_grad_req", grad_req))
+        if req != cur:
+            raise ValueError(
+                "Module is already bound with (data, label, for_training, "
+                "inputs_need_grad, grad_req)=%s; bind(%s) conflicts. "
+                "Use force_rebind=True." % (cur, req))
+
+    # -- interface to implement ----------------------------------------------
+    @property
+    def symbol(self):
+        return self._symbol
+
+    @property
+    def data_names(self):
+        raise NotImplementedError
+
+    @property
+    def output_names(self):
+        raise NotImplementedError
+
+    @property
+    def data_shapes(self):
+        raise NotImplementedError
+
+    @property
+    def label_shapes(self):
+        raise NotImplementedError
+
+    @property
+    def output_shapes(self):
+        raise NotImplementedError
+
+    def get_params(self):
+        raise NotImplementedError
+
+    def init_params(self, initializer=None, arg_params=None, aux_params=None,
+                    allow_missing=False, force_init=False, allow_extra=False):
+        raise NotImplementedError
+
+    def set_params(self, arg_params, aux_params, allow_missing=False,
+                   force_init=True, allow_extra=False):
+        self.init_params(initializer=None, arg_params=arg_params,
+                         aux_params=aux_params, allow_missing=allow_missing,
+                         force_init=force_init, allow_extra=allow_extra)
+
+    def save_params(self, fname):
+        """Write the parameters to one ``nd.save`` file, ``arg:``/``aux:``
+        keys."""
+        arg_params, aux_params = self.get_params()
+        save_dict = {f"arg:{k}": v for k, v in arg_params.items()}
+        save_dict.update({f"aux:{k}": v for k, v in aux_params.items()})
+        nd.save(fname, save_dict)
+
+    def load_params(self, fname):
+        """Read a ``save_params`` file (through host tensors) and set the
+        parameters."""
+        save_dict = nd.load(fname, ctx=cpu())
+        arg_params, aux_params = {}, {}
+        for k, value in save_dict.items():
+            arg_type, _, name = k.partition(":")
+            if arg_type == "arg":
+                arg_params[name] = value
+            elif arg_type == "aux":
+                aux_params[name] = value
+            else:
+                raise ValueError(f"Invalid param file {fname}")
+        self.set_params(arg_params, aux_params)
+
+    def get_states(self, merge_multi_context=True):
+        assert self.binded and self.params_initialized
+        return []
+
+    def set_states(self, states=None, value=None):
+        assert self.binded and self.params_initialized
+
+    def install_monitor(self, mon):
+        raise NotImplementedError
+
+    def prepare(self, data_batch):
+        pass
+
+    def forward(self, data_batch, is_train=None):
+        raise NotImplementedError
+
+    def backward(self, out_grads=None):
+        raise NotImplementedError
+
+    def get_outputs(self, merge_multi_context=True):
+        raise NotImplementedError
+
+    def get_input_grads(self, merge_multi_context=True):
+        raise NotImplementedError
+
+    def update(self):
+        raise NotImplementedError
+
+    def update_metric(self, eval_metric, labels):
+        raise NotImplementedError
+
+    def bind(self, data_shapes, label_shapes=None, for_training=True,
+             inputs_need_grad=False, force_rebind=False, shared_module=None,
+             grad_req="write"):
+        raise NotImplementedError
+
+    def init_optimizer(self, kvstore="local", optimizer="sgd",
+                       optimizer_params=(("learning_rate", 0.01),),
+                       force_init=False):
+        raise NotImplementedError

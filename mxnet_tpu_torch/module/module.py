@@ -1,0 +1,453 @@
+"""Module: the intermediate-level training API over one executor (parity:
+python/mxnet/module/module.py:39; the kvstore wiring of model.py:97-138).
+
+The counterpart of ``mxnet_tpu/module/module.py`` on one context, by
+default the current one (``gpu(0)``; the JAX module defaults to the CPU).
+``bind`` infers every argument's and aux state's shape and dtype from the
+data and label descriptions (bf16 data gives bf16 weights and float32
+BatchNorm statistics, as in the JAX package) and allocates them, with
+their gradient buffers, on that device; ``init_params`` draws the weights
+in the JAX module's order, so one seed gives the same weights in both
+packages.  Each batch is copied into the bound input tensors.  ``update``
+goes through the kvstore (``pushpull``, update on the store) or the
+per-parameter ``Updater``, by ``model._create_kvstore``'s rules.
+
+Not ported, and raising ``NotImplementedError`` that names the queue item
+(ROADMAP.md): more than one context, ``group2ctxs`` and sparse gradients
+(item 6); the ``MXNET_FUSED_STEP`` single-program step and the
+optimizer-state files (item 4).
+"""
+from __future__ import annotations
+
+import logging
+
+import torch
+
+from .. import optimizer as opt
+from ..base import getenv
+from ..context import Context, current_context
+from ..initializer import InitDesc, Uniform
+from ..io import DataDesc
+from ..model import _create_kvstore, load_checkpoint, save_checkpoint
+from .base_module import BaseModule, _check_input_names
+
+_ITEM6 = "not ported yet (ROADMAP.md, queue item 6: scale-out and sparse)"
+
+
+def _desc(d):
+    return d if isinstance(d, DataDesc) else DataDesc(*d)
+
+
+class Module(BaseModule):
+    def __init__(self, symbol, data_names=("data",),
+                 label_names=("softmax_label",), logger=logging, context=None,
+                 work_load_list=None, fixed_param_names=None,
+                 state_names=None, group2ctxs=None, compression_params=None):
+        super().__init__(logger=logger)
+        if context is None:
+            context = current_context()
+        if isinstance(context, Context):
+            context = [context]
+        if len(context) > 1:
+            raise NotImplementedError(
+                f"Module over {len(context)} contexts: data parallelism is "
+                f"{_ITEM6}")
+        if group2ctxs:
+            raise NotImplementedError(f"Module(group2ctxs=...): model "
+                                      f"parallelism is {_ITEM6}")
+        self._context = context
+        self._symbol = symbol
+        data_names = list(data_names) if data_names is not None else []
+        label_names = list(label_names) if label_names is not None else []
+        state_names = list(state_names) if state_names is not None else []
+        fixed_param_names = list(fixed_param_names) if fixed_param_names \
+            is not None else []
+        _check_input_names(symbol, data_names, "data", True)
+        _check_input_names(symbol, label_names, "label", False)
+        _check_input_names(symbol, state_names, "state", True)
+        _check_input_names(symbol, fixed_param_names, "fixed_param", True)
+        arg_names = symbol.list_arguments()
+        input_names = data_names + label_names + state_names
+        self._param_names = [x for x in arg_names if x not in input_names]
+        self._fixed_param_names = fixed_param_names
+        self._aux_names = symbol.list_auxiliary_states()
+        self._data_names = data_names
+        self._label_names = label_names
+        self._state_names = state_names
+        self._output_names = symbol.list_outputs()
+        self._arg_params = None
+        self._aux_params = None
+        self._params_dirty = False
+        self._compression_params = compression_params
+        self._optimizer = None
+        self._kvstore = None
+        self._update_on_kvstore = None
+        self._updater = None
+        self._exec = None
+        self._data_shapes = None
+        self._label_shapes = None
+        self._grad_req = "write"
+
+    @staticmethod
+    def load(prefix, epoch, load_optimizer_states=False, **kwargs):
+        """A Module over the checkpoint's symbol, its parameters set when it
+        is bound and initialized."""
+        if load_optimizer_states:
+            raise NotImplementedError(
+                "Module.load(load_optimizer_states=True): optimizer-state "
+                "files are not ported yet (ROADMAP.md, queue item 4)")
+        sym, args, auxs = load_checkpoint(prefix, epoch)
+        mod = Module(symbol=sym, **kwargs)
+        mod._arg_params = args
+        mod._aux_params = auxs
+        mod.params_initialized = True
+        return mod
+
+    def save_checkpoint(self, prefix, epoch, save_optimizer_states=False,
+                        reference_format=False):
+        save_checkpoint(prefix, epoch, self.symbol, *self.get_params(),
+                        reference_format=reference_format)
+        if save_optimizer_states:
+            self.save_optimizer_states(f"{prefix}-{epoch:04d}.states")
+
+    # -- shapes ---------------------------------------------------------------
+    @property
+    def data_names(self):
+        return self._data_names
+
+    @property
+    def label_names(self):
+        return self._label_names
+
+    @property
+    def output_names(self):
+        return self._output_names
+
+    @property
+    def data_shapes(self):
+        assert self.binded
+        return self._data_shapes
+
+    @property
+    def label_shapes(self):
+        assert self.binded
+        return self._label_shapes
+
+    @property
+    def output_shapes(self):
+        assert self.binded
+        if self._exec._outputs is not None:
+            return [(n, tuple(o.shape)) for n, o in
+                    zip(self._output_names, self._exec.outputs)]
+        shapes = {d.name: d.shape
+                  for d in self._data_shapes + self._label_shapes}
+        _, out_shapes, _ = self._symbol.infer_shape(**shapes)
+        return list(zip(self._output_names, out_shapes))
+
+    # -- params ---------------------------------------------------------------
+    def get_params(self):
+        """(arg_params, aux_params): copies of the bound parameters, taken
+        when they have changed since the last call."""
+        assert self.params_initialized
+        if self._params_dirty:
+            self._sync_params_from_devices()
+        return (self._arg_params, self._aux_params)
+
+    def init_params(self, initializer=Uniform(0.01), arg_params=None,
+                    aux_params=None, allow_missing=False, force_init=False,
+                    allow_extra=False):
+        """Initialize the parameters, ``_param_names`` first, then the aux
+        states in sorted order, each by ``initializer(InitDesc(name,
+        attrs), tensor)`` unless ``arg_params``/``aux_params`` give it."""
+        if self.params_initialized and not force_init:
+            return
+        assert self.binded, "call bind before initializing the parameters"
+        ex = self._exec
+        if self._arg_params is None:
+            self._arg_params = {
+                name: torch.zeros_like(arr) for name, arr in
+                ex.arg_dict.items() if name in self._param_names}
+        if self._aux_params is None:
+            self._aux_params = {name: torch.zeros_like(arr)
+                                for name, arr in ex.aux_dict.items()}
+        attrs = self._symbol.attr_dict()
+
+        def _impl(name, arr, cache):
+            if cache is not None and name in cache:
+                if cache[name] is not arr:
+                    arr.copy_(cache[name])
+            elif not allow_missing and cache is not None:
+                raise RuntimeError(f"{name} is not presented")
+            elif initializer is not None:
+                initializer(InitDesc(name, attrs.get(name)), arr)
+
+        with torch.no_grad():
+            for name in self._param_names:
+                _impl(name, self._arg_params[name], arg_params)
+            for name, arr in sorted(self._aux_params.items()):
+                _impl(name, arr, aux_params)
+        self.params_initialized = True
+        self._params_dirty = False
+        ex.copy_params_from(self._arg_params, self._aux_params,
+                            allow_extra_params=True)
+
+    def set_params(self, arg_params, aux_params, allow_missing=False,
+                   force_init=True, allow_extra=False):
+        if not allow_missing:
+            self.init_params(initializer=None, arg_params=arg_params,
+                             aux_params=aux_params,
+                             allow_missing=allow_missing,
+                             force_init=force_init, allow_extra=allow_extra)
+            return
+        if self.params_initialized and not force_init:
+            return
+        self._exec.copy_params_from(arg_params, aux_params,
+                                    allow_extra_params=True)
+        self.params_initialized = True
+        self._params_dirty = True
+
+    def _sync_params_from_devices(self):
+        """Copy the bound parameters into ``_arg_params``/``_aux_params``
+        (the optimizer updates the bound ones in place)."""
+        with torch.no_grad():
+            for name in self._param_names:
+                self._arg_params[name].copy_(self._exec.arg_dict[name])
+            for name, arr in self._exec.aux_dict.items():
+                self._aux_params[name].copy_(arr)
+        self._params_dirty = False
+
+    # -- bind -----------------------------------------------------------------
+    def bind(self, data_shapes, label_shapes=None, for_training=True,
+             inputs_need_grad=False, force_rebind=False, shared_module=None,
+             grad_req="write"):
+        """Infer shapes and dtypes from ``data_shapes``/``label_shapes``
+        (DataDescs or (name, shape) pairs), allocate the arguments, their
+        gradient buffers and the aux states on the context, and build the
+        executor.  Without CUDA a ``gpu`` context raises ``MXNetError``."""
+        from ..executor import Executor
+        from ..ndarray import zeros
+        if force_rebind:
+            self._exec = None
+            self.binded = False
+        if self.binded:
+            self._adopt_existing_bind(data_shapes, label_shapes,
+                                      for_training, inputs_need_grad,
+                                      grad_req)
+            return
+        self.for_training = for_training
+        self.inputs_need_grad = inputs_need_grad
+        self._grad_req = grad_req
+        assert not for_training or label_shapes is not None or \
+            not self._label_names
+        self._data_shapes = [_desc(d) for d in data_shapes]
+        self._label_shapes = [_desc(d) for d in label_shapes] \
+            if label_shapes else []
+        descs = self._data_shapes + self._label_shapes
+        arg_shapes, _, aux_shapes = self._symbol.infer_shape(
+            **{d.name: tuple(d.shape) for d in descs})
+        arg_types, _, aux_types = self._symbol.infer_type(
+            **{d.name: d.dtype for d in descs})
+        ctx = self._context[0]
+        shared_args = shared_module._exec.arg_dict if shared_module else {}
+        shared_aux = shared_module._exec.aux_dict if shared_module else {}
+
+        def alloc(shared, name, shp, dt):
+            if name in shared and tuple(shared[name].shape) == tuple(shp):
+                return shared[name]
+            return zeros(shp, ctx=ctx, dtype=dt)
+
+        args, grads, reqs = {}, {}, {}
+        for name, shp, dt in zip(self._symbol.list_arguments(), arg_shapes,
+                                 arg_types):
+            args[name] = alloc(shared_args, name, shp, dt)
+            if not for_training:
+                reqs[name] = "null"
+            elif name in self._data_names or name in self._label_names \
+                    or name in self._state_names:
+                reqs[name] = "write" if inputs_need_grad and \
+                    name in self._data_names else "null"
+            elif name in self._fixed_param_names:
+                reqs[name] = "null"
+            else:
+                reqs[name] = grad_req if isinstance(grad_req, str) else \
+                    grad_req.get(name, "write")
+            if reqs[name] != "null":
+                grads[name] = zeros(shp, ctx=ctx, dtype=dt)
+        aux = {name: alloc(shared_aux, name, shp, dt) for name, shp, dt in
+               zip(self._aux_names, aux_shapes, aux_types)}
+        self._exec = Executor(self._symbol, ctx, args, grads, reqs, aux)
+        sparse = [s.in_refs[1][1] for s in self._exec._plan.steps
+                  if s.op.name == "Embedding" and s.params.get("sparse_grad")
+                  and reqs.get(s.in_refs[1][1], "null") != "null"]
+        if sparse:
+            self._exec = None
+            raise NotImplementedError(
+                f"Module: row-sparse gradients of {sparse} "
+                f"(Embedding(sparse_grad=True)) are {_ITEM6}")
+        self.binded = True
+        if shared_module is not None and shared_module.params_initialized:
+            self.set_params(*shared_module.get_params())
+        elif self.params_initialized:       # Module.load, or a rebind
+            self._exec.copy_params_from(self._arg_params, self._aux_params,
+                                        allow_extra_params=True)
+
+    # -- optimizer ------------------------------------------------------------
+    def init_optimizer(self, kvstore="local", optimizer="sgd",
+                       optimizer_params=(("learning_rate", 0.01),),
+                       force_init=False):
+        """The optimizer with ``rescale_grad = 1/batch`` and the graph's
+        lr/wd multipliers, and the kvstore by ``_create_kvstore``: with a
+        store that updates, the optimizer runs on ``pushpull``; otherwise
+        the per-parameter ``Updater`` runs in ``update``."""
+        assert self.binded and self.params_initialized
+        if self.optimizer_initialized and not force_init:
+            self.logger.debug("optimizer already initialized, adopting")
+            return
+        if getenv("MXNET_FUSED_STEP", 0):
+            raise NotImplementedError(
+                "MXNET_FUSED_STEP=1: the single-program training step and "
+                "FusedUpdater are not ported yet (ROADMAP.md, queue item 4: "
+                "the fused step)")
+        if self._params_dirty:
+            self._sync_params_from_devices()
+        kvstore, update_on_kvstore = _create_kvstore(
+            kvstore, len(self._context),
+            {n: self._exec.arg_dict[n] for n in self._param_names})
+        batch_size = self._data_shapes[0].shape[0]
+        if kvstore and "dist" in kvstore.type and "_sync" in kvstore.type:
+            batch_size *= kvstore.num_workers
+        rescale_grad = 1.0 / batch_size
+
+        idx2name = {i: n for i, n in enumerate(self._param_names)}
+        if isinstance(optimizer, str):
+            optimizer_params = dict(optimizer_params)
+            if "rescale_grad" not in optimizer_params:
+                optimizer_params["rescale_grad"] = rescale_grad
+            optimizer = opt.create(optimizer, sym=self.symbol,
+                                   param_idx2name=idx2name,
+                                   **optimizer_params)
+        else:
+            assert isinstance(optimizer, opt.Optimizer)
+            if optimizer.rescale_grad != rescale_grad:
+                self.logger.warning(
+                    "Optimizer created manually outside Module but "
+                    "rescale_grad is not normalized to 1.0/batch_size/"
+                    f"num_workers ({rescale_grad} vs. "
+                    f"{optimizer.rescale_grad}). Is this intended?")
+            if not optimizer.idx2name:
+                optimizer.idx2name = idx2name.copy()
+
+        self._optimizer = optimizer
+        self._kvstore = kvstore
+        self._update_on_kvstore = update_on_kvstore
+        self._updater = None
+        if kvstore:
+            if self._compression_params:
+                kvstore.set_gradient_compression(self._compression_params)
+            for name in self._param_names:
+                kvstore.init(name, self._exec.arg_dict[name])
+            if update_on_kvstore:
+                kvstore.set_optimizer(self._optimizer)
+        if not update_on_kvstore:
+            self._updater = opt.get_updater(optimizer)
+        self.optimizer_initialized = True
+
+    # -- compute --------------------------------------------------------------
+    def _set_batch(self, data_batch, is_train):
+        """Copy the batch into the bound input tensors; a batch of another
+        size replaces them with its own copy (a partial last batch)."""
+        feeds = list(zip(self._data_names, data_batch.data))
+        if is_train and data_batch.label:
+            feeds += [(n, a) for n, a in zip(self._label_names,
+                                             data_batch.label)
+                      if n in self._exec.arg_dict]
+        self._exec._load(dict(feeds))
+
+    def forward(self, data_batch, is_train=None):
+        assert self.binded and self.params_initialized
+        if is_train is None:
+            is_train = self.for_training
+        self._set_batch(data_batch, is_train or bool(data_batch.label))
+        self._exec.forward(is_train=is_train)
+
+    def backward(self, out_grads=None):
+        assert self.binded and self.params_initialized
+        self._exec.backward(out_grads=out_grads)
+
+    def forward_backward(self, data_batch):
+        """One training step's forward and backward on ``data_batch``."""
+        assert self.binded and self.params_initialized
+        self._set_batch(data_batch, True)
+        self._exec.forward_backward()
+
+    def update(self):
+        """Apply the optimizer to every parameter with a gradient (parity:
+        _update_params_on_kvstore / _update_params, model.py:97-138)."""
+        assert self.binded and self.params_initialized and \
+            self.optimizer_initialized
+        self._params_dirty = True
+        live = [(i, n) for i, n in enumerate(self._param_names)
+                if n in self._exec.grad_dict]
+        names = [n for _, n in live]
+        grads = [self._exec.grad_dict[n] for n in names]
+        if self._kvstore is not None:
+            if self._update_on_kvstore:
+                self._kvstore.pushpull(
+                    names, [[g] for g in grads],
+                    out=[[self._exec.arg_dict[n]] for n in names])
+                return
+            aggs = [torch.zeros_like(g) for g in grads]
+            self._kvstore.pushpull(names, [[g] for g in grads],
+                                   out=[[a] for a in aggs])
+            grads = aggs
+        for (i, n), g in zip(live, grads):
+            self._updater(i, g, self._exec.arg_dict[n])
+
+    def get_outputs(self, merge_multi_context=True):
+        assert self.binded and self.params_initialized
+        return self._exec.outputs
+
+    def get_input_grads(self, merge_multi_context=True):
+        assert self.binded and self.params_initialized and \
+            self.inputs_need_grad
+        return [self._exec.grad_dict[n] for n in self._data_names]
+
+    def update_metric(self, eval_metric, labels):
+        eval_metric.update_dict(
+            dict(zip(self._label_names, labels or [])),
+            dict(zip(self._output_names, self.get_outputs())))
+
+    def install_monitor(self, mon):
+        assert self.binded
+        mon.install(self._exec)
+
+    def save_optimizer_states(self, fname):
+        raise NotImplementedError(
+            "Module.save_optimizer_states: optimizer-state files are not "
+            "ported yet (ROADMAP.md, queue item 4: the fused step and "
+            "checkpoints)")
+
+    def load_optimizer_states(self, fname):
+        raise NotImplementedError(
+            "Module.load_optimizer_states: optimizer-state files are not "
+            "ported yet (ROADMAP.md, queue item 4: the fused step and "
+            "checkpoints)")
+
+    def reshape(self, data_shapes, label_shapes=None):
+        """Rebind for new input shapes, sharing the tensors whose shapes
+        are unchanged (the parameters)."""
+        assert self.binded
+        self._data_shapes = [_desc(d) for d in data_shapes]
+        self._label_shapes = [_desc(d) for d in label_shapes] \
+            if label_shapes else []
+        self._exec = self._exec.reshape(
+            **{d.name: tuple(d.shape)
+               for d in self._data_shapes + self._label_shapes})
+
+    def borrow_optimizer(self, shared_module):
+        assert shared_module.optimizer_initialized
+        self._optimizer = shared_module._optimizer
+        self._kvstore = shared_module._kvstore
+        self._update_on_kvstore = shared_module._update_on_kvstore
+        self._updater = shared_module._updater
+        self.optimizer_initialized = True

@@ -1,5 +1,5 @@
 """Elementwise operators: the unary table, binary broadcast ops, their
-scalar variants and ``Cast``.
+scalar variants, ``Cast``, ``BlockGrad`` and ``make_loss``.
 
 The counterpart of part of ``mxnet_tpu/ops/elemwise.py``: the unary table
 (``floor`` among it, which beam search uses), binary broadcast ops with
@@ -113,6 +113,17 @@ for _name, _f in _UNARY.items():
         (lambda f: lambda p, x: f(x))(_f))
 
 register("softrelu", input_names=("data",))(lambda p, x: _softrelu(x))
+
+
+@register("BlockGrad", input_names=("data",), aliases=("stop_gradient",))
+def _block_grad(p, x):
+    """Parity: src/operator/tensor/elemwise_unary_op.cc BlockGrad."""
+    return x.detach()
+
+
+@register("make_loss", input_names=("data",))
+def _make_loss_op(p, x):
+    return x
 
 def _bool_out(f):
     return lambda a, b: f(a, b).to(torch.result_type(a, b))

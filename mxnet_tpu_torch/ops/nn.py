@@ -2,8 +2,10 @@
 
 ``FullyConnected``, ``Convolution``, ``Deconvolution``, ``Pooling``,
 ``BatchNorm``, ``LayerNorm``, ``InstanceNorm``, ``LRN``, ``Activation``,
-``LeakyReLU``, ``Dropout``, ``UpSampling`` and ``softmax`` /
-``log_softmax`` with ``temperature``.  What the JAX package left to XLA
+``LeakyReLU``, ``Dropout``, ``UpSampling``, ``softmax`` /
+``log_softmax`` with ``temperature``, and the loss outputs
+(``SoftmaxOutput``, the three ``*RegressionOutput``s, ``MakeLoss``) as
+``torch.autograd.Function``s with MXNet's folded gradients.  What the JAX package left to XLA
 goes to PyTorch's own ops: a dense product to ``torch.matmul`` (cuBLAS on
 the card), convolutions and pooling to ``torch.nn.functional`` (cuDNN),
 batch normalisation to ``F.batch_norm``.  The layout is NCHW: the JAX
@@ -318,3 +320,133 @@ def _upsampling(p, *xs):
         outs = [F.interpolate(x, scale_factor=s, mode="bilinear",
                               align_corners=False) for x in xs]
     return outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
+
+
+# ---------------------------------------------------------------------------
+# Loss-output ops with MXNet's folded gradient (parity: the JAX package's
+# jax.custom_vjp definitions, mxnet_tpu/ops/nn.py:473-586)
+# ---------------------------------------------------------------------------
+def _softmax_output_fwd(p, x):
+    if p["multi_output"]:
+        return torch.softmax(x, dim=1)
+    if p["preserve_shape"]:
+        return torch.softmax(x, dim=-1)
+    return torch.softmax(x.reshape(x.shape[0], -1), dim=-1).reshape(x.shape)
+
+
+class _SoftmaxOutputFn(torch.autograd.Function):
+    """Forward: the softmax in the input's dtype.  Backward:
+    ``(softmax - onehot(label)) * grad_scale``, rows whose label is
+    ``ignore_label`` zeroed under ``use_ignore``, divided by the batch or
+    by the valid rows under ``normalization``; the head gradient is
+    ignored unless ``out_grad``, and the label gets a zero gradient.  The
+    one-hot is never built: each row's label entry is decremented in place
+    (a label out of range subtracts nothing, as ``jax.nn.one_hot`` gives
+    it a zero row)."""
+
+    @staticmethod
+    def forward(ctx, data, label, p):
+        out = _softmax_output_fwd(p, data)
+        ctx.save_for_backward(out, label)
+        ctx.p = p
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        out, label = ctx.saved_tensors
+        p = ctx.p
+        ax = 1 if p["multi_output"] else out.dim() - 1
+        nclass = out.shape[ax]
+        lab = label.to(torch.int64)
+        hit = ((lab >= 0) & (lab < nclass)).to(out.dtype)
+        grad = out.clone()
+        grad.scatter_add_(ax, lab.clamp(0, nclass - 1).unsqueeze(ax),
+                          -hit.unsqueeze(ax))
+        valid = torch.ones_like(lab, dtype=out.dtype)
+        if p["use_ignore"]:
+            valid = (lab != int(p["ignore_label"])).to(out.dtype)
+            grad = grad * valid.unsqueeze(ax)
+        scale = p["grad_scale"]
+        if p["normalization"] == "batch":
+            scale = scale / out.shape[0]
+        elif p["normalization"] == "valid":
+            scale = scale / torch.clamp(valid.sum(), min=1.0)
+        grad = grad * scale
+        if p["out_grad"]:
+            grad = grad * g
+        return grad.to(out.dtype), torch.zeros_like(label), None
+
+
+@register("SoftmaxOutput", input_names=("data", "label"), aliases=("Softmax",),
+          f32_inputs=(1,),
+          args=[Arg("grad_scale", float, 1.0), Arg("ignore_label", float, -1.0),
+                Arg("multi_output", bool, False), Arg("use_ignore", bool, False),
+                Arg("preserve_shape", bool, False),
+                Arg("normalization", str, "null"),
+                Arg("out_grad", bool, False), Arg("smooth_alpha", float, 0.0)])
+def _softmax_output(p, data, label):
+    """Parity: src/operator/softmax_output-inl.h.  ``smooth_alpha`` is
+    accepted and unused, as in the JAX package."""
+    return _SoftmaxOutputFn.apply(data, label, dict(p))
+
+
+class _RegressionFn(torch.autograd.Function):
+    """Forward ``fwd(data)``; backward ``bwd(out, label) * grad_scale /
+    num_output`` (the label's size per sample), the head gradient
+    ignored, the label's gradient zero."""
+
+    @staticmethod
+    def forward(ctx, data, label, fwd, bwd, scale):
+        out = fwd(data)
+        ctx.save_for_backward(out, label)
+        ctx.bwd, ctx.scale = bwd, scale
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        out, label = ctx.saved_tensors
+        num_output = math.prod(label.shape[1:])
+        grad = ctx.bwd(out, label.reshape(out.shape)) * (ctx.scale / num_output)
+        return grad.to(out.dtype), torch.zeros_like(label), None, None, None
+
+
+def _make_regression(name, fwd, bwd):
+    @register(name, input_names=("data", "label"),
+              args=[Arg("grad_scale", float, 1.0)])
+    def op(p, data, label):
+        """Parity: src/operator/regression_output-inl.h:75-97."""
+        return _RegressionFn.apply(data, label, fwd, bwd, p["grad_scale"])
+    return op
+
+
+_make_regression("LinearRegressionOutput", lambda x: x, lambda o, l: o - l)
+_make_regression("LogisticRegressionOutput", torch.sigmoid,
+                 lambda o, l: o - l)
+_make_regression("MAERegressionOutput", lambda x: x,
+                 lambda o, l: torch.sign(o - l))
+
+
+class _MakeLossFn(torch.autograd.Function):
+    """The identity forward; the backward a constant ``grad_scale`` (over
+    the batch under ``normalization="batch"``), the head gradient
+    ignored."""
+
+    @staticmethod
+    def forward(ctx, data, scale):
+        ctx.scale = scale
+        return data.view_as(data)
+
+    @staticmethod
+    def backward(ctx, g):
+        return torch.full_like(g, ctx.scale), None
+
+
+@register("MakeLoss", input_names=("data",),
+          args=[Arg("grad_scale", float, 1.0), Arg("valid_thresh", float, 0.0),
+                Arg("normalization", str, "null")])
+def _make_loss_legacy(p, data):
+    """Parity: src/operator/make_loss.cc."""
+    scale = p["grad_scale"]
+    if p["normalization"] == "batch":
+        scale = scale / data.shape[0]
+    return _MakeLossFn.apply(data, scale)

@@ -4,7 +4,8 @@ The counterpart of ``mxnet_tpu/optimizer.py``: ``Optimizer`` (learning
 rate and its scheduler, weight decay, ``rescale_grad``, ``clip_gradient``,
 per-parameter ``lr_mult`` / ``wd_mult``, per-index update counts,
 ``multi_precision`` with float32 master weights for bfloat16 and float16
-weights), ``SGD`` and ``Adam``, which step through the update ops of
+weights, the multipliers a Module's graph carries, ``sym=``), ``SGD`` and
+``Adam``, which step through the update ops of
 ``ops/optimizer_ops.py`` in place, one parameter at a time, and the
 per-parameter ``Updater``.
 
@@ -41,10 +42,6 @@ class Optimizer:
                  clip_gradient=None, learning_rate=0.01, lr_scheduler=None,
                  sym=None, begin_num_update=0, multi_precision=False,
                  param_dict=None):
-        if sym is not None:
-            raise NotImplementedError(
-                "Optimizer(sym=...) reads lr/wd multipliers from a Module's "
-                "graph; Module is not ported yet (ROADMAP.md, queue item 3)")
         self.rescale_grad = rescale_grad
         self.lr = learning_rate
         self.lr_scheduler = lr_scheduler
@@ -59,6 +56,9 @@ class Optimizer:
         self.clip_gradient = clip_gradient
         self.multi_precision = multi_precision
         self.idx2name = dict(param_idx2name or {})
+        # the graph's __lr_mult__/__wd_mult__ attributes (a Module's symbol)
+        self.sym_info = (sym.attr_dict(), sym.list_arguments()) \
+            if sym is not None else ({}, [])
         self.param_dict = param_dict or {}
         self.set_lr_mult({})
         self.set_wd_mult({})
@@ -101,14 +101,26 @@ class Optimizer:
             raise MXNetError("lr_scheduler is set; cannot set lr directly")
         self.lr = lr
 
+    def _sym_mults(self, key):
+        attr, arg_names = self.sym_info
+        return {n: float(attr[n][key]) for n in arg_names
+                if key in attr.get(n, {})}
+
     def set_lr_mult(self, args_lr_mult):
-        self.lr_mult = dict(args_lr_mult)
+        """Per-parameter lr multipliers: the graph's ``__lr_mult__``, then
+        ``args_lr_mult``."""
+        self.lr_mult = self._sym_mults("__lr_mult__")
+        self.lr_mult.update(args_lr_mult)
 
     def set_wd_mult(self, args_wd_mult):
+        """Per-parameter wd multipliers: 0 for a name that ends in neither
+        ``_weight`` nor ``_gamma``, then the graph's ``__wd_mult__``, then
+        ``args_wd_mult``."""
         self.wd_mult = {}
         for n in self.idx2name.values():
             if not (n.endswith("_weight") or n.endswith("_gamma")):
                 self.wd_mult[n] = 0.0
+        self.wd_mult.update(self._sym_mults("__wd_mult__"))
         self.wd_mult.update(args_wd_mult)
 
     def _update_count(self, index):

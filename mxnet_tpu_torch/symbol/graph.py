@@ -12,11 +12,12 @@ kernel launches (the JAX package traces with ``jax.eval_shape`` instead).
 Parameter-shape hooks reproduce the reference ops' InferShape for
 auto-created weights (the FullyConnected weight from ``num_hidden`` and the
 data's trailing width, src/operator/nn/fully_connected-inl.h; convolution
-weights, BatchNorm's four per-channel vectors), for the ops the port has.
+weights, BatchNorm's four per-channel vectors) and the loss outputs'
+labels, for the ops the port has.
 
 Not ported: the channels-last layout pass (TPU only), per-layer profiler
 scopes (``introspect``, ROADMAP item 5), the RNN parameter hook (item 7)
-and ``segments > 1`` (rematerialised training segments, item 3).
+and ``segments > 1`` (rematerialised training segments, item 10).
 """
 from __future__ import annotations
 
@@ -85,7 +86,25 @@ def _emb_hook(p, shp):
     return {1: (p["input_dim"], p["output_dim"])}
 
 
+def _softmax_output_hook(p, shp):
+    """The label's shape from the data's (src/operator/softmax_output-inl.h)."""
+    d = shp[0]
+    if p.get("multi_output"):
+        return {1: (d[0],) + tuple(d[2:])}
+    if p.get("preserve_shape"):
+        return {1: tuple(d[:-1])}
+    return {1: (d[0],)}
+
+
+def _regression_hook(p, shp):
+    return {1: tuple(shp[0])}
+
+
 PARAM_SHAPE_HOOKS: Dict[str, Callable] = {
+    "SoftmaxOutput": _softmax_output_hook,
+    "LinearRegressionOutput": _regression_hook,
+    "LogisticRegressionOutput": _regression_hook,
+    "MAERegressionOutput": _regression_hook,
     "FullyConnected": _fc_hook,
     "Convolution": _conv_hook,
     "Deconvolution": _deconv_hook,
@@ -159,8 +178,9 @@ class GraphPlan:
         if segments and segments > 1:
             raise NotImplementedError(
                 "GraphPlan.run(segments > 1) rematerialises training "
-                "segments, which are not ported yet (ROADMAP.md, queue "
-                "item 3: training)")
+                "segments (MXNET_BACKWARD_DO_MIRROR), which are not ported "
+                "yet (ROADMAP.md, queue item 10: the rest of the symbolic "
+                "path)")
         aux_values = dict(aux_values or {})
         values: List[tuple] = [None] * len(self.steps)
         device = next((v.device for v in arg_values.values()), None)
@@ -347,9 +367,21 @@ def infer_type(symbol: Symbol, *args, **kwargs):
     """Reference-style propagation: unknown float variables take the
     first known float dtype of a variable that is not float32-forced, in
     argument order (bfloat16 weights imply bfloat16 for the others); the
-    float32-forced inputs (``_f32_forced_vars``) stay float32."""
+    float32-forced inputs (``_f32_forced_vars``) stay float32.
+
+    A variable the caller gives no dtype is known by its ``__dtype__``
+    attribute when that is not float32 (the reference's InferType reads
+    the attribute; a cast Gluon block's parameters carry bfloat16 there),
+    so a bfloat16 language model binds bfloat16 weights behind float32
+    token ids.  The JAX package reads no ``__dtype__``; a float32 one is
+    the default every parameter writes, and is left out here too, so
+    bfloat16 data still makes such weights bfloat16."""
     known_t = {}
     arg_names = symbol.list_arguments()
+    for n in symbol._topo():
+        hint = n.attrs.get("__dtype__") if n.is_var else None
+        if hint and np_dtype(hint) != _np.float32:
+            known_t[n.name] = hint
     for nm, dt in zip(arg_names, args):
         if dt is not None:
             known_t[nm] = dt

@@ -4,8 +4,8 @@ The counterpart of ``mxnet_tpu/symbol/symbol.py``: the same ``_Node`` DAG,
 composition, arithmetic, ``Group``/``Variable`` and the same graph JSON
 (nnvm-style ``nodes`` / ``arg_nodes`` / ``heads``), so a graph file written
 by either package loads in the other.  ``GraphPlan`` (``graph.py``) runs a
-Symbol eagerly on tensors; binding to an executor (``simple_bind``,
-``bind``, ``eval``) comes with the training slice and raises until then.
+Symbol eagerly on tensors; ``simple_bind``, ``bind`` and ``eval`` bind it to
+an ``Executor`` (``executor.py``), which trains it.
 """
 from __future__ import annotations
 
@@ -16,11 +16,6 @@ from typing import Dict, List, Optional, Sequence, Tuple
 from ..attribute import current_attrs
 from ..base import MXNetError, np_dtype
 from ..ops import registry as _reg
-
-_EXECUTOR = ("binding a Symbol to an executor is not ported yet (ROADMAP.md, "
-             "queue item 3: Symbol and executor, with training); serve a "
-             "Symbol through GraphPlan, Predictor or BucketedPredictor")
-
 
 class _Node:
     __slots__ = ("op", "name", "params", "inputs", "attrs")
@@ -147,6 +142,19 @@ class Symbol:
     def attr(self, key: str) -> Optional[str]:
         return self._entries[0][0].attrs.get(key)
 
+    def attr_dict(self) -> Dict[str, Dict[str, str]]:
+        """{node name: its attributes and, for an op, its parameters as
+        strings} over the whole graph (parity: symbol.attr_dict)."""
+        out = {}
+        for node in self._topo():
+            d = dict(node.attrs)
+            if node.op is not None:
+                d.update({k: str(v) for k, v in node.params.items()
+                          if v is not None})
+            if d:
+                out[node.name] = d
+        return out
+
     # -- call composition: net(data=other_sym) -------------------------------
     def __call__(self, *args, **kwargs) -> "Symbol":
         out = self.__copy__()
@@ -231,15 +239,80 @@ class Symbol:
         return infer_type(self, *args, **kwargs)
 
     # -- binding --------------------------------------------------------------
-    def simple_bind(self, ctx, grad_req="write", type_dict=None, **kwargs):
-        raise NotImplementedError(f"simple_bind: {_EXECUTOR}")
+    def simple_bind(self, ctx, grad_req="write", type_dict=None,
+                    stype_dict=None, group2ctx=None, shared_arg_names=None,
+                    shared_exec=None, shared_buffer=None, **kwargs):
+        """Allocate zeroed arguments, gradients and aux states from the
+        inferred shapes and types on ``ctx``, and bind (parity:
+        symbol.py:1255, MXExecutorSimpleBind).  ``kwargs`` are input
+        shapes, ``type_dict`` input dtypes; an argument found in
+        ``shared_buffer`` with its shape is shared.  ``shared_exec`` and
+        ``shared_arg_names`` are accepted and unused: an eager executor has
+        no compiled program to share."""
+        from ..context import as_device
+        from ..executor import Executor
+        from ..ndarray import zeros
+        if stype_dict and any(v != "default" for v in stype_dict.values()):
+            raise NotImplementedError(
+                "simple_bind(stype_dict=...): sparse storage is not ported "
+                "yet (ROADMAP.md, queue item 6: scale-out and sparse)")
+        device = as_device(ctx)
+        arg_shapes, _, aux_shapes = self.infer_shape(**kwargs)
+        arg_types, _, aux_types = self.infer_type(**(type_dict or {}))
+        args = {}
+        for name, shp, dt in zip(self.list_arguments(), arg_shapes,
+                                 arg_types):
+            if shared_buffer is not None and name in shared_buffer and \
+                    tuple(shared_buffer[name].shape) == tuple(shp):
+                args[name] = shared_buffer[name]
+            else:
+                args[name] = zeros(shp, ctx=device, dtype=dt)
+                if shared_buffer is not None:
+                    shared_buffer[name] = args[name]
+        aux = {name: zeros(shp, ctx=device, dtype=dt) for name, shp, dt in
+               zip(self.list_auxiliary_states(), aux_shapes, aux_types)}
+        if isinstance(grad_req, str):
+            reqs = {n: grad_req for n in args}
+        elif isinstance(grad_req, (list, tuple)):
+            reqs = dict(zip(self.list_arguments(), grad_req))
+        else:
+            reqs = dict(grad_req)
+        grads = {n: zeros(args[n].shape, ctx=device, dtype=args[n].dtype)
+                 for n in args if reqs.get(n, "null") != "null"}
+        return Executor(self, ctx, args, grads, reqs, aux,
+                        group2ctx=group2ctx)
 
     def bind(self, ctx, args, args_grad=None, grad_req="write",
-             aux_states=None, **kwargs):
-        raise NotImplementedError(f"bind: {_EXECUTOR}")
+             aux_states=None, group2ctx=None, shared_exec=None):
+        """Bind to the caller's tensors (parity: symbol.py:1519): ``args``
+        and ``args_grad`` are lists in ``list_arguments()`` order or dicts;
+        an argument takes a gradient only when it has a buffer in
+        ``args_grad``.  ``shared_exec`` is accepted and unused."""
+        from ..executor import Executor
+        arg_names = self.list_arguments()
+        if isinstance(args, (list, tuple)):
+            args = dict(zip(arg_names, args))
+        if isinstance(args_grad, (list, tuple)):
+            args_grad = dict(zip(arg_names, args_grad))
+        args_grad = args_grad or {}
+        if isinstance(grad_req, str):
+            reqs = {n: (grad_req if n in args_grad else "null")
+                    for n in arg_names}
+        elif isinstance(grad_req, (list, tuple)):
+            reqs = dict(zip(arg_names, grad_req))
+        else:
+            reqs = {n: grad_req.get(n, "null") for n in arg_names}
+        aux = aux_states or {}
+        if isinstance(aux, (list, tuple)):
+            aux = dict(zip(self.list_auxiliary_states(), aux))
+        return Executor(self, ctx, args, args_grad, reqs, aux,
+                        group2ctx=group2ctx)
 
     def eval(self, ctx=None, **kwargs):
-        raise NotImplementedError(f"eval: {_EXECUTOR}")
+        """Bind ``kwargs`` as the arguments on ``ctx`` (default: the
+        current context) and run one forward; returns the outputs."""
+        from ..context import current_context
+        return self.bind(ctx or current_context(), kwargs).forward()
 
     # -- serialization ---------------------------------------------------------
     def tojson(self) -> str:

@@ -193,13 +193,42 @@ def test_decode_steps_run_through_the_cached_op(pair):
             blk._active = True
 
 
-def test_executor_binding_raises_naming_the_roadmap(pair):
-    tsym = pair[3]
-    for call in (lambda: tsym.simple_bind(CPU, data=(2, 64)),
-                 lambda: tsym.bind(CPU, {}), lambda: tsym.eval(CPU)):
-        with pytest.raises(NotImplementedError, match="queue item 3"):
-            call()
-    with pytest.raises(NotImplementedError, match="item 3"):
+def test_executor_binding_raises_naming_the_roadmap(pair, monkeypatch):
+    """``simple_bind``, ``bind`` and ``eval`` of the TransformerLM's symbol
+    give JAX's hybridized logits within 1e-5.  A train-mode forward and a
+    backward with a head gradient through the executor reach the flash
+    backward (``FlashAttentionFn``: K1b's plain version here, once per
+    layer) and give the gradients of the same net under
+    ``autograd.record()``.  Rematerialised segments still raise, naming
+    their queue item."""
+    _, tnet, _, tsym, want = pair
+    params = _params(tnet)
+    data = _t(TOKENS)
+    ex = tsym.simple_bind(CPU, data=(2, 64))
+    ex.copy_params_from(params)
+    for out in (ex.forward(data=data)[0],
+                tsym.bind(CPU, {**params, "data": data}).forward()[0],
+                tsym.eval(CPU, data=data, **params)[0]):
+        np.testing.assert_allclose(mxt.nd.asnumpy(out), want, rtol=1e-5,
+                                   atol=1e-5)
+    import mxnet_tpu_torch.ops.flash_attention as ofa
+    calls = []
+    bwd = ofa.flash_attention_bwd
+    monkeypatch.setattr(ofa, "flash_attention_bwd",
+                        lambda *a: calls.append(1) or bwd(*a))
+    head = _t(np.random.RandomState(1).normal(size=want.shape)
+              .astype(np.float32))
+    ex.forward(is_train=True, data=data)
+    ex.backward([head])
+    assert len(calls) == KW["num_layers"]
+    with mxt.autograd.record():
+        out = tnet(data)
+    mxt.autograd.backward([out], [head])
+    for p in tnet.collect_params().values():
+        got = mxt.nd.asnumpy(ex.grad_dict[p.name])
+        ref = mxt.nd.asnumpy(p.grad())
+        assert np.abs(got - ref).max() <= 1e-5 * np.abs(ref).max(), p.name
+    with pytest.raises(NotImplementedError, match="item 10"):
         GraphPlan(tsym).run({"data": _t(TOKENS)}, segments=2)
 
 

@@ -416,3 +416,32 @@ def test_trainer_parts_not_ported_name_their_roadmap_item(pair):
                  lambda: mxt.gluon.Trainer(two_devices, "sgd").step(1)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             call()
+
+
+@pytest.mark.parametrize("update_on_kvstore", [None, False],
+                         ids=["update on the store", "reduce only"])
+def test_trainer_with_a_one_device_kvstore_matches_none(update_on_kvstore):
+    """Three SGD-momentum steps through ``Trainer(kvstore=
+    mx.kv.create("device"))``, the optimizer on the store or only the
+    reduce there, give bitwise the weights of ``kvstore=None``."""
+    x = mxt.nd.array(np.random.RandomState(6).randn(5, 4).astype("f"),
+                     ctx=CPU)
+    weights = []
+    for kv in (None, mxt.kv.create("device")):
+        mxt.random.seed(0)
+        net = mxt.gluon.nn.Dense(3, in_units=4)
+        net.initialize(mxt.init.Xavier(), ctx=CPU)
+        trainer = mxt.gluon.Trainer(
+            net.collect_params(), "sgd",
+            {"learning_rate": 0.1, "momentum": 0.9, "wd": 1e-3},
+            kvstore=kv, update_on_kvstore=update_on_kvstore)
+        for _ in range(3):
+            with mxt.autograd.record():
+                loss = (net(x) ** 2).sum()
+            loss.backward()
+            trainer.step(5)
+        assert (trainer._kv is None) == (kv is None)
+        weights.append([_to_np(p.data())
+                        for p in net.collect_params().values()])
+    for got, want in zip(*weights):
+        np.testing.assert_array_equal(got, want)
