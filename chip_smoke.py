@@ -4,10 +4,11 @@
     python3 chip_smoke.py
 
 Run from the root of a checkout on a machine with a CUDA card and nvcc.
-It serves and trains the full-width flash-attention TransformerLM and
+It serves and trains the full-width flash-attention TransformerLM,
 trains ResNet-50 v1 through the port's own entry points (Gluon, and the
-symbolic path of ``Module.fit``), and holds every kernel against its
-plain version:
+symbolic path of ``Module.fit``) and the DCGAN example's two nets, runs
+the core op surface and ``MultiHeadAttention``, and holds every kernel
+against its plain version:
 
 1. setup: the card's name and power limit; build every kernel from
    ``mxnet_tpu_torch/csrc`` (one nvcc per source, in parallel); launch the
@@ -128,10 +129,37 @@ plain version:
    count set to 0, 3 steps of ``forward_backward`` + ``update`` (12 sm90
    K1 and 12 sm90 K1b launches per step through ``Executor.backward``,
    none on f32; finite NLL that falls), its step beside phase 9's;
-12. a ``kernels`` JSON line (the forward kernels' ``launches`` are phase
-   8's, with phase 9's as ``training_launches`` and phase 11's LM leg's as
-   ``module_launches``; the two K1b kernels' are phase 9's main path, with
-   phase 11's as ``module_launches``, the FMA one's 0 there),
+12. the core op and ``nd`` surface, ``MultiHeadAttention`` and DCGAN:
+   every deterministic op of the core surface (``core_op_cases``: the
+   comparisons, ``mod``, ``clip``, ``dot``, the slice family, ``Pad``,
+   ``gather_nd``/``scatter_nd``, ``linalg_*``, ``norm``, ``argmin``, the
+   creation and loss ops) on small seeded inputs on the card against the
+   same op on the CPU, float32 (``TOL_OPS_*``, which a float id or a 0/1
+   result off by one fails; integers exact), with the gradients of the differentiable ones; the random ops on the
+   card: mean and variance of 10^6 draws of every distribution within
+   ``RANDOM_SE`` standard errors, ``shuffle`` a permutation, ``randint`` in
+   range, ``mx.random.seed`` repeating draws bitwise while consecutive
+   draws differ, and the draws taken from the CUDA generator (the CPU
+   generators untouched); ``MultiHeadAttention`` at the LM's width (units
+   1024, 16 heads of 64, B=8, T=1024, bf16, hybridized, weights from seed
+   0), non-causal (its default) and causal, each with every kernel count
+   set to 0 before one forward and backward under ``record()`` and read
+   after (exactly 1 sm90 K1 and 1 sm90 K1b, none on f32), the output and
+   the input's gradient within ``TOL_MHA`` of the plain formula in float32
+   on the same weights, then the block's forward plus backward timed
+   beside K1, K1b and the ``.contiguous()`` copies of its strided q/k/v
+   views; and the JAX package's DCGAN example (``example/gluon/dcgan.py``)
+   at upstream MXNet's widths (``DCGAN``): 20 alternating D and G Adam
+   steps on a resident synthetic set, z drawn with ``nd.random.normal``
+   on the card each step, ``errD.backward()`` and ``errG.backward()`` on
+   the (64,) loss vectors (finite losses, G's output in [-1, 1]), the
+   step time and peak memory;
+13. a ``kernels`` JSON line (the forward kernels' ``launches`` are phase
+   8's, with phase 9's as ``training_launches``, phase 11's LM leg's as
+   ``module_launches`` and phase 12's ``MultiHeadAttention`` runs' as
+   ``mha_launches``; the two K1b kernels' are phase 9's main path, with
+   phase 11's as ``module_launches`` and phase 12's as ``mha_launches``,
+   the FMA one's 0 there),
    then the last line ``{"ok": true, "device": {...}}``.
 
 The language model is ``experiments/lm_mfu_probe.py``'s default width
@@ -143,6 +171,8 @@ depth (about 25.6 M parameters); phase 10 cuts only the steps (8, where
 ``bench.py`` times 16 after 8 to warm up); phase 11 runs ``bench.py``'s 3
 epochs of 8 batches, on data drawn on the card (the same recipe, torch's
 generator in place of numpy's).  Phase 11's LM leg cuts the steps to 3.
+Phase 12's DCGAN runs 20 steps of upstream MXNet's example at its default
+widths (the JAX package's copy of the example defaults to narrower nets).
 
 Times: ``device`` is the CUDA-event time of 20 back-to-back calls queued
 behind a spin kernel, per call (L2 warm): the kernels and the gaps between
@@ -160,6 +190,7 @@ Any failed check ends the script with a non-zero exit and no result line.
 Without a CUDA device, or outside a checkout, it exits non-zero at once.
 """
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -2143,6 +2174,498 @@ def phase_module_lm(mx, gluon):
                     "losses": losses}
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the core op surface, MultiHeadAttention, DCGAN
+# ---------------------------------------------------------------------------
+# every op of the core surface on the card against the same op on the CPU,
+# float32 with TF32 off: outputs at 1e-5 relative / 1e-6 absolute (the same
+# math summed in another order; float ids and 0/1 results, off by 1 where
+# they differ, fail it), integers exact, gradients of sum(out * w) within
+# 1e-5 of each gradient's largest magnitude
+TOL_OPS_REL = 1e-5
+TOL_OPS_ABS = 1e-6
+RANDOM_DRAWS = 1_000_000
+RANDOM_SE = 5.0     # mean and variance within 5 standard errors
+MHA_UNITS = 1024    # the TransformerLM's width: 16 heads of 64
+MHA_HEADS = 16
+MHA_BATCH = 8
+TOL_MHA = 3e-2      # bf16 block against the plain formula in float32, over
+                    # the largest magnitude (the reference's bf16 pin)
+# upstream MXNet's example/gluon/dcgan.py defaults
+DCGAN = dict(nz=100, ngf=64, ndf=64, batch=64, sigma=0.02, lr=2e-4,
+             beta1=0.5, steps=20, resident_batches=4)
+
+
+def core_op_cases(np):
+    """(op, numpy inputs, kwargs, inputs to differentiate) for every
+    deterministic op of the core surface: small seeded inputs; ``ctx`` is
+    filled with the device the case runs on."""
+    rs = np.random.RandomState(12)
+
+    def f(*shape):
+        return rs.normal(0, 1, shape).astype(np.float32)
+
+    def r(*shape):                # small integers: ties and zeros
+        return np.round(rs.normal(0, 1.2, shape)).astype(np.float32)
+    m = rs.normal(0, 1, (2, 3, 3))
+    spd = (m @ m.transpose(0, 2, 1) + 3 * np.eye(3)).astype(np.float32)
+    chol = np.linalg.cholesky(spd.astype(np.float64)).astype(np.float32)
+    pos = (0.5 + np.abs(f(2, 3))).astype(np.float32)
+    nonzero = (np.sign(f(2, 3)) * (0.5 + np.abs(f(2, 3)))).astype(np.float32)
+    ids = np.array([[0, 2, 0], [1, 3, 1]], np.float32)
+    labels = np.array([0, 4, 2, 1], np.float32)
+    cases = [("clip", [f(3, 4)], {"a_min": -0.5, "a_max": 0.5}, (0,)),
+             ("_copy", [f(2, 3)], {}, (0,)),
+             ("add_n", [f(2, 3), f(2, 3), f(2, 3)], {}, (0, 1, 2)),
+             ("smooth_l1", [f(3, 4)], {"scalar": 1.5}, (0,)),
+             ("broadcast_mod", [f(2, 3) * 3, np.array([[2.0, -2.0, 1.5]],
+                                                      np.float32)], {}, (0, 1)),
+             ("_mod_scalar", [f(2, 3) * 3], {"scalar": -1.5}, (0,)),
+             ("_rmod_scalar", [nonzero], {"scalar": 5.0}, (0,)),
+             ("broadcast_power", [pos, f(1, 3)], {}, (0, 1)),
+             ("broadcast_hypot", [f(2, 3), f(1, 3)], {}, (0, 1)),
+             ("cbrt", [nonzero], {}, (0,))]
+    for op in ("broadcast_greater", "broadcast_greater_equal",
+               "broadcast_lesser", "broadcast_lesser_equal",
+               "broadcast_not_equal", "broadcast_logical_and",
+               "broadcast_logical_or", "broadcast_logical_xor"):
+        cases.append((op, [r(2, 3), r(1, 3)], {}, ()))
+    for op in ("_greater_scalar", "_greater_equal_scalar", "_lesser_scalar",
+               "_lesser_equal_scalar", "_not_equal_scalar"):
+        cases.append((op, [r(2, 3)], {"scalar": 0.0}, ()))
+    cases += [
+        ("dot", [f(3, 4, 2), f(4, 5)], {"transpose_a": True}, (0, 1)),
+        ("dot", [f(2, 3, 4), f(4, 5)], {}, (0, 1)),
+        ("batch_dot", [f(2, 4, 3), f(2, 4, 5)], {"transpose_a": True}, (0, 1)),
+        ("transpose", [f(2, 3, 4)], {"axes": (2, 0, 1)}, (0,)),
+        ("SwapAxis", [f(2, 3, 4)], {"dim1": 0, "dim2": 2}, (0,)),
+        ("squeeze", [f(2, 1, 3)], {"axis": (1,)}, (0,)),
+        ("stack", [f(2, 3), f(2, 3)], {"axis": 2}, (0, 1)),
+        ("SliceChannel", [f(2, 6, 3)], {"num_outputs": 3}, (0,)),
+        ("slice", [f(4, 5, 6)], {"begin": (None, 4), "end": (None, 0),
+                                 "step": (2, -2)}, (0,)),
+        ("slice_like", [f(4, 5, 6), f(2, 3, 4)], {"axes": (0, 2)}, (0,)),
+        ("broadcast_to", [f(1, 3, 1)], {"shape": (2, 0, 4)}, (0,)),
+        ("broadcast_axis", [f(1, 3, 1)], {"axis": (0, 2), "size": (2, 5)},
+         (0,)),
+        ("reverse", [f(3, 4)], {"axis": (1,)}, (0,)),
+        ("Pad", [f(2, 3, 4, 5)], {"mode": "reflect",
+                                  "pad_width": (0, 0, 0, 0, 1, 2, 2, 1)}, (0,)),
+        ("Pad", [f(2, 3, 4, 5)], {"mode": "constant", "constant_value": 1.5,
+                                  "pad_width": (0, 0, 0, 0, 1, 2, 2, 1)}, (0,)),
+        ("gather_nd", [f(3, 4), ids], {}, (0,)),
+        ("scatter_nd", [f(3), ids], {"shape": (3, 4)}, (0,)),
+        ("batch_take", [f(3, 4), np.array([0, 3, 1], np.float32)], {}, (0,)),
+        ("zeros_like", [f(2, 3)], {}, ()),
+        ("ones_like", [f(2, 3)], {}, ()),
+        ("linalg_gemm", [f(2, 3, 4), f(2, 4, 5), f(2, 3, 5)],
+         {"alpha": 0.5, "beta": 2.0}, (0, 1, 2)),
+        ("linalg_gemm2", [f(2, 4, 3), f(2, 4, 5)], {"transpose_a": True},
+         (0, 1)),
+        ("linalg_potrf", [spd], {}, (0,)),
+        ("linalg_potri", [chol], {}, (0,)),
+        ("linalg_trsm", [chol, f(2, 4, 3)], {"rightside": True,
+                                             "transpose": True}, (0, 1)),
+        ("linalg_trmm", [spd, f(2, 4, 3)], {"rightside": True,
+                                            "lower": False}, (0, 1)),
+        ("linalg_sumlogdiag", [chol], {}, (0,)),
+        ("linalg_syrk", [f(2, 3, 4)], {"transpose": True}, (0,)),
+        ("norm", [f(2, 3, 4)], {"axis": (1, 2)}, (0,)),
+        ("argmin", [f(3, 7)], {"axis": -1, "keepdims": True}, ()),
+        ("argmin", [f(3, 7)], {}, ()),
+        ("argmax_channel", [f(3, 7)], {}, ()),
+        ("_full", [], {"shape": (2, 3), "value": 1.5, "ctx": None}, ()),
+        ("_eye", [], {"N": 3, "M": 4, "k": 1, "ctx": None}, ()),
+        ("softmax_cross_entropy", [f(4, 5), labels], {}, (0,)),
+        ("SoftmaxActivation", [f(2, 3, 4)], {"mode": "channel"}, (0,)),
+        ("L2Normalization", [f(2, 3, 4)], {}, (0,)),
+        ("SVMOutput", [f(4, 5) * 2, labels], {"use_linear": True}, (0,))]
+    return cases
+
+
+def run_op(mx, op, arrays, kw, wrt, ctx):
+    """The op's outputs and the gradients of sum(out * w) over its outputs,
+    w a fixed seeded weight shaped like each output, with respect to the
+    inputs at ``wrt``, on ``ctx``, as numpy arrays."""
+    import numpy as np
+    xs = [mx.nd.array(a, ctx=ctx) for a in arrays]
+    for i in wrt:
+        mx.nd.attach_grad(xs[i])
+    if "ctx" in kw:
+        kw = dict(kw, ctx=str(ctx))
+    rs = np.random.RandomState(1)
+    with mx.autograd.record():
+        out = getattr(mx.nd, op)(*xs, **kw)
+        outs = out if isinstance(out, list) else [out]
+        loss = sum((o * mx.nd.array(rs.normal(size=o.shape).astype(
+            np.float32), ctx=ctx)).sum()
+                   for o in outs) if wrt else None
+    if wrt:
+        loss.backward()
+    return ([mx.nd.asnumpy(o) for o in outs],
+            [mx.nd.asnumpy(xs[i].grad) for i in wrt])
+
+
+def phase_ops(mx):
+    """Every deterministic op of the core surface on the card against the
+    CPU: values, dtypes and gradients."""
+    import numpy as np
+    cases = core_op_cases(np)
+    worst_out = worst_grad = 0.0
+    for op, arrays, kw, wrt in cases:
+        outs_g, grads_g = run_op(mx, op, arrays, kw, wrt, mx.gpu(0))
+        outs_c, grads_c = run_op(mx, op, arrays, kw, wrt, mx.cpu())
+        for g, c in zip(outs_g, outs_c):
+            check(g.shape == c.shape and g.dtype == c.dtype,
+                  f"{op}: card gives {g.shape} {g.dtype}, CPU {c.shape} "
+                  f"{c.dtype}")
+            if not np.issubdtype(c.dtype, np.floating):
+                check(np.array_equal(g, c), f"{op}: card {g} != CPU {c}")
+                continue
+            err = np.abs(g.astype(np.float64) - c).max(initial=0.0)
+            worst_out = max(worst_out, float(err / (TOL_OPS_ABS + TOL_OPS_REL
+                                                    * np.abs(c).max())))
+            check(np.allclose(g, c, rtol=TOL_OPS_REL, atol=TOL_OPS_ABS),
+                  f"{op} {kw}: card against CPU off by {err:.3e}")
+        for g, c in zip(grads_g, grads_c):
+            rel = np.abs(g - c).max() / max(np.abs(c).max(), 1e-30)
+            worst_grad = max(worst_grad, float(rel))
+            check(rel <= TOL_OPS_REL, f"{op} {kw}: gradient on the card "
+                  f"against the CPU off by {rel:.3e} of its largest")
+    names = sorted({c[0] for c in cases})
+    print(f"core ops: {len(names)} ops in {len(cases)} cases on the card "
+          f"equal the CPU's: outputs within {worst_out:.3f} of the "
+          f"{TOL_OPS_REL:g} / {TOL_OPS_ABS:g} bound at worst, gradients "
+          f"within {worst_grad:.2e} of their largest (gate {TOL_OPS_REL:g})")
+    return names
+
+
+def _moment_check(name, x, mean, var):
+    """x's mean and variance (on the card, float64) within RANDOM_SE
+    standard errors of the distribution's."""
+    import torch
+    x = x.double().reshape(-1)
+    m, v = x.mean(), x.var(unbiased=False)
+    m4 = ((x - m) ** 4).mean()
+    se_mean = (var / x.numel()) ** 0.5
+    se_var = (max(float(m4 - v * v), 1e-30) / x.numel()) ** 0.5
+    dm, dv = abs(float(m) - mean) / se_mean, abs(float(v) - var) / se_var
+    check(dm < RANDOM_SE and dv < RANDOM_SE,
+          f"{name}: mean {float(m):.5f} (want {mean:.5f}, {dm:.1f} SE), "
+          f"variance {float(v):.5f} (want {var:.5f}, {dv:.1f} SE)")
+    return max(dm, dv)
+
+
+def phase_random(mx):
+    """The random ops on the card: moments of 10^6 draws, repeatability
+    under ``seed``, and the CUDA generator alone drawn from."""
+    import torch
+    import numpy as np
+    dev = mx.gpu(0).torch_device()
+    nd, r = mx.nd, mx.nd.random
+    n = (RANDOM_DRAWS,)
+    mx.random.seed(0)
+    cpu_state = torch.get_rng_state()
+    port_cpu_state = mx.random.generator("cpu").get_state()
+    cuda_state = mx.random.generator(dev).get_state()
+    t0 = time.perf_counter()
+    rows = [("uniform", r.uniform(-1.0, 3.0, shape=n), 1.0, 16 / 12),
+            ("normal", r.normal(1.0, 2.0, shape=n), 1.0, 4.0),
+            ("gamma", r.gamma(2.0, 1.5, shape=n), 3.0, 4.5),
+            ("exponential", r.exponential(2.0, shape=n), 0.5, 0.25),
+            ("poisson", r.poisson(3.0, shape=n), 3.0, 3.0),
+            ("negative_binomial", r.negative_binomial(3, 0.4, shape=n),
+             4.5, 11.25),
+            ("generalized_negative_binomial",
+             r.generalized_negative_binomial(2.0, 0.5, shape=n), 2.0, 4.0),
+            ("randint", r.randint(-3, 7, shape=n), 1.5, 8.25),
+            ("multinomial", r.multinomial(mx.nd.array(
+                [0.2, 0.3, 0.5], ctx=mx.gpu(0)), shape=n), 1.3, 0.61)]
+
+    def pair(*vals):
+        return mx.nd.array(np.asarray(vals, np.float32), ctx=mx.gpu(0))
+    sampled = [
+        ("_sample_uniform", (pair(-1.0, 2.0), pair(3.0, 3.5)),
+         [(1.0, 16 / 12), (2.75, 2.25 / 12)]),
+        ("_sample_normal", (pair(1.0, 0.0), pair(2.0, 0.5)),
+         [(1.0, 4.0), (0.0, 0.25)]),
+        ("_sample_gamma", (pair(2.0, 0.5), pair(1.5, 2.0)),
+         [(3.0, 4.5), (1.0, 2.0)]),
+        ("_sample_exponential", (pair(2.0, 0.5),), [(0.5, 0.25), (2.0, 4.0)]),
+        ("_sample_poisson", (pair(3.0, 8.0),), [(3.0, 3.0), (8.0, 8.0)]),
+        ("_sample_negative_binomial", (pair(3.0, 1.0), pair(0.4, 0.7)),
+         [(4.5, 11.25), (3 / 7, 0.3 / 0.49)]),
+        ("_sample_generalized_negative_binomial", (pair(2.0, 6.0),
+                                                  pair(0.5, 0.2)),
+         [(2.0, 4.0), (6.0, 13.2)])]
+    for name, params, moments in sampled:
+        draws = getattr(nd, name)(*params, shape=n)
+        check(draws.shape == (2,) + n and draws.device == dev,
+              f"{name}: {tuple(draws.shape)} on {draws.device}")
+        rows += [(name, draws[i], *moments[i]) for i in range(2)]
+    worst, worst_name = max((_moment_check(name, x, mean, var), name)
+                            for name, x, mean, var in rows)
+    for name, x, _, _ in rows:
+        check(x.device == dev, f"{name} drawn on {x.device}")
+    shuffled = r.shuffle(torch.arange(1000, dtype=torch.float32,
+                                      device=dev).reshape(500, 2))
+    check(torch.equal(torch.sort(shuffled[:, 0]).values,
+                      torch.arange(0, 1000, 2, dtype=torch.float32,
+                                   device=dev))
+          and torch.equal(shuffled[:, 1] - shuffled[:, 0],
+                          torch.ones(500, device=dev)),
+          "shuffle is not a permutation of the rows")
+    ints = rows[7][1]
+    check(int(ints.min()) == -3 and int(ints.max()) == 6
+          and ints.dtype == torch.int32, "randint out of [-3, 7) or not int32")
+    torch.cuda.synchronize()
+    t_draw = time.perf_counter() - t0
+    check(torch.equal(torch.get_rng_state(), cpu_state) and torch.equal(
+        mx.random.generator("cpu").get_state(), port_cpu_state),
+        "a draw on the card moved a CPU generator")
+    check(not torch.equal(mx.random.generator(dev).get_state(), cuda_state),
+          "the draws on the card did not come from the CUDA generator")
+
+    def draws():
+        return [r.normal(shape=(4096,)), r.gamma(2.0, shape=(4096,)),
+                r.poisson(3.0, shape=(4096,)), r.randint(0, 9, shape=(4096,)),
+                r.multinomial(pair(0.5, 0.5), shape=(4096,)),
+                r.shuffle(torch.arange(4096.0, device=dev)),
+                nd._sample_normal(pair(0.0, 1.0), pair(1.0, 2.0),
+                                  shape=(2048,))]
+    mx.random.seed(7)
+    first = draws()
+    second = draws()
+    mx.random.seed(7)
+    again = draws()
+    check(all(torch.equal(a, b) for a, b in zip(first, again)),
+          "seed(7) twice gave different draws")
+    check(all(not torch.equal(a, b) for a, b in zip(first, second)),
+          "two consecutive draws were equal")
+    print(f"random ops on the card: {len(rows)} distributions of "
+          f"{RANDOM_DRAWS} draws in {t_draw:.2f} s (host clock, with the "
+          f"checks), mean and variance within {worst:.2f} standard errors "
+          f"at worst ({worst_name}; gate {RANDOM_SE:g}); shuffle a permutation, randint in "
+          f"range; seed repeats bitwise, consecutive draws differ; the CPU "
+          f"generators untouched, the CUDA generator moved")
+
+
+def mha_reference(x, block, causal):
+    """The block's function by the plain attention formula in float32, from
+    its weights: qkv projection, softmax(q k^T / sqrt(D), causal or not) v
+    per head, output projection."""
+    import torch
+    N, T, E = x.shape
+    H = MHA_HEADS
+    D = E // H
+    w = {k: p.data().float() for k, p in block.collect_params().items()}
+    pre = block.prefix
+    qkv = x @ w[pre + "qkv_weight"].t() + w[pre + "qkv_bias"]
+    qkv = qkv.reshape(N, T, 3 * H, D).permute(0, 2, 1, 3)
+    q, k, v = qkv[:, :H], qkv[:, H:2 * H], qkv[:, 2 * H:]
+    s = q @ k.transpose(-1, -2) * D ** -0.5
+    if causal:
+        s = s.masked_fill(torch.ones(T, T, dtype=torch.bool,
+                                     device=x.device).triu(1), float("-inf"))
+    o = (torch.softmax(s, dim=-1) @ v).permute(0, 2, 1, 3).reshape(N, T, E)
+    return o @ w[pre + "out_weight"].t() + w[pre + "out_bias"]
+
+
+def phase_mha(mx):
+    """MultiHeadAttention at the TransformerLM's width, bf16, hybridized,
+    non-causal (its default) and causal: one counted forward and backward
+    each, against the plain formula in float32; then the times."""
+    import torch
+    from mxnet_tpu_torch.kernels import flash_attention as kfa
+    T = CONFIG["max_len"]
+    B, E, H = MHA_BATCH, MHA_UNITS, MHA_HEADS
+    D = E // H
+    dev = mx.gpu(0).torch_device()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    x0 = torch.randn((B, T, E), generator=gen, device=dev).to(torch.bfloat16)
+    dout = torch.randn((B, T, E), generator=gen, device=dev).to(
+        torch.bfloat16)
+    total = dict.fromkeys(("sm90", "f32", "bwd.sm90", "bwd.f32"), 0)
+    times = {}
+    for causal in (False, True):
+        mx.random.seed(0)
+        block = mx.gluon.nn.MultiHeadAttention(E, H, causal=causal,
+                                               prefix="mha_")
+        block.initialize(ctx=mx.gpu(0))
+        block.cast("bfloat16")
+        block.hybridize()
+        x = mx.nd.attach_grad(x0.clone())
+
+        def fwd_bwd():
+            with mx.autograd.record():
+                out = block(x)
+            out.backward(dout)
+            return out
+        fwd_bwd()                              # traces; not counted
+        torch.cuda.synchronize()
+        reset_counts()
+        out = fwd_bwd()
+        torch.cuda.synchronize()
+        c = read_counts()
+        tag = "causal" if causal else "non-causal"
+        check(c["flash_attention.sm90"] == 1 and c["flash_attention.f32"] == 0
+              and c["flash_attention.bwd.sm90"] == 1
+              and c["flash_attention.bwd.f32"] == 0,
+              f"MultiHeadAttention {tag}: launches {c}; want 1 sm90 K1 and 1 "
+              "sm90 K1b, none on f32")
+        for k in total:
+            total[k] += c["flash_attention." + k]
+        xr = x0.float().requires_grad_()
+        ref = mha_reference(xr, block, causal)
+        ref.backward(dout.float())
+        ref = ref.detach()
+        err = float((out.detach().float() - ref).abs().max()
+                    / ref.abs().max())
+        gerr = float((x.grad.float() - xr.grad).abs().max()
+                     / xr.grad.abs().max())
+        check(out.dtype == torch.bfloat16 and out.shape == (B, T, E)
+              and err <= TOL_MHA and gerr <= TOL_MHA,
+              f"MultiHeadAttention {tag}: output off by {err:.3e}, input "
+              f"gradient by {gerr:.3e} of the largest (gate {TOL_MHA})")
+        del ref, xr
+        # the parts: K1 and K1b alone on contiguous inputs of the same
+        # shape, and the copies of the three strided views
+        qkv = torch.randn((B, T, 3 * H, D), generator=gen, device=dev).to(
+            torch.bfloat16).permute(0, 2, 1, 3)
+        views = (qkv[:, :H], qkv[:, H:2 * H], qkv[:, 2 * H:])
+        q, k, v = (t.contiguous() for t in views)
+        scale = D ** -0.5
+        o, lse = kfa.flash_attention_fwd(q, k, v, scale, causal,
+                                         return_lse=True)
+        do = dout.reshape(B, T, H, D).permute(0, 2, 1, 3).contiguous()
+        times[tag] = {
+            "block_ms": device_ms(fwd_bwd, iters=10),
+            "block_host_ms": host_clock_ms(fwd_bwd),
+            "k1_ms": device_ms(lambda: kfa.flash_attention_fwd(
+                q, k, v, scale, causal, return_lse=True)),
+            "k1b_ms": device_ms(lambda: kfa.flash_attention_bwd(
+                q, k, v, o, do, scale, causal, lse)),
+            "copy_ms": device_ms(lambda: [t.contiguous() for t in views]),
+            "err": err, "grad_err": gerr}
+        t = times[tag]
+        print(f"MultiHeadAttention {tag}, B={B} T={T} units {E} ({H} heads "
+              f"of {D}) bf16: 1 sm90 K1 + 1 sm90 K1b per forward and "
+              f"backward; output within {err:.2e}, input gradient "
+              f"{gerr:.2e} of the largest against the float32 formula; "
+              f"forward+backward {t['block_ms']:.3f} ms device, "
+              f"{t['block_host_ms']:.3f} ms host clock; K1 {t['k1_ms']:.4f} "
+              f"ms, K1b {t['k1b_ms']:.4f} ms alone; the q/k/v contiguous "
+              f"copies {t['copy_ms']:.4f} ms")
+        del block, x, out, qkv, views, q, k, v, o, lse, do
+    return total, times
+
+
+def dcgan_nets(mx, ngf, ndf, nc=3):
+    """``example/gluon/dcgan.py:26-58``'s 32x32 generator and
+    discriminator, built through the port."""
+    nn = mx.gluon.nn
+    g = nn.HybridSequential(prefix="gen_")
+    with g.name_scope():
+        for ch, stride, pad in ((ngf * 4, 1, 0), (ngf * 2, 2, 1),
+                                (ngf, 2, 1)):
+            g.add(nn.Conv2DTranspose(ch, 4, stride, pad, use_bias=False))
+            g.add(nn.BatchNorm())
+            g.add(nn.Activation("relu"))
+        g.add(nn.Conv2DTranspose(nc, 4, 2, 1, use_bias=False))
+        g.add(nn.Activation("tanh"))
+    d = nn.HybridSequential(prefix="disc_")
+    with d.name_scope():
+        d.add(nn.Conv2D(ndf, 4, 2, 1, use_bias=False))
+        d.add(nn.LeakyReLU(0.2))
+        for ch in (ndf * 2, ndf * 4):
+            d.add(nn.Conv2D(ch, 4, 2, 1, use_bias=False))
+            d.add(nn.BatchNorm())
+            d.add(nn.LeakyReLU(0.2))
+        d.add(nn.Conv2D(1, 4, 1, 0, use_bias=False))
+    return g, d
+
+
+def phase_dcgan(mx):
+    """The JAX package's DCGAN example at upstream MXNet's published widths
+    (nz 100, ngf = ndf = 64, batch 64, Normal(0.02), Adam lr 2e-4 beta1
+    0.5): ``dcgan.py:94-118``'s alternating D and G updates for 20 steps
+    on a resident synthetic set, z drawn on the card each step, and
+    ``loss.backward()`` on the (64,) loss vectors."""
+    import torch
+    cfg = DCGAN
+    bs = cfg["batch"]
+    dev = mx.gpu(0).torch_device()
+    nd, autograd, gluon = mx.nd, mx.autograd, mx.gluon
+    mx.random.seed(0)
+    netG, netD = dcgan_nets(mx, cfg["ngf"], cfg["ndf"])
+    for net in (netG, netD):
+        net.initialize(mx.init.Normal(cfg["sigma"]), ctx=mx.gpu(0))
+    trainerG = gluon.Trainer(netG.collect_params(), "adam",
+                             {"learning_rate": cfg["lr"],
+                              "beta1": cfg["beta1"]})
+    trainerD = gluon.Trainer(netD.collect_params(), "adam",
+                             {"learning_rate": cfg["lr"],
+                              "beta1": cfg["beta1"]})
+    loss_fn = gluon.loss.SigmoidBinaryCrossEntropyLoss()
+    # dcgan.py's real images, tanh of normal noise, drawn on the card
+    real = torch.tanh(torch.randn(
+        (cfg["resident_batches"] * bs, 3, 32, 32),
+        generator=mx.random.generator(dev), device=dev))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    walls, lossD, lossG = [], [], []
+    lo = hi = 0.0
+    for step in range(cfg["steps"]):
+        i = step % cfg["resident_batches"]
+        data = real[i * bs:(i + 1) * bs]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        real_label = nd.ones((bs,))
+        fake_label = nd.zeros((bs,))
+        z = nd.random.normal(shape=(bs, cfg["nz"], 1, 1))
+        fake = netG(z)
+        with autograd.record():
+            out_real = netD(data).reshape((-1,))
+            errD_real = loss_fn(out_real, real_label)
+            out_fake = netD(fake.detach()).reshape((-1,))
+            errD_fake = loss_fn(out_fake, fake_label)
+            errD = errD_real + errD_fake
+        errD.backward()
+        trainerD.step(bs)
+        with autograd.record():
+            out = netD(netG(z)).reshape((-1,))
+            errG = loss_fn(out, real_label)
+        errG.backward()
+        trainerG.step(bs)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        check(z.device == dev and errD.shape == (bs,) and errG.shape == (bs,),
+              f"DCGAN step {step}: z on {z.device}, losses {errD.shape} "
+              f"{errG.shape}")
+        lossD.append(errD.mean())
+        lossG.append(errG.mean())
+        lo, hi = min(lo, float(fake.min())), max(hi, float(fake.max()))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    lossD = torch.stack(lossD).tolist()
+    lossG = torch.stack(lossG).tolist()
+    check(all(map(math.isfinite, lossD + lossG)),
+          f"DCGAN losses not finite: D {lossD}, G {lossG}")
+    check(-1.0 <= lo and hi <= 1.0, f"G's output outside [-1, 1]: "
+          f"[{lo}, {hi}]")
+    n_g = sum(p.data().numel() for p in netG.collect_params().values())
+    n_d = sum(p.data().numel() for p in netD.collect_params().values())
+    step_ms = statistics.median(walls[1:])
+    print(f"DCGAN, nz {cfg['nz']}, ngf = ndf = {cfg['ngf']}, batch {bs}, "
+          f"32x32 ({n_g} + {n_d} parameters), Adam lr {cfg['lr']} beta1 "
+          f"{cfg['beta1']}: {cfg['steps']} steps, first {walls[0]:.1f} ms, "
+          f"then {step_ms:.2f} ms median (host clock, synchronized; D and G "
+          f"updates, {bs * 1e3 / step_ms:.0f} images/s); peak "
+          f"{peak:.3f} GiB; loss D {lossD[0]:.4f} -> {lossD[-1]:.4f}, G "
+          f"{lossG[0]:.4f} -> {lossG[-1]:.4f}; G's output in [{lo:.4f}, "
+          f"{hi:.4f}]")
+    return {"step_ms": step_ms, "first_ms": walls[0], "peak_gib": peak}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2204,6 +2727,13 @@ def main():
         phase_module_vs_gluon(mx)
         module_counts, _ = phase_module_lm(mx, lm_gluon)
         print(f"phase 11: {time.perf_counter() - t_module:.1f} s")
+        print("== phase 12: the core op surface, MultiHeadAttention, DCGAN")
+        t_core = time.perf_counter()
+        phase_ops(mx)
+        phase_random(mx)
+        mha_counts, _ = phase_mha(mx)
+        phase_dcgan(mx)
+        print(f"phase 12: {time.perf_counter() - t_core:.1f} s")
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -2295,9 +2825,11 @@ def main():
     for entry, variant in zip(kernels_line["kernels"][1:3], ("sm90", "f32")):
         entry["training_launches"] = train_counts[f"flash_attention.{variant}"]
         entry["module_launches"] = module_counts[f"flash_attention.{variant}"]
+        entry["mha_launches"] = mha_counts[variant]
     for entry, variant in zip(kernels_line["kernels"][3:5], ("sm90", "f32")):
         entry["module_launches"] = module_counts[
             f"flash_attention.bwd.{variant}"]
+        entry["mha_launches"] = mha_counts[f"bwd.{variant}"]
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(kernels_line))
     print(json.dumps({"ok": True, "device": {

@@ -19,6 +19,14 @@ records through torch's autograd and keeps MXNet's semantics on top:
   in place.  This holds for torch's own ``Tensor.backward`` as well.
 * ``is_training()`` is MXNet's train-mode flag, separate from recording;
   ops read it through ``__is_train__``.
+* **``head.backward()``** is ``NDArray.backward``: ones as the head
+  gradient whatever the head's shape, so ``loss.backward()`` works on a
+  Gluon loss's per-sample vector, and a head that carries no recorded
+  graph passes nothing.  The port's arrays are plain tensors, so importing
+  this module extends ``torch.Tensor.backward`` in just the two cases
+  where torch raises (no ``gradient`` and a head of more than one element,
+  or a head that requires no gradient); every call torch accepts runs
+  unchanged.
 
 Where the port differs from the reference (``ROADMAP.md`` §3): a variable
 must be marked (``nd.attach_grad`` / ``mark_variables``) before the ops
@@ -176,6 +184,28 @@ def backward(heads, head_grads=None, retain_graph: bool = False,
                                               device=h.device))
     if tensors:
         torch.autograd.backward(tensors, grads, retain_graph=retain_graph)
+
+
+_torch_backward = torch.Tensor.backward
+
+
+def _tensor_backward(self, gradient=None, retain_graph=None,
+                     create_graph=False, inputs=None):
+    """``torch.Tensor.backward`` with ``NDArray.backward``'s defaults where
+    torch would raise: with no ``gradient``, a head of more than one
+    element takes ones, and a head that requires no gradient (no recorded
+    graph) is a no-op, as ``backward`` treats it."""
+    if gradient is None and inputs is None:
+        if not self.requires_grad:
+            return
+        if self.numel() != 1:
+            gradient = torch.ones_like(self)
+    _torch_backward(self, gradient, retain_graph, create_graph, inputs)
+
+
+_tensor_backward.__doc__ = (_tensor_backward.__doc__ + "\n\n"
+                            + (_torch_backward.__doc__ or ""))
+torch.Tensor.backward = _tensor_backward
 
 
 def grad(heads, variables, head_grads=None, retain_graph=None,

@@ -1,7 +1,8 @@
 """gluon.data (parity: python/mxnet/gluon/data/__init__.py): datasets,
-samplers and the DataLoader.  ``RecordFileDataset`` waits for
-``recordio``; the prefetcher and the vision datasets are not ported yet
-(ROADMAP.md, queue item 8)."""
+samplers, the DataLoader and the ``vision`` datasets.  ``RecordFileDataset``
+waits for ``recordio`` (ROADMAP.md, queue item 10); the prefetcher waits for
+the observability and fault-injection modules it reads (queue item 5)."""
 from .dataset import Dataset, SimpleDataset, ArrayDataset
 from .sampler import Sampler, SequentialSampler, RandomSampler, BatchSampler
 from .dataloader import DataLoader, default_batchify_fn
+from . import vision

@@ -1,8 +1,8 @@
 """gluon.nn basic layers (parity: gluon/nn/basic_layers.py).
 
 Sequential, HybridSequential, Dense, Activation, Dropout, BatchNorm,
-LeakyReLU, Embedding, Flatten, InstanceNorm, LayerNorm, Lambda and
-HybridLambda, with the JAX package's parameter names, shapes and
+LeakyReLU, Embedding, Flatten, InstanceNorm, LayerNorm, Lambda,
+HybridLambda and MultiHeadAttention, with the JAX package's parameter names, shapes and
 initializers.  Dense and LayerNorm resolve their deferred input-sized
 parameters from the first input's trailing dimension(s); the others by
 shape inference over their graph.
@@ -303,3 +303,45 @@ class HybridLambda(HybridBlock):
 
     def hybrid_forward(self, F, x, *args):
         return self._func(F, x, *args)
+
+
+class MultiHeadAttention(HybridBlock):
+    """Multi-head self-attention over the flash-attention kernels.
+
+    Inputs (N, T, E), ``units`` divisible by ``num_heads``.  One Dense
+    projects x to q, k and v at once; each is a slice of its transpose to
+    (N, H, T, E/H), a strided view that the flash op copies to contiguous
+    memory before K1 (and K1b under ``record()``) reads it.  Non-causal
+    unless ``causal``.
+    """
+
+    def __init__(self, units, num_heads, causal=False, use_bias=True,
+                 weight_initializer=None, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+        if units % num_heads:
+            raise ValueError(f"units {units} not divisible by heads "
+                             f"{num_heads}")
+        self._units = units
+        self._heads = num_heads
+        self._causal = causal
+        with self.name_scope():
+            self.qkv = Dense(3 * units, flatten=False, use_bias=use_bias,
+                             weight_initializer=weight_initializer,
+                             prefix="qkv_")
+            self.out_proj = Dense(units, flatten=False, use_bias=use_bias,
+                                  weight_initializer=weight_initializer,
+                                  prefix="out_")
+
+    def hybrid_forward(self, F, x):
+        H = self._heads
+        Dh = self._units // H
+        qkv = self.qkv(x)                                   # (N, T, 3E)
+        qkv = F.reshape(qkv, shape=(0, 0, 3 * H, Dh))
+        qkv = F.transpose(qkv, axes=(0, 2, 1, 3))           # (N, 3H, T, Dh)
+        q = F.slice_axis(qkv, axis=1, begin=0, end=H)
+        k = F.slice_axis(qkv, axis=1, begin=H, end=2 * H)
+        v = F.slice_axis(qkv, axis=1, begin=2 * H, end=3 * H)
+        o = F.flash_attention(q, k, v, causal=self._causal)  # (N, H, T, Dh)
+        o = F.transpose(o, axes=(0, 2, 1, 3))
+        o = F.reshape(o, shape=(0, 0, -1))                   # (N, T, E)
+        return self.out_proj(o)

@@ -3,8 +3,7 @@
 Conv1D/2D/3D and their transposes, MaxPool/AvgPool 1/2/3D and
 GlobalMaxPool/GlobalAvgPool 1/2/3D, over the ``Convolution``,
 ``Deconvolution`` and ``Pooling`` ops.  A weight's input-channel dimension
-left at 0 is resolved from the first input by shape inference over the
-layer's graph.
+left at 0 is read off the first input's channel axis.
 """
 from __future__ import annotations
 
@@ -51,6 +50,19 @@ class _Conv(HybridBlock):
                 self.act = Activation(activation, prefix=activation + "_")
             else:
                 self.act = None
+
+    def _infer_param_shapes(self, x, *args):
+        """The weight's input channels from x's channel axis (shape
+        inference over the graph cannot tell them from the batch for a
+        transposed convolution: its shape rule does not read them)."""
+        layout = self._kwargs["layout"]
+        c = x.shape[layout.index("C") if layout else 1]
+        groups = self._kwargs["num_group"]
+        out_c, in_c, *kernel = self.weight.shape
+        if self._op_name == "Convolution":
+            self.weight.shape = (out_c, c // groups, *kernel)
+        else:
+            self.weight.shape = (c, in_c, *kernel)
 
     def hybrid_forward(self, F, x, weight, bias=None):
         op = getattr(F, self._op_name)

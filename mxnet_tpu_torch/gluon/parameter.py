@@ -260,6 +260,27 @@ class Parameter:
         self._set_data(self._data.detach().to(torch_dtype(self.dtype)))
 
 
+class Constant(Parameter):
+    """A parameter that holds ``value`` and takes no gradient (grad_req
+    "null"); initializing it copies the value, whatever the initializer."""
+
+    def __init__(self, name, value):
+        if not isinstance(value, torch.Tensor):
+            from ..ndarray import array
+            value = array(value, ctx="cpu")    # a host copy until initialized
+        self.value = value
+
+        class _Init(initializer.Initializer):
+            def _init_weight(self, _, arr):
+                arr.copy_(value)
+
+            _init_default = _init_weight
+
+        super().__init__(name, grad_req="null", shape=tuple(value.shape),
+                         dtype=str(value.dtype).replace("torch.", ""),
+                         init=_Init())
+
+
 class ParameterDict:
     def __init__(self, prefix="", shared=None):
         self._prefix = prefix
@@ -318,6 +339,18 @@ class ParameterDict:
                                             for vi, ei in zip(v, existing))
                 else:
                     setattr(param, k, v)
+        return param
+
+    def get_constant(self, name, value=None) -> Constant:
+        """The constant ``prefix + name``, made from ``value`` when this dict
+        (or the one it shares) has none."""
+        name = self._prefix + name
+        param = self._get_impl(name)
+        if param is None:
+            if value is None:
+                raise KeyError(f"No constant named '{name}'.")
+            param = Constant(name, value)
+            self._params[name] = param
         return param
 
     def update(self, other):

@@ -1,8 +1,16 @@
-"""`mx.nd` namespace: tensor constructors plus one function per registered
-operator (parity: python/mxnet/ndarray/__init__.py)."""
+"""`mx.nd` namespace: tensor constructors and free functions, one function
+per registered operator, and the ``random`` and ``linalg`` namespaces
+(parity: python/mxnet/ndarray/__init__.py)."""
 from .. import ops  # registers all operators
-from .ndarray import (array, asnumpy, attach_grad, grad, load,
-                      load_frombuffer, save, zeros)
 from .register import invoke, populate
 
 populate(globals())
+
+from .ndarray import (add, arange, array, asnumpy, attach_grad, concatenate,
+                      divide, empty, equal, eye, from_dlpack, from_numpy,
+                      full, grad, greater, greater_equal, hypot, lesser,
+                      lesser_equal, load, load_frombuffer, maximum, minimum,
+                      modulo, moveaxis, multiply, not_equal, onehot_encode,
+                      ones, pow, power, save, subtract, true_divide, waitall,
+                      zeros)
+from . import linalg, random

@@ -1,11 +1,19 @@
-"""Tensor creation, host copies and files for the ``nd`` namespace.
+"""Tensor creation, host copies, free functions and files for the ``nd``
+namespace.
 
 The port's arrays are plain ``torch.Tensor``s: these functions give them
-MXNet's constructors (``array`` and ``zeros`` with ``ctx=`` and ``dtype=``),
-``asnumpy``, ``attach_grad`` / ``grad``, and ``save`` / ``load`` /
-``load_frombuffer``.  ``ctx`` is a
-Context, a torch.device or None (the current context, ``gpu(0)`` unless the
-caller entered another).
+MXNet's constructors (``array``, ``zeros``, ``ones``, ``full``, ``empty``,
+``arange``, ``eye``, ``from_numpy``, ``from_dlpack`` with ``ctx=`` and
+``dtype=``), ``asnumpy``, ``attach_grad`` / ``grad``, ``moveaxis``,
+``concatenate``, ``onehot_encode``, ``waitall``, and ``save`` / ``load`` /
+``load_frombuffer``.  ``ctx`` is a Context, a torch.device or None (the
+current context, ``gpu(0)`` unless the caller entered another).
+
+The binary free functions (``add``, ``power``, ``maximum``, ``greater``,
+``modulo``, ...) take tensors or Python numbers on either side and run
+the registered op: comparisons give 1.0/0.0 in the input's dtype, as
+MXNet's do.  Python's operators on the port's tensors stay torch's
+(``a > b`` is bool).
 
 Files are the JAX package's ``.npz`` container, so either package reads
 what the other wrote: one tensor under ``__mx_single__``, a list under
@@ -21,6 +29,7 @@ import struct
 
 import numpy as _np
 import torch
+import torch.utils.dlpack
 
 from ..base import MXNetError, bfloat16, np_dtype, torch_dtype
 from ..context import as_device
@@ -48,11 +57,131 @@ def array(source_array, ctx=None, dtype=None) -> torch.Tensor:
     return _from_numpy(src.astype(np_dtype(dtype))).to(device)
 
 
+def _shape(shape):
+    return (shape,) if isinstance(shape, int) else tuple(shape)
+
+
 def zeros(shape, ctx=None, dtype=None) -> torch.Tensor:
-    if isinstance(shape, int):
-        shape = (shape,)
-    return torch.zeros(tuple(shape), dtype=torch_dtype(dtype),
+    return torch.zeros(_shape(shape), dtype=torch_dtype(dtype),
                        device=as_device(ctx))
+
+
+def ones(shape, ctx=None, dtype=None) -> torch.Tensor:
+    return torch.ones(_shape(shape), dtype=torch_dtype(dtype),
+                      device=as_device(ctx))
+
+
+def full(shape, val, ctx=None, dtype=None) -> torch.Tensor:
+    return torch.full(_shape(shape), val, dtype=torch_dtype(dtype),
+                      device=as_device(ctx))
+
+
+def empty(shape, ctx=None, dtype=None) -> torch.Tensor:
+    """Zeros, as the JAX package's ``empty`` gives."""
+    return zeros(shape, ctx=ctx, dtype=dtype)
+
+
+def arange(start, stop=None, step=1.0, repeat=1, ctx=None,
+           dtype=None) -> torch.Tensor:
+    """[start, stop) by ``step`` (one argument: [0, start)), each value
+    ``repeat`` times; float32 unless ``dtype`` says otherwise."""
+    from .register import invoke
+    return invoke("_arange", [], dict(start=start, stop=stop, step=step,
+                                      repeat=repeat, ctx=ctx,
+                                      dtype=dtype or "float32"))
+
+
+def eye(N, M=0, k=0, ctx=None, dtype=None) -> torch.Tensor:
+    from .register import invoke
+    return invoke("_eye", [], dict(N=N, M=M, k=k, ctx=ctx,
+                                   dtype=dtype or "float32"))
+
+
+def from_numpy(a, zero_copy=False) -> torch.Tensor:
+    """A copy of numpy array ``a`` on the current context, in its dtype."""
+    return array(a)
+
+
+def from_dlpack(capsule) -> torch.Tensor:
+    """The tensor a DLPack capsule (or an object with ``__dlpack__``)
+    describes, sharing its memory."""
+    return torch.utils.dlpack.from_dlpack(capsule)
+
+
+def moveaxis(a: torch.Tensor, source, destination) -> torch.Tensor:
+    return torch.movedim(a, source, destination)
+
+
+def concatenate(arrays, axis=0, always_copy=True) -> torch.Tensor:
+    return torch.cat(list(arrays), dim=axis)
+
+
+def onehot_encode(indices, out) -> torch.Tensor:
+    """Write the one-hot rows of ``indices`` (depth ``out.shape[1]``) into
+    ``out`` and return it (MXNet's deprecated form of ``one_hot``)."""
+    from .register import invoke
+    with torch.no_grad():
+        out.copy_(invoke("one_hot", [indices], {"depth": out.shape[1]}))
+    return out
+
+
+def waitall() -> None:
+    """Wait for every queued operation: a synchronisation of each CUDA
+    device this process has used (work on the CPU has finished when its
+    call returns)."""
+    if torch.cuda.is_initialized():
+        for i in range(torch.cuda.device_count()):
+            torch.cuda.synchronize(i)
+
+
+def _binary(op, scalar_op, rscalar_op, py=None):
+    """MXNet's binary function: the broadcast op ``op`` on two tensors,
+    ``scalar_op`` with a number on the right, ``rscalar_op`` with a number
+    on the left (a comparison is mirrored there: ``greater(2, x)`` is
+    ``x < 2``); ``py`` on two numbers, where MXNet computes them."""
+    def fn(lhs, rhs):
+        from .register import invoke
+        if isinstance(lhs, torch.Tensor):
+            if isinstance(rhs, torch.Tensor):
+                return invoke(op, [lhs, rhs], {})
+            return invoke(scalar_op, [lhs], {"scalar": float(rhs)})
+        if isinstance(rhs, torch.Tensor):
+            return invoke(rscalar_op, [rhs], {"scalar": float(lhs)})
+        if py is None:
+            raise TypeError("at least one operand must be a tensor")
+        return py(lhs, rhs)
+    fn.__name__ = op
+    return fn
+
+
+add = _binary("broadcast_add", "_plus_scalar", "_plus_scalar",
+              lambda a, b: a + b)
+subtract = _binary("broadcast_sub", "_minus_scalar", "_rminus_scalar",
+                   lambda a, b: a - b)
+multiply = _binary("broadcast_mul", "_mul_scalar", "_mul_scalar",
+                   lambda a, b: a * b)
+divide = _binary("broadcast_div", "_div_scalar", "_rdiv_scalar",
+                 lambda a, b: a / b)
+true_divide = divide
+power = _binary("broadcast_power", "_power_scalar", "_rpower_scalar",
+                lambda a, b: a ** b)
+pow = power
+modulo = _binary("broadcast_mod", "_mod_scalar", "_rmod_scalar")
+maximum = _binary("broadcast_maximum", "_maximum_scalar", "_maximum_scalar",
+                  max)
+minimum = _binary("broadcast_minimum", "_minimum_scalar", "_minimum_scalar",
+                  min)
+hypot = _binary("broadcast_hypot", "_hypot_scalar", "_hypot_scalar",
+                lambda a, b: (a * a + b * b) ** 0.5)
+equal = _binary("broadcast_equal", "_equal_scalar", "_equal_scalar")
+not_equal = _binary("broadcast_not_equal", "_not_equal_scalar",
+                    "_not_equal_scalar")
+greater = _binary("broadcast_greater", "_greater_scalar", "_lesser_scalar")
+greater_equal = _binary("broadcast_greater_equal", "_greater_equal_scalar",
+                        "_lesser_equal_scalar")
+lesser = _binary("broadcast_lesser", "_lesser_scalar", "_greater_scalar")
+lesser_equal = _binary("broadcast_lesser_equal", "_lesser_equal_scalar",
+                       "_greater_equal_scalar")
 
 
 def asnumpy(x: torch.Tensor) -> _np.ndarray:

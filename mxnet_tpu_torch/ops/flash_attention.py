@@ -62,7 +62,11 @@ def _flash_attention(q, k, v, scale, causal, blk_q, blk_k):
           args=[Arg("causal", bool, False), Arg("scale", float, -1.0),
                 Arg("block_q", int, 128), Arg("block_k", int, 128)])
 def _flash_attention_op(p, q, k, v):
-    """Memory-efficient attention: q/k/v (B, H, T, D) → (B, H, T, D)."""
+    """Memory-efficient attention: q/k/v (B, H, T, D) → (B, H, T, D).
+    Strided views (``MultiHeadAttention``'s slices of a transposed
+    projection) are copied to contiguous memory first, as the kernels read
+    it; a contiguous input is used as it is."""
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     scale = p["scale"] if p["scale"] > 0 else q.shape[-1] ** -0.5
     blk_q = min(p["block_q"], q.shape[2])
     blk_k = min(p["block_k"], k.shape[2])

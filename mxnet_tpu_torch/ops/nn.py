@@ -2,9 +2,10 @@
 
 ``FullyConnected``, ``Convolution``, ``Deconvolution``, ``Pooling``,
 ``BatchNorm``, ``LayerNorm``, ``InstanceNorm``, ``LRN``, ``Activation``,
-``LeakyReLU``, ``Dropout``, ``UpSampling``, ``softmax`` /
-``log_softmax`` with ``temperature``, and the loss outputs
-(``SoftmaxOutput``, the three ``*RegressionOutput``s, ``MakeLoss``) as
+``LeakyReLU``, ``Dropout``, ``UpSampling``, ``L2Normalization``,
+``softmax`` / ``log_softmax`` with ``temperature``, ``SoftmaxActivation``,
+``softmax_cross_entropy``, and the loss outputs (``SoftmaxOutput``, the
+three ``*RegressionOutput``s, ``MakeLoss``, ``SVMOutput``) as
 ``torch.autograd.Function``s with MXNet's folded gradients.  What the JAX package left to XLA
 goes to PyTorch's own ops: a dense product to ``torch.matmul`` (cuBLAS on
 the card), convolutions and pooling to ``torch.nn.functional`` (cuDNN),
@@ -297,6 +298,36 @@ def _softmax(p, x):
     return torch.softmax(x / t, dim=p["axis"])
 
 
+@register("SoftmaxActivation", input_names=("data",),
+          args=[Arg("mode", str, "instance")])
+def _softmax_activation(p, x):
+    """Softmax over the channels (axis 1) in 'channel' mode, else over
+    all of each instance's values."""
+    if p["mode"] == "channel":
+        return torch.softmax(x, dim=1)
+    return torch.softmax(x.reshape(x.shape[0], -1), dim=-1).reshape(x.shape)
+
+
+@register("softmax_cross_entropy", input_names=("data", "label"),
+          f32_inputs=(1,))
+def _softmax_cross_entropy(p, data, label):
+    """The summed cross-entropy of each row's softmax at its label: a
+    (1,)-free scalar, as the JAX package returns it."""
+    logp = torch.log_softmax(data, dim=-1)
+    return -torch.sum(torch.gather(logp, -1, label.to(torch.int64)[:, None]))
+
+
+@register("L2Normalization", input_names=("data",),
+          args=[Arg("eps", float, 1e-10), Arg("mode", str, "instance")])
+def _l2_normalization(p, x):
+    """x / sqrt(sum(x^2) + eps) over each instance ('instance'), the
+    channels ('channel') or each channel's positions ('spatial')."""
+    dims = {"instance": tuple(range(1, x.dim())), "channel": (1,)}.get(
+        p["mode"], tuple(range(2, x.dim())))
+    return x / torch.sqrt(torch.sum(torch.square(x), dim=dims, keepdim=True)
+                          + p["eps"])
+
+
 @register("log_softmax", input_names=("data",),
           args=[Arg("axis", int, -1), Arg("temperature", float, None)])
 def _log_softmax(p, x):
@@ -450,3 +481,43 @@ def _make_loss_legacy(p, data):
     if p["normalization"] == "batch":
         scale = scale / data.shape[0]
     return _MakeLossFn.apply(data, scale)
+
+
+class _SVMOutputFn(torch.autograd.Function):
+    """The identity forward; the backward MXNet's one-vs-all hinge gradient
+    (src/operator/svm_output.cc L1_SVM/L2_SVM), the head gradient ignored,
+    the label's gradient zero."""
+
+    @staticmethod
+    def forward(ctx, data, label, p):
+        ctx.save_for_backward(data, label)
+        ctx.p = p
+        return data.view_as(data)
+
+    @staticmethod
+    def backward(ctx, g):
+        out, label = ctx.saved_tensors
+        p = ctx.p
+        flat = out.reshape(out.shape[0], -1)
+        m, reg = p["margin"], p["regularization_coefficient"]
+        classes = torch.arange(flat.shape[1], device=flat.device)
+        onehot = (label.to(torch.int64).reshape(-1, 1) == classes).to(
+            flat.dtype)                 # a label out of range: a zero row
+        if p["use_linear"]:                                   # L1-SVM
+            g_true = -(m > flat).to(flat.dtype) * reg
+            g_other = (m > -flat).to(flat.dtype) * reg
+        else:                                                 # L2-SVM
+            g_true = torch.where(m > flat, -2.0 * reg * (m - flat), 0.0)
+            g_other = torch.where(m > -flat, 2.0 * reg * (m + flat), 0.0)
+        grad = onehot * g_true + (1 - onehot) * g_other
+        return grad.reshape(out.shape), torch.zeros_like(label), None
+
+
+@register("SVMOutput", input_names=("data", "label"), f32_inputs=(1,),
+          args=[Arg("margin", float, 1.0),
+                Arg("regularization_coefficient", float, 1.0),
+                Arg("use_linear", bool, False)])
+def _svm_output(p, data, label):
+    """Parity: src/operator/svm_output.cc: identity forward, one-vs-all
+    hinge backward (L2-SVM by default, L1 with ``use_linear``)."""
+    return _SVMOutputFn.apply(data, label, dict(p))

@@ -1,6 +1,6 @@
 """Reductions and ordering ops: ``sum``, ``mean``, ``prod``, ``max``,
-``min``, ``nansum``, ``nanprod``, ``argmax``, ``topk``, ``sort``,
-``argsort``.
+``min``, ``nansum``, ``nanprod``, ``norm``, ``argmax``, ``argmin``,
+``argmax_channel``, ``topk``, ``sort``, ``argsort``.
 
 The counterpart of part of ``mxnet_tpu/ops/reduce.py``.  The reductions
 take MXNet's ``axis`` (an int or a tuple; none means all), ``keepdims`` and
@@ -83,14 +83,40 @@ for _name, (_fn, _none) in _REDUCERS.items():
              aliases=(_name + "_axis",))(_reduce(_fn, _none))
 
 
-@register("argmax", input_names=("data",),
-          args=[Arg("axis", int, None), Arg("keepdims", bool, False)],
-          differentiable=False)
-def _argmax(p, x):
-    if p["axis"] is None:
-        return torch.argmax(x.reshape(-1), dim=0).to(x.dtype)
-    out = torch.argmax(x, dim=p["axis"], keepdim=p["keepdims"])
-    return out.to(torch.float32)
+@register("norm", input_names=("data",),
+          args=[Arg("ord", int, 2), Arg("axis", "shape", None),
+                Arg("keepdims", bool, False)])
+def _norm(p, x):
+    """The L1 norm (``ord=1``), else sqrt(sum(x^2)) over ``axis`` (all axes
+    when none), as the JAX package writes it: its gradient at 0 is NaN,
+    where ``torch.linalg.norm``'s is 0."""
+    axes = tuple(a % x.dim() for a in p["axis"]) if p["axis"] \
+        else tuple(range(x.dim()))
+    if p["ord"] == 1:
+        return torch.sum(torch.abs(x), dim=axes, keepdim=p["keepdims"])
+    return torch.sqrt(torch.sum(torch.square(x), dim=axes,
+                                keepdim=p["keepdims"]))
+
+
+def _arg_reduce(fn):
+    """Indices as float32 along ``axis``; with no axis the flat index in
+    the input's dtype, as the JAX package gives."""
+    def run(p, x):
+        if p["axis"] is None:
+            return fn(x.reshape(-1), dim=0).to(x.dtype)
+        return fn(x, dim=p["axis"], keepdim=p["keepdims"]).to(torch.float32)
+    return run
+
+
+for _name, _fn in (("argmax", torch.argmax), ("argmin", torch.argmin)):
+    register(_name, input_names=("data",),
+             args=[Arg("axis", int, None), Arg("keepdims", bool, False)],
+             differentiable=False)(_arg_reduce(_fn))
+
+
+@register("argmax_channel", input_names=("data",), differentiable=False)
+def _argmax_channel(p, x):
+    return torch.argmax(x, dim=-1).to(torch.float32)
 
 
 @register("topk", input_names=("data",),

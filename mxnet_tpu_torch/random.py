@@ -36,3 +36,13 @@ def generator(device) -> torch.Generator:
         gen.manual_seed(_seed)
         _generators[device] = gen
     return gen
+
+
+def __getattr__(name):
+    """``mx.random.uniform(...)`` and the other samplers: the functions of
+    ``mx.nd.random``."""
+    from .ndarray import random as _nd_random
+    fn = getattr(_nd_random, name, None)
+    if fn is None or name.startswith("_"):
+        raise AttributeError(name)
+    return fn

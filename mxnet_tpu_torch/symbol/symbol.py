@@ -36,6 +36,8 @@ class _Node:
         if self.is_var:
             return 1
         op = _reg.get_op(self.op)
+        if op.name == "SliceChannel":
+            return int(dict(self.params).get("num_outputs", 1))
         if op.name in ("BatchNorm", "LayerNorm"):
             return 1  # mean/var exposed only via output_mean_var
         return max(op.num_outputs, 1)

@@ -171,9 +171,91 @@ def _sort_axis_none(api):
             for f in (nd.sort, nd.argsort) for asc in (True, False)]
 
 
+def _backward_on_a_vector(api):
+    """F1: ``head.backward()`` on a head of more than one element seeds
+    ones (``NDArray.backward``), as ``loss.backward()`` on a Gluon loss's
+    per-sample vector needs."""
+    x = api.attach(api.array(np.array([1.0, -2.0, 3.0], np.float32)))
+    with api.mx.autograd.record():
+        y = x * 2
+    y.backward()
+    out = [api.numpy(y), api.grad(x)]
+    net = _net(api)
+    data = api.array(np.random.RandomState(0).normal(size=(4, 3)).astype(
+        np.float32))
+    label = api.array(np.array([[1, 0], [0, 1], [1, 1], [0, 0]], np.float32))
+    loss_fn = api.mx.gluon.loss.SigmoidBinaryCrossEntropyLoss()
+    with api.mx.autograd.record():
+        loss = loss_fn(net(data), label)
+    loss.backward()
+    out.append(api.numpy(loss))
+    out += [api.numpy(p.grad()) for p in net.collect_params().values()]
+    return out
+
+
+def _hypot_at_zero(api):
+    """F2: hypot's gradient at (0, 0) is 0.5 for each input (``jnp.hypot``
+    takes a max of the two magnitudes, whose tie splits)."""
+    nd = api.mx.nd
+    a = api.attach(api.array(np.array([0.0, 3.0, 0.0], np.float32)))
+    b = api.attach(api.array(np.array([0.0, -4.0, -2.0], np.float32)))
+    c = api.attach(api.array(np.array([0.0, 1.0], np.float32)))
+    with api.mx.autograd.record():
+        y = nd.broadcast_hypot(a, b).sum() + nd._hypot(a, b).sum() + \
+            nd._hypot_scalar(c, scalar=0.0).sum()
+    y.backward()
+    return [api.grad(a), api.grad(b), api.grad(c)]
+
+
+def _power_zero_to_the_zero(api):
+    """F3: power's gradient in the base at 0 ** 0 is NaN (y * x ** (y - 1),
+    as upstream MXNet's backward gives); torch.pow's is 0."""
+    nd = api.mx.nd
+    a = api.attach(api.array(np.array([0.0, 0.0, 2.0, 0.0], np.float32)))
+    b = api.attach(api.array(np.array([0.0, 2.0, 0.0, 1.0], np.float32)))
+    c = api.attach(api.array(np.array([0.0, 3.0], np.float32)))
+    with api.mx.autograd.record():
+        y = nd.broadcast_power(a, b).sum() + nd._power_scalar(c, scalar=0.0).sum()
+    y.backward()
+    return [api.grad(a), api.grad(b), api.grad(c)]
+
+
+def _cbrt_at_zero(api):
+    """F4: cbrt's gradient at 0 is +inf, rcbrt's -inf (``jnp.cbrt``)."""
+    nd = api.mx.nd
+    out = []
+    for f in (nd.cbrt, nd.rcbrt):
+        x = api.attach(api.array(np.array([0.0, -8.0, 27.0], np.float32)))
+        with api.mx.autograd.record():
+            y = f(x).sum()
+        y.backward()
+        out += [api.grad(x)]
+    return out
+
+
+def _conv_transpose_deferred_channels(api):
+    """A Conv2DTranspose with no ``in_channels``, run eagerly: its weight
+    takes the input's channels (100, from a (4, 100, 1, 1) latent), not
+    the batch size."""
+    api.mx.random.seed(0)
+    nn = api.mx.gluon.nn
+    net = nn.Sequential(prefix="g_")
+    with net.name_scope():
+        net.add(nn.Conv2DTranspose(6, 4, 1, 0, use_bias=False))
+        net.add(nn.Conv2D(3, 3, 1, 1))
+    net.initialize(api.mx.init.Normal(0.02), ctx=api.mx.cpu())
+    z = api.array(np.random.RandomState(1).normal(size=(4, 100, 1, 1)).astype(
+        np.float32))
+    out = net(z)
+    return [api.numpy(out)] + [api.numpy(p.data())
+                               for p in net.collect_params().values()]
+
+
 _CASES = [_non_differentiable_op, _relu_tie, _abs_at_zero, _integer_inputs,
           _take_wrap, _collect_params_select, _gluon_methods,
-          _sort_axis_none]
+          _sort_axis_none, _backward_on_a_vector, _hypot_at_zero,
+          _power_zero_to_the_zero, _cbrt_at_zero,
+          _conv_transpose_deferred_channels]
 
 
 @pytest.mark.parametrize("case", _CASES, ids=[c.__name__[1:] for c in _CASES])
