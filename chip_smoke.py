@@ -17,17 +17,19 @@ against its plain version:
    the bf16 tensor-core kernel (``sm90``) at the scoring shape (B=4, H=16,
    T=1024, D=64), the decode shape (B=1), phase 9's training and gradient
    check batches (B=8, B=2), D=128 at T=128 and a ragged T=100, the
-   float32 kernel (``f32``) at the same shapes in float32 and at
-   D 16 and 32 in bfloat16 (gates ``TOL_*`` below: float32 absolute,
-   bfloat16 absolute and over the largest output); both kernels causal at
-   the short sequences the serving buckets send them (B=4, T 1, 2, 16 and
-   64), the sm90 kernel timed there; the sm90 kernel's row log-sum-exp
-   (written for the backward) within ``TOL_LSE`` of the plain version's,
-   and its O bitwise equal with and without it; then their times at
-   the scoring and decode shapes beside the plain version's, the bound and
-   ``scaled_dot_product_attention``'s (the yardstick; the port never calls
-   it), with the sm90 kernel also timed writing lse and the f32 kernel
-   timed on the same bf16 inputs as well;
+   float32 kernel (``f32``, 3xTF32 on the tensor cores) at the same shapes
+   in float32 and at D 16 and 32 in bfloat16 (gates ``TOL_*`` below:
+   float32 absolute, bfloat16 absolute and over the largest output); both
+   kernels causal at the short sequences the serving buckets send them
+   (B=4, T 1, 2, 16 and 64), the sm90 kernel timed there; each kernel's
+   row log-sum-exp (written for the backward) within ``TOL_LSE`` of the
+   plain version's, and its O bitwise equal with and without it; then
+   their times at the scoring and decode shapes (the f32 kernel also at
+   B=8, ``MultiHeadAttention``'s shape, causal and not) beside the plain
+   version's, the bound (the f32 kernel's at 3xTF32's 165 TFLOP/s, with the
+   FMA rate's beside it) and ``scaled_dot_product_attention``'s (the
+   yardstick; the port never calls it), with the sm90 kernel also timed
+   writing lse and the f32 kernel timed on the same bf16 inputs as well;
 3. scoring in float32: ``net(tokens)`` at B=4, T=1024 launches the kernel
    once per layer, and its logits agree with the same net's with dense
    attention;
@@ -74,14 +76,15 @@ against its plain version:
    tensor cores, the forward's lse) at the training and gradient check
    batches (B=8 and B=2, H=16, T=1024, D 64 and 128, causal and not),
    T=128, a ragged T=100, T=2 and T=7, against its plain version and
-   against the FMA kernel on the same bf16 inputs, and bitwise equal when
-   run twice; the
-   FMA kernel ``f32`` (``csrc/flash_attention_bwd.cu``) in float32 at the
-   training shape, T=64 (D 16, 32) and T=100, and in bf16 at D 16 and 32;
+   against the f32 kernel on the same bf16 inputs, and bitwise equal when
+   run twice; the 3xTF32 kernel ``f32`` (``csrc/flash_attention_bwd.cu``,
+   the forward's lse) in float32 at the training shape, T=64 (D 16, 32)
+   and T=100, and in bf16 at D 16 and 32, bitwise equal when run twice;
    all gated at ``TOL_BWD_*`` of each output's largest magnitude; both
    kernels' times beside the plain version's, the bound and the backward
-   of ``scaled_dot_product_attention`` (the yardstick), the sm90 kernel
-   gated at ``BWD_SDPA_RATIO`` times the latter; a float32
+   of ``scaled_dot_product_attention`` (the yardstick; the f32 kernel also
+   non-causal), the sm90 kernel gated at ``BWD_SDPA_RATIO`` times the
+   latter; a float32
    gradient check of a 2-layer full-width flash net against the same net
    with attention's gradient taken by autograd of the dense formula
    (``TOL_GRAD_F32``); then the training main path: the bf16 ``TrainStep``
@@ -146,8 +149,11 @@ against its plain version:
    set to 0 before one forward and backward under ``record()`` and read
    after (exactly 1 sm90 K1 and 1 sm90 K1b, none on f32), the output and
    the input's gradient within ``TOL_MHA`` of the plain formula in float32
-   on the same weights, then the block's forward plus backward timed
-   beside K1, K1b and the ``.contiguous()`` copies of its strided q/k/v
+   on the same weights; then the same two runs in float32, MXNet's
+   default dtype (no ``cast``: exactly 1 f32 K1 and 1 f32 K1b, none on
+   sm90; within ``TOL_MHA_F32`` of the formula in float64); each block's
+   forward plus backward timed beside K1, K1b, SDPA's forward and backward
+   on the same q/k/v and the ``.contiguous()`` copies of its strided q/k/v
    views; and the JAX package's DCGAN example (``example/gluon/dcgan.py``)
    at upstream MXNet's widths (``DCGAN``): 20 alternating D and G Adam
    steps on a resident synthetic set, z drawn with ``nd.random.normal``
@@ -156,10 +162,13 @@ against its plain version:
    step time and peak memory;
 13. a ``kernels`` JSON line (the forward kernels' ``launches`` are phase
    8's, with phase 9's as ``training_launches``, phase 11's LM leg's as
-   ``module_launches`` and phase 12's ``MultiHeadAttention`` runs' as
-   ``mha_launches``; the two K1b kernels' are phase 9's main path, with
-   phase 11's as ``module_launches`` and phase 12's as ``mha_launches``,
-   the FMA one's 0 there),
+   ``module_launches`` and phase 12's bf16 ``MultiHeadAttention`` runs' as
+   ``mha_launches``, its float32 runs' as ``mha_f32_launches``; the two K1b
+   kernels' are phase 9's main path, with phase 11's as
+   ``module_launches`` and phase 12's as ``mha_launches`` and
+   ``mha_f32_launches``, the f32 one's 0 on the main path; the f32
+   kernels' ``bound_ms`` at 3xTF32's rate, ``fma_bound_ms`` at the CUDA
+   cores' float32 FMA rate),
    then the last line ``{"ok": true, "device": {...}}``.
 
 The language model is ``experiments/lm_mfu_probe.py``'s default width
@@ -247,7 +256,11 @@ TOL_GRAD_F32 = 1e-3
 # an ulp of the weight, a few 1e-3 of the step
 TOL_MASTER = 1e-2
 H100_BF16_FLOPS = 989e12
-H100_F32_FLOPS = 67e12
+H100_F32_FLOPS = 67e12   # float32 FMAs on the CUDA cores
+# TF32 on the tensor cores; a float32 product to float32 accuracy takes three
+# (3xTF32), so the f32 kernels' operations run at a third of it
+H100_TF32_FLOPS = 495e12
+H100_3XTF32_FLOPS = H100_TF32_FLOPS / 3
 H100_BYTES = 3.35e12
 
 
@@ -368,7 +381,7 @@ def phase_kernel(mx):
                 for _ in range(3)]
 
     errs = {}      # (variant, dtype, B, T, D, causal) -> (abs, rel) err
-    lse_errs = {}  # (B, T, D, causal) -> sm90 lse abs err
+    lse_errs = {}  # (variant, B, T, D, causal) -> lse abs err
     short_times = {}   # T -> ({name: device ms}, bound) at B=4, bf16
     cases = [(4, 16, 1024, 64, None), (1, 16, 1024, 64, None),
              (TRAIN_BATCH, 16, 1024, 64, None),     # phase 9's main path
@@ -405,21 +418,20 @@ def phase_kernel(mx):
                 line = (f"  flash {variant:4s} B={B} H={H} T={T} D={D} "
                         f"{str(dtype)[6:]} causal={causal}: max err "
                         f"{err:.3e}, over max |ref| {rel:.3e}")
-                if variant == "sm90":
-                    # the row log-sum-exp the backward reads, and O
-                    # unchanged by writing it
-                    o_lse, lse = kfa.flash_attention_fwd(
-                        q, k, v, D ** -0.5, causal, return_lse=True)
-                    _, lse_ref = kfa.dense_reference(
-                        q, k, v, D ** -0.5, causal, return_lse=True)
-                    torch.cuda.synchronize()
-                    check(torch.equal(o_lse, out), f"{what}: O with lse "
-                          "differs from O without")
-                    lse_err = (lse - lse_ref).abs().max().item()
-                    check(lse_err <= TOL_LSE, f"{what}: lse max err "
-                          f"{lse_err:.3e} > {TOL_LSE}")
-                    lse_errs[(B, T, D, causal)] = lse_err
-                    line += f"; lse max err {lse_err:.3e}, O bitwise equal"
+                # the row log-sum-exp the backward reads, and O unchanged
+                # by writing it
+                o_lse, lse = kfa.flash_attention_fwd(
+                    q, k, v, D ** -0.5, causal, return_lse=True)
+                _, lse_ref = kfa.dense_reference(
+                    q, k, v, D ** -0.5, causal, return_lse=True)
+                torch.cuda.synchronize()
+                check(torch.equal(o_lse, out), f"{what}: O with lse "
+                      "differs from O without")
+                lse_err = (lse - lse_ref).abs().max().item()
+                check(lse_err <= TOL_LSE, f"{what}: lse max err "
+                      f"{lse_err:.3e} > {TOL_LSE}")
+                lse_errs[(variant, B, T, D, causal)] = lse_err
+                line += f"; lse max err {lse_err:.3e}, O bitwise equal"
                 print(line)
     # the short sequences the serving buckets send through the kernels
     # (phase 8), causal: T below both kernels' q and k tiles (and the sm90
@@ -465,8 +477,9 @@ def phase_kernel(mx):
                     + f"; bound {bound[0]:.5f} ({bound[1]})")
             print(line)
     timings = {}
+    # B=8 float32: MultiHeadAttention's default shape (phase 12's f32 leg)
     for dtype, B in ((torch.bfloat16, 4), (torch.bfloat16, 1),
-                     (torch.float32, 4)):
+                     (torch.float32, 4), (torch.float32, TRAIN_BATCH)):
         for causal in (True, False):
             q, k, v = qkv(B, 16, 1024, 64, dtype)
             variant = kfa._variant(dtype, 64)
@@ -484,15 +497,20 @@ def phase_kernel(mx):
             row = {name: (device_ms(fn), time_ms(fn))
                    for name, fn in fns.items()}
             rate = H100_BF16_FLOPS if dtype == torch.bfloat16 \
-                else H100_F32_FLOPS
+                else H100_3XTF32_FLOPS
             row["bound"] = attention_bound_ms(B, 16, 1024, 64, causal,
                                               q.element_size(), rate)
+            line = (f"  time B={B} H=16 T=1024 D=64 {str(dtype)[6:]} "
+                    f"causal={causal}, device (call) ms: " + ", ".join(
+                        f"{name} {d:.4f} ({c:.4f})"
+                        for name, (d, c) in row.items() if name != "bound")
+                    + f"; bound {row['bound'][0]:.4f} ({row['bound'][1]})")
+            if dtype == torch.float32:   # and the FMA kernels' ceiling
+                row["fma_bound"] = attention_bound_ms(
+                    B, 16, 1024, 64, causal, 4, H100_F32_FLOPS)
+                line += f", at FMA rate {row['fma_bound'][0]:.4f}"
             timings[(dtype, B, causal)] = row
-            print(f"  time B={B} H=16 T=1024 D=64 {str(dtype)[6:]} "
-                  f"causal={causal}, device (call) ms: " + ", ".join(
-                      f"{name} {d:.4f} ({c:.4f})"
-                      for name, (d, c) in row.items() if name != "bound")
-                  + f"; bound {row['bound'][0]:.4f} ({row['bound'][1]})")
+            print(line)
     return errs, lse_errs, timings, short_times
 
 
@@ -1161,14 +1179,15 @@ def phase_train_kernel(mx):
     The sm90 kernel (bf16 at D 64 and 128, with the forward's lse) at the
     training and gradient check batches (B=8 and B=2, H=16, T=1024, D 64
     and 128, causal and not), T=128 and a ragged T=100 at D=64, and T=2
-    and T=7: against the plain version, against the f32 FMA kernel on the
-    same bf16 inputs, and run twice for a bitwise-equal result.  The FMA
-    kernel at the shapes it serves: float32 at the training shape, T=64
-    (D 16, 32) and T=100, and bf16 at D 16 and 32.  Then the times at the
-    training shape of both
+    and T=7: against the plain version, against the f32 kernel on the
+    same bf16 inputs, and run twice for a bitwise-equal result.  The f32
+    (3xTF32) kernel at the shapes it serves: float32 at the training shape,
+    T=64 (D 16, 32) and T=100, and bf16 at D 16 and 32, also run twice for
+    a bitwise-equal result.  Then the times at the training shape of both
     kernels beside the plain version's, the bound and the backward of
     ``scaled_dot_product_attention`` (the yardstick), the sm90 kernel gated
-    at BWD_SDPA_RATIO times the latter."""
+    at BWD_SDPA_RATIO times the latter; the f32 kernel also non-causal
+    (``MultiHeadAttention``'s default)."""
     import torch
     from mxnet_tpu_torch.kernels import flash_attention as kfa
     bf16, f32 = torch.bfloat16, torch.float32
@@ -1198,7 +1217,7 @@ def phase_train_kernel(mx):
         return err, rel
 
     errs = {}      # (variant, dtype, B, T, D, causal) -> (abs, rel) vs plain
-    fma_errs = {}  # (B, T, D, causal) -> (abs, rel) sm90 vs the FMA kernel
+    f32_errs = {}  # (B, T, D, causal) -> (abs, rel) sm90 vs the f32 kernel
     sm90_cases = [(B, 16, 1024, D, causal) for B in (TRAIN_BATCH, GRAD_BATCH)
                   for D in (64, 128) for causal in (True, False)]
     sm90_cases += [(1, 2, T, 64, causal) for T in (128, 100)
@@ -1212,7 +1231,8 @@ def phase_train_kernel(mx):
         got = kfa.flash_attention_bwd(q, k, v, o, do, D ** -0.5, causal, lse)
         again = kfa.flash_attention_bwd(q, k, v, o, do, D ** -0.5, causal,
                                         lse)
-        fma = kfa._bwd_launch("f32", q, k, v, o, do, D ** -0.5, causal)
+        on_f32 = kfa._bwd_launch("f32", q, k, v, o, do, D ** -0.5, causal,
+                                 lse)
         want = kfa.bwd_reference(q, k, v, o, do, D ** -0.5, causal)
         torch.cuda.synchronize()
         what = f"at B={B} H={H} T={T} D={D} bf16 causal={causal}"
@@ -1222,72 +1242,82 @@ def phase_train_kernel(mx):
               f"K1b sm90 is not bitwise repeatable {what}")
         errs[("sm90", bf16, B, T, D, causal)] = worst(
             got, want, bf16, TOL_BWD_BF16, f"sm90 vs plain {what}")
-        fma_errs[(B, T, D, causal)] = worst(
-            got, fma, bf16, TOL_BWD_BF16, f"sm90 vs the FMA kernel {what}")
+        f32_errs[(B, T, D, causal)] = worst(
+            got, on_f32, bf16, TOL_BWD_BF16, f"sm90 vs the f32 kernel {what}")
         err, rel = errs[("sm90", bf16, B, T, D, causal)]
         print(f"  K1b sm90 B={B} H={H} T={T} D={D} bf16 causal={causal}: "
-              f"max err {err:.3e}, over max |ref| {rel:.3e}; vs the FMA "
-              f"kernel {fma_errs[(B, T, D, causal)][1]:.3e}; bitwise "
+              f"max err {err:.3e}, over max |ref| {rel:.3e}; vs the f32 "
+              f"kernel {f32_errs[(B, T, D, causal)][1]:.3e}; bitwise "
               "repeatable (worst of dq, dk, dv)")
-    fma_cases = [(TRAIN_BATCH, 16, 1024, 64, True, f32),
+    f32_cases = [(TRAIN_BATCH, 16, 1024, 64, True, f32),
                  (TRAIN_BATCH, 16, 1024, 64, False, f32),
                  (1, 2, 100, 64, True, f32)]
-    fma_cases += [(1, 2, 64, D, True, dtype) for D in (16, 32)
+    f32_cases += [(1, 2, 64, D, True, dtype) for D in (16, 32)
                   for dtype in (f32, bf16)]
-    for B, H, T, D, causal, dtype in fma_cases:
-        q, k, v, o, do, _ = inputs(B, H, T, D, dtype, causal)
+    for B, H, T, D, causal, dtype in f32_cases:
+        q, k, v, o, do, lse = inputs(B, H, T, D, dtype, causal)
         before = kfa.BWD_VARIANT_LAUNCHES["f32"]
-        got = kfa.flash_attention_bwd(q, k, v, o, do, D ** -0.5, causal)
+        got = kfa.flash_attention_bwd(q, k, v, o, do, D ** -0.5, causal, lse)
+        again = kfa.flash_attention_bwd(q, k, v, o, do, D ** -0.5, causal,
+                                        lse)
         want = kfa.bwd_reference(q, k, v, o, do, D ** -0.5, causal)
         torch.cuda.synchronize()
         what = f"at B={B} H={H} T={T} D={D} {dtype} causal={causal}"
-        check(kfa.BWD_VARIANT_LAUNCHES["f32"] == before + 1,
+        check(kfa.BWD_VARIANT_LAUNCHES["f32"] == before + 2,
               f"K1b did not launch f32 {what}")
+        check(all(torch.equal(a, b) for a, b in zip(got, again)),
+              f"K1b f32 is not bitwise repeatable {what}")
         tol = TOL_BWD_F32 if dtype == f32 else TOL_BWD_BF16
         err, rel = errs[("f32", dtype, B, T, D, causal)] = worst(
             got, want, dtype, tol, f"f32 vs plain {what}")
         print(f"  K1b f32  B={B} H={H} T={T} D={D} {str(dtype)[6:]} "
               f"causal={causal}: max err {err:.3e}, over max |ref| "
-              f"{rel:.3e} (worst of dq, dk, dv)")
+              f"{rel:.3e} (worst of dq, dk, dv); bitwise repeatable")
     times = {}
-    for dtype in (bf16, f32):
-        q, k, v, o, do, lse = inputs(TRAIN_BATCH, 16, 1024, 64, dtype, True)
+    for dtype, causal in ((bf16, True), (f32, True), (f32, False)):
+        q, k, v, o, do, lse = inputs(TRAIN_BATCH, 16, 1024, 64, dtype,
+                                     causal)
         qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
         out = torch.nn.functional.scaled_dot_product_attention(
-            qs, ks, vs, is_causal=True, scale=0.125)
+            qs, ks, vs, is_causal=causal, scale=0.125)
         row = {}
         if dtype == bf16:
             row["sm90"] = device_ms(lambda: kfa.flash_attention_bwd(
-                q, k, v, o, do, 0.125, True, lse))
+                q, k, v, o, do, 0.125, causal, lse))
         row["f32"] = device_ms(lambda: kfa._bwd_launch(
-            "f32", q, k, v, o, do, 0.125, True))
+            "f32", q, k, v, o, do, 0.125, causal, lse))
         row["plain"] = device_ms(lambda: kfa.bwd_reference(
-            q, k, v, o, do, 0.125, True))
+            q, k, v, o, do, 0.125, causal))
         row["sdpa_bwd"] = device_ms(lambda: torch.autograd.grad(
             out, (qs, ks, vs), do, retain_graph=True))
-        rate = H100_BF16_FLOPS if dtype == bf16 else H100_F32_FLOPS
+        rate = H100_BF16_FLOPS if dtype == bf16 else H100_3XTF32_FLOPS
         # the backward's five products (S, dO V^T, dV, dQ, dK) and its
-        # eight tensors (q, k, v, o, dO in; dq, dk, dv out); the sm90
-        # design's own floor: S and dO V^T twice, 14 D per pair
+        # eight tensors (q, k, v, o, dO in; dq, dk, dv out); the designs'
+        # own floor: S and dO V^T twice, 14 D per pair
         row["bound"] = attention_bound_ms(
-            TRAIN_BATCH, 16, 1024, 64, True, q.element_size(), rate,
+            TRAIN_BATCH, 16, 1024, 64, causal, q.element_size(), rate,
             ops_per_pair=10, tensors=8)
+        row["floor"] = attention_bound_ms(
+            TRAIN_BATCH, 16, 1024, 64, causal, q.element_size(), rate,
+            ops_per_pair=14, tensors=8)
         line = (f"  time K1b B={TRAIN_BATCH} H=16 T=1024 D=64 "
-                f"{str(dtype)[6:]} causal, device ms: " + ", ".join(
-                    f"{n} {t:.4f}" for n, t in row.items() if n != "bound")
-                + f"; bound {row['bound'][0]:.4f} ({row['bound'][1]})")
-        if dtype == bf16:
-            row["floor"] = attention_bound_ms(
-                TRAIN_BATCH, 16, 1024, 64, True, q.element_size(), rate,
-                ops_per_pair=14, tensors=8)
-            line += f", the sm90 design's 14 D floor {row['floor'][0]:.4f}"
-        times[dtype] = row
+                f"{str(dtype)[6:]} causal={causal}, device ms: " + ", ".join(
+                    f"{n} {t:.4f}" for n, t in row.items()
+                    if n not in ("bound", "floor"))
+                + f"; bound {row['bound'][0]:.4f} ({row['bound'][1]}), the "
+                f"design's 14 D floor {row['floor'][0]:.4f}")
+        if dtype == f32:   # and the FMA kernels' ceiling
+            row["fma_bound"] = attention_bound_ms(
+                TRAIN_BATCH, 16, 1024, 64, causal, 4, H100_F32_FLOPS,
+                ops_per_pair=10, tensors=8)
+            line += f", at FMA rate {row['fma_bound'][0]:.4f}"
+        times[dtype if causal else "f32_noncausal"] = row
         print(line)
     ratio = times[bf16]["sm90"] / times[bf16]["sdpa_bwd"]
     print(f"  K1b sm90 / SDPA backward: {ratio:.2f} (limit {BWD_SDPA_RATIO})")
     check(ratio <= BWD_SDPA_RATIO, f"K1b sm90 takes {ratio:.2f}x the "
           f"backward of SDPA, over {BWD_SDPA_RATIO}")
-    return errs, fma_errs, times
+    return errs, f32_errs, times
 
 
 def phase_grad_check(mx):
@@ -2191,6 +2221,8 @@ MHA_HEADS = 16
 MHA_BATCH = 8
 TOL_MHA = 3e-2      # bf16 block against the plain formula in float32, over
                     # the largest magnitude (the reference's bf16 pin)
+TOL_MHA_F32 = 1e-4  # the float32 block against the formula in float64, over
+                    # the largest magnitude (the reference's f32 flash pin)
 # upstream MXNet's example/gluon/dcgan.py defaults
 DCGAN = dict(nz=100, ngf=64, ndf=64, batch=64, sigma=0.02, lr=2e-4,
              beta1=0.5, steps=20, resident_batches=4)
@@ -2451,14 +2483,14 @@ def phase_random(mx):
 
 
 def mha_reference(x, block, causal):
-    """The block's function by the plain attention formula in float32, from
-    its weights: qkv projection, softmax(q k^T / sqrt(D), causal or not) v
-    per head, output projection."""
+    """The block's function by the plain attention formula in x's dtype,
+    from its weights: qkv projection, softmax(q k^T / sqrt(D), causal or
+    not) v per head, output projection."""
     import torch
     N, T, E = x.shape
     H = MHA_HEADS
     D = E // H
-    w = {k: p.data().float() for k, p in block.collect_params().items()}
+    w = {k: p.data().to(x.dtype) for k, p in block.collect_params().items()}
     pre = block.prefix
     qkv = x @ w[pre + "qkv_weight"].t() + w[pre + "qkv_bias"]
     qkv = qkv.reshape(N, T, 3 * H, D).permute(0, 2, 1, 3)
@@ -2472,9 +2504,12 @@ def mha_reference(x, block, causal):
 
 
 def phase_mha(mx):
-    """MultiHeadAttention at the TransformerLM's width, bf16, hybridized,
-    non-causal (its default) and causal: one counted forward and backward
-    each, against the plain formula in float32; then the times."""
+    """MultiHeadAttention at the TransformerLM's width, hybridized,
+    non-causal (its default) and causal: in bf16 (cast) against the plain
+    formula in float32, and in float32, MXNet's default dtype (no cast),
+    against the same formula in float64; one counted forward and backward
+    each, then the times.  Returns the launches of the bf16 legs and of the
+    float32 legs, and the times."""
     import torch
     from mxnet_tpu_torch.kernels import flash_attention as kfa
     T = CONFIG["max_len"]
@@ -2482,19 +2517,29 @@ def phase_mha(mx):
     D = E // H
     dev = mx.gpu(0).torch_device()
     gen = torch.Generator(device=dev).manual_seed(0)
-    x0 = torch.randn((B, T, E), generator=gen, device=dev).to(torch.bfloat16)
-    dout = torch.randn((B, T, E), generator=gen, device=dev).to(
-        torch.bfloat16)
-    total = dict.fromkeys(("sm90", "f32", "bwd.sm90", "bwd.f32"), 0)
+    x0 = torch.randn((B, T, E), generator=gen, device=dev)
+    dout0 = torch.randn((B, T, E), generator=gen, device=dev)
+    keys = ("sm90", "f32", "bwd.sm90", "bwd.f32")
+    totals = {"bfloat16": dict.fromkeys(keys, 0),
+              "float32": dict.fromkeys(keys, 0)}
     times = {}
-    for causal in (False, True):
+    for dtype, causal in ((torch.bfloat16, False), (torch.bfloat16, True),
+                          (torch.float32, False), (torch.float32, True)):
+        name = str(dtype)[6:]
+        variant = kfa._variant(dtype, D)
+        other = "f32" if variant == "sm90" else "sm90"
+        tol = TOL_MHA if dtype == torch.bfloat16 else TOL_MHA_F32
+        ref_dtype = torch.float32 if dtype == torch.bfloat16 \
+            else torch.float64
         mx.random.seed(0)
         block = mx.gluon.nn.MultiHeadAttention(E, H, causal=causal,
                                                prefix="mha_")
         block.initialize(ctx=mx.gpu(0))
-        block.cast("bfloat16")
+        if dtype == torch.bfloat16:
+            block.cast("bfloat16")
         block.hybridize()
-        x = mx.nd.attach_grad(x0.clone())
+        x = mx.nd.attach_grad(x0.to(dtype).clone())
+        dout = dout0.to(dtype)
 
         def fwd_bwd():
             with mx.autograd.record():
@@ -2507,37 +2552,42 @@ def phase_mha(mx):
         out = fwd_bwd()
         torch.cuda.synchronize()
         c = read_counts()
-        tag = "causal" if causal else "non-causal"
-        check(c["flash_attention.sm90"] == 1 and c["flash_attention.f32"] == 0
-              and c["flash_attention.bwd.sm90"] == 1
-              and c["flash_attention.bwd.f32"] == 0,
-              f"MultiHeadAttention {tag}: launches {c}; want 1 sm90 K1 and 1 "
-              "sm90 K1b, none on f32")
-        for k in total:
-            total[k] += c["flash_attention." + k]
-        xr = x0.float().requires_grad_()
+        tag = ("causal" if causal else "non-causal") + f" {name}"
+        check(c[f"flash_attention.{variant}"] == 1
+              and c[f"flash_attention.{other}"] == 0
+              and c[f"flash_attention.bwd.{variant}"] == 1
+              and c[f"flash_attention.bwd.{other}"] == 0,
+              f"MultiHeadAttention {tag}: launches {c}; want 1 {variant} K1 "
+              f"and 1 {variant} K1b, none on {other}")
+        for k in keys:
+            totals[name][k] += c["flash_attention." + k]
+        xr = x0.to(dtype).to(ref_dtype).detach().requires_grad_()
         ref = mha_reference(xr, block, causal)
-        ref.backward(dout.float())
+        ref.backward(dout.to(ref_dtype))
         ref = ref.detach()
-        err = float((out.detach().float() - ref).abs().max()
+        err = float((out.detach().to(ref_dtype) - ref).abs().max()
                     / ref.abs().max())
-        gerr = float((x.grad.float() - xr.grad).abs().max()
+        gerr = float((x.grad.to(ref_dtype) - xr.grad).abs().max()
                      / xr.grad.abs().max())
-        check(out.dtype == torch.bfloat16 and out.shape == (B, T, E)
-              and err <= TOL_MHA and gerr <= TOL_MHA,
+        check(out.dtype == dtype and out.shape == (B, T, E)
+              and err <= tol and gerr <= tol,
               f"MultiHeadAttention {tag}: output off by {err:.3e}, input "
-              f"gradient by {gerr:.3e} of the largest (gate {TOL_MHA})")
+              f"gradient by {gerr:.3e} of the largest (gate {tol})")
         del ref, xr
         # the parts: K1 and K1b alone on contiguous inputs of the same
-        # shape, and the copies of the three strided views
+        # shape, SDPA's forward and backward on them (the yardstick), and
+        # the copies of the three strided views
         qkv = torch.randn((B, T, 3 * H, D), generator=gen, device=dev).to(
-            torch.bfloat16).permute(0, 2, 1, 3)
+            dtype).permute(0, 2, 1, 3)
         views = (qkv[:, :H], qkv[:, H:2 * H], qkv[:, 2 * H:])
         q, k, v = (t.contiguous() for t in views)
         scale = D ** -0.5
         o, lse = kfa.flash_attention_fwd(q, k, v, scale, causal,
                                          return_lse=True)
         do = dout.reshape(B, T, H, D).permute(0, 2, 1, 3).contiguous()
+        qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
+        sdpa_out = torch.nn.functional.scaled_dot_product_attention(
+            qs, ks, vs, is_causal=causal, scale=scale)
         times[tag] = {
             "block_ms": device_ms(fwd_bwd, iters=10),
             "block_host_ms": host_clock_ms(fwd_bwd),
@@ -2545,19 +2595,27 @@ def phase_mha(mx):
                 q, k, v, scale, causal, return_lse=True)),
             "k1b_ms": device_ms(lambda: kfa.flash_attention_bwd(
                 q, k, v, o, do, scale, causal, lse)),
+            "sdpa_ms": device_ms(lambda: torch.nn.functional.
+                                 scaled_dot_product_attention(
+                                     q, k, v, is_causal=causal,
+                                     scale=scale)),
+            "sdpa_bwd_ms": device_ms(lambda: torch.autograd.grad(
+                sdpa_out, (qs, ks, vs), do, retain_graph=True)),
             "copy_ms": device_ms(lambda: [t.contiguous() for t in views]),
             "err": err, "grad_err": gerr}
         t = times[tag]
         print(f"MultiHeadAttention {tag}, B={B} T={T} units {E} ({H} heads "
-              f"of {D}) bf16: 1 sm90 K1 + 1 sm90 K1b per forward and "
+              f"of {D}): 1 {variant} K1 + 1 {variant} K1b per forward and "
               f"backward; output within {err:.2e}, input gradient "
-              f"{gerr:.2e} of the largest against the float32 formula; "
-              f"forward+backward {t['block_ms']:.3f} ms device, "
-              f"{t['block_host_ms']:.3f} ms host clock; K1 {t['k1_ms']:.4f} "
-              f"ms, K1b {t['k1b_ms']:.4f} ms alone; the q/k/v contiguous "
-              f"copies {t['copy_ms']:.4f} ms")
-        del block, x, out, qkv, views, q, k, v, o, lse, do
-    return total, times
+              f"{gerr:.2e} of the largest against the formula in "
+              f"{str(ref_dtype)[6:]}; forward+backward {t['block_ms']:.3f} "
+              f"ms device, {t['block_host_ms']:.3f} ms host clock; K1 "
+              f"{t['k1_ms']:.4f} ms, K1b {t['k1b_ms']:.4f} ms alone (SDPA "
+              f"{t['sdpa_ms']:.4f} and {t['sdpa_bwd_ms']:.4f}); the q/k/v "
+              f"contiguous copies {t['copy_ms']:.4f} ms")
+        del block, x, out, qkv, views, q, k, v, o, lse, do, qs, ks, vs, \
+            sdpa_out
+    return totals["bfloat16"], totals["float32"], times
 
 
 def dcgan_nets(mx, ngf, ndf, nc=3):
@@ -2709,7 +2767,7 @@ def main():
         counts = phase_serving(mx, prompts, L)
         print("== phase 9: training")
         t_train = time.perf_counter()
-        bwd_errs, bwd_fma_errs, bwd_times = phase_train_kernel(mx)
+        bwd_errs, bwd_f32_errs, bwd_times = phase_train_kernel(mx)
         phase_grad_check(mx)
         train_counts, lm_gluon = phase_train(mx)
         print(f"phase 9: {time.perf_counter() - t_train:.1f} s")
@@ -2731,7 +2789,7 @@ def main():
         t_core = time.perf_counter()
         phase_ops(mx)
         phase_random(mx)
-        mha_counts, _ = phase_mha(mx)
+        mha_counts, mha_f32_counts, _ = phase_mha(mx)
         phase_dcgan(mx)
         print(f"phase 12: {time.perf_counter() - t_core:.1f} s")
     except CheckFailed as e:
@@ -2762,9 +2820,24 @@ def main():
                 entry["decode"] = nums
         entry["max_err_all_shapes"] = max(
             e[0] for key, e in errs.items() if key[0] == variant)
+        entry["max_lse_err"] = max(
+            e for key, e in lse_errs.items() if key[0] == variant)
+        if variant == "f32":
+            # the 3xTF32 bound above; the FMA kernels' ceiling beside it;
+            # B=8 non-causal, MultiHeadAttention's default shape
+            entry["fma_bound_ms"] = timings[(f32, 4, True)]["fma_bound"][0]
+            t = timings[(f32, TRAIN_BATCH, False)]
+            entry["mha_shape"] = {
+                "shape": f"B={TRAIN_BATCH} H=16 T=1024 D=64 float32 "
+                         "non-causal",
+                "max_abs_err": errs[(variant, f32, TRAIN_BATCH, 1024, 64,
+                                     False)][0],
+                "ms": t["f32"][0], "plain_ms": t["plain"][0],
+                "bound_ms": t["bound"][0], "bound_by": t["bound"][1],
+                "fma_bound_ms": t["fma_bound"][0],
+                "library_ms": t["sdpa"][0]}
         if variant == "sm90":
             entry["lse_ms"] = timings[(bf16, 4, True)]["sm90_lse"][0]
-            entry["max_lse_err"] = max(lse_errs.values())
             entry["short"] = {
                 f"B=4 H=16 T={T} D=64 bf16 causal": {
                     "max_abs_err": errs[(variant, bf16, 4, T, 64, True)][0],
@@ -2777,8 +2850,8 @@ def main():
     def bwd_entry(name, variant, source, dtype):
         """K1b's kernel ``variant`` at the training shape, causal, in
         ``dtype``: bf16 for the sm90 kernel, whose launches are phase 9's
-        main path; float32 for the FMA kernel, with its time on the bf16
-        inputs beside it."""
+        main path; float32 for the f32 (3xTF32) kernel, with its time on
+        the bf16 inputs and non-causal beside it."""
         t = bwd_times[dtype]
         err, rel = bwd_errs[(variant, dtype, TRAIN_BATCH, 1024, 64, True)]
         entry = {"name": name, "route": "cuda", "source": source,
@@ -2794,13 +2867,25 @@ def main():
                  "max_rel_err_all_shapes": max(
                      e[1] for key, e in bwd_errs.items()
                      if key[0] == variant)}
+        entry["floor_ms_14D"] = t["floor"][0]
         if variant == "sm90":
-            entry["floor_ms_14D"] = t["floor"][0]
-            entry["max_rel_err_vs_fma"] = max(
-                e[1] for e in bwd_fma_errs.values())
+            entry["max_rel_err_vs_f32_kernel"] = max(
+                e[1] for e in bwd_f32_errs.values())
         else:
+            entry["fma_bound_ms"] = t["fma_bound"][0]
             entry["grad_check_launches"] = GRAD_LAYERS
             entry["bf16_inputs_ms"] = bwd_times[bf16]["f32"]
+            nc = bwd_times["f32_noncausal"]
+            entry["mha_shape"] = {
+                "shape": f"B={TRAIN_BATCH} H=16 T=1024 D=64 float32 "
+                         "non-causal",
+                "max_rel_err": bwd_errs[(variant, f32, TRAIN_BATCH, 1024, 64,
+                                         False)][1],
+                "ms": nc["f32"], "plain_ms": nc["plain"],
+                "bound_ms": nc["bound"][0], "bound_by": nc["bound"][1],
+                "floor_ms_14D": nc["floor"][0],
+                "fma_bound_ms": nc["fma_bound"][0],
+                "library_ms": nc["sdpa_bwd"]}
         return entry
 
     kernels_line = {"kernels": [
@@ -2826,10 +2911,12 @@ def main():
         entry["training_launches"] = train_counts[f"flash_attention.{variant}"]
         entry["module_launches"] = module_counts[f"flash_attention.{variant}"]
         entry["mha_launches"] = mha_counts[variant]
+        entry["mha_f32_launches"] = mha_f32_counts[variant]
     for entry, variant in zip(kernels_line["kernels"][3:5], ("sm90", "f32")):
         entry["module_launches"] = module_counts[
             f"flash_attention.bwd.{variant}"]
         entry["mha_launches"] = mha_counts[f"bwd.{variant}"]
+        entry["mha_f32_launches"] = mha_f32_counts[f"bwd.{variant}"]
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(kernels_line))
     print(json.dumps({"ok": True, "device": {

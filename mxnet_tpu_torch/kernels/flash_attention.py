@@ -9,15 +9,17 @@ an online softmax kept in float32.  Two kernels compute it, and
 * ``"sm90"`` (``csrc/flash_attention_fwd_sm90.cu``): bfloat16 with head dim
   64 or 128, on the tensor cores (wgmma, TMA, a pipelined K/V ring).
 * ``"f32"`` (``csrc/flash_attention_fwd.cu``): float32 at every head dim,
-  and bfloat16 at 16 or 32, with float32 FMAs on the CUDA cores (the f32
-  pin of 1e-4 needs IEEE float32 products).
+  and bfloat16 at 16 or 32, on the tensor cores in 3xTF32 form (each
+  float32 product is three TF32 wgmmas over hi/lo splits of its operands,
+  which keeps the f32 pin of 1e-4; plain TF32 would not).
 
 Bound on an H100 SXM at the serving shape (B*H = 64, T = 1024, D = 64,
 bf16, causal): 8.6 GFLOP is about 9 us at 989 TFLOP/s and the 33.6 MB of
-q, k, v and o about 10 us at 3.35 TB/s, so the bytes bound it.
+q, k, v and o about 10 us at 3.35 TB/s, so the bytes bound it.  In float32
+the operations bound it: 4.3 GFLOP at 165 TFLOP/s (495 / 3) is 26 us.
 
-The sm90 kernel also writes each row's log-sum-exp (``return_lse``), which
-its backward reads; the f32 kernel keeps no statistics.
+Both kernels also write each row's log-sum-exp when asked
+(``return_lse``), which their backward reads.
 
 The backward, ``flash_attention_bwd`` (K1b), replaces
 ``mxnet_tpu/ops/flash_attention.py:_fa_bwd``, the plain ``jnp`` gradient of
@@ -27,7 +29,8 @@ routes it as the forward is routed:
 * ``"sm90"`` (``csrc/flash_attention_bwd_sm90.cu``): bfloat16 at head dim
   64 or 128, on the tensor cores, with the forward's row log-sum-exp.
 * ``"f32"`` (``csrc/flash_attention_bwd.cu``): float32 at every head dim
-  and bfloat16 at 16 or 32, float32 FMAs, recomputing the statistics.
+  and bfloat16 at 16 or 32, 3xTF32 on the tensor cores, with the f32
+  forward's row log-sum-exp.
 
 Bound at the training shape (B*H = 128, T = 1024, D = 64, bf16, causal):
 43 GFLOP (10*D per unmasked pair) is about 0.043 ms at 989 TFLOP/s, the
@@ -53,20 +56,19 @@ SM90_D = (64, 128)
 SM90_BLOCK_N = 128  # keys per k-tile of the sm90 kernel (BN in its source)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# [q, k, v, o, (sm90: lse)], bh, tq, tk, d, scale, causal, dtype (then the
+# q, k, v, o, lse (or null), bh, tq, tk, d, scale, causal, dtype (then the
 # stream)
+_FWD_ARGTYPES = [_P] * 5 + [_I] * 4 + [_F, _I, _I]
 _ENTRIES = {
     "sm90": _build.Entry("flash_attention_fwd_sm90",
-                         "mxt_flash_attention_fwd_sm90",
-                         [_P] * 5 + [_I] * 4 + [_F, _I, _I]),
+                         "mxt_flash_attention_fwd_sm90", _FWD_ARGTYPES),
     "f32": _build.Entry("flash_attention_fwd", "mxt_flash_attention_fwd",
-                        [_P] * 4 + [_I] * 4 + [_F, _I, _I]),
+                        _FWD_ARGTYPES),
 }
 
-# q, k, v, o, dO, dq, dk, dv, then two float32 pointers of statistics
-# (sm90: the forward's lse and a scratch of two (bh, tq rounded up to 64)
-# planes; f32: two (bh, tq) scratches), bh, tq, tk, d, scale, causal,
-# dtype (then the stream)
+# q, k, v, o, dO, dq, dk, dv, the forward's lse, a float32 scratch of two
+# (bh, tq rounded up to 64) planes, bh, tq, tk, d, scale, causal, dtype
+# (then the stream)
 _BWD_ARGTYPES = [_P] * 10 + [_I] * 4 + [_F, _I, _I]
 _BWD_ENTRIES = {
     "sm90": _build.Entry("flash_attention_bwd_sm90",
@@ -98,7 +100,7 @@ def dense_reference(q, k, v, scale, causal, return_lse=False):
     """Plain version: float32 scores and softmax, cast back to q's dtype.
     q (B, H, Tq, D), k and v (B, H, Tk, D).  With ``return_lse`` also each
     row's log-sum-exp of the scaled, masked scores (float32 (B, H, Tq),
-    natural log), as the sm90 kernel writes it."""
+    natural log), as both kernels write it."""
     s = _scores(q, k, scale, causal)
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)
@@ -108,8 +110,8 @@ def dense_reference(q, k, v, scale, causal, return_lse=False):
 def bwd_reference(q, k, v, o, do, scale, causal, lse=None):
     """Plain version of the backward: ``_fa_bwd``'s formulas over whole
     rows, in float32, cast back to the inputs' dtypes.  Returns dq, dk, dv.
-    With ``lse`` (the forward's row log-sum-exp) P is exp(s - lse), as the
-    sm90 kernel computes it; without, the softmax of the scores.
+    With ``lse`` (the forward's row log-sum-exp) P is exp(s - lse), as
+    both kernels compute it; without, the softmax of the scores.
     """
     qf, kf, vf, of, gf = (t.float() for t in (q, k, v, o, do))
     s = _scores(q, k, scale, causal)
@@ -173,7 +175,7 @@ def _launch(variant, q, k, v, scale, causal, return_lse=False):
     variant; a measurement may name ``"f32"`` to time that kernel on the
     bf16 inputs the path sends to ``"sm90"`` (it takes every supported
     input), but never ``"sm90"`` for inputs it does not take.  With
-    ``return_lse`` returns (O, lse), lse None for the f32 kernel."""
+    ``return_lse`` returns (O, lse)."""
     global LAUNCHES
     _check(q, k, v)
     B, H, tq, D = q.shape
@@ -182,15 +184,12 @@ def _launch(variant, q, k, v, scale, causal, return_lse=False):
         raise MXNetError(f"flash_attention_fwd: the {variant} kernel does "
                          f"not take {q.dtype} with head dim {D}")
     out = torch.empty_like(q)
-    ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr()]
-    lse = None
-    if variant == "sm90":
-        if return_lse:
-            lse = torch.empty((B, H, tq), dtype=torch.float32,
-                              device=q.device)
-        ptrs.append(None if lse is None else lse.data_ptr())
-    _ENTRIES[variant](q.device, *ptrs, B * H, tq, k.shape[2], D,
-                      float(scale), int(bool(causal)), _DTYPE_CODE[q.dtype])
+    lse = torch.empty((B, H, tq), dtype=torch.float32, device=q.device) \
+        if return_lse else None
+    _ENTRIES[variant](q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                      out.data_ptr(), None if lse is None else lse.data_ptr(),
+                      B * H, tq, k.shape[2], D, float(scale),
+                      int(bool(causal)), _DTYPE_CODE[q.dtype])
     LAUNCHES += 1
     VARIANT_LAUNCHES[variant] += 1
     return (out, lse) if return_lse else out
@@ -200,9 +199,8 @@ def flash_attention_fwd(q, k, v, scale, causal, return_lse=False):
     """O (B, H, Tq, D) from q (B, H, Tq, D), k and v (B, H, Tk, D).
 
     With ``return_lse`` returns (O, lse): each row's log-sum-exp of the
-    scaled, masked scores (float32 (B, H, Tq), natural log) where the
-    routed kernel keeps it (the sm90 kernel; the plain version on the
-    CPU), else None (the f32 kernel).
+    scaled, masked scores (float32 (B, H, Tq), natural log), which both
+    kernels (and the plain version on the CPU) write for the backward.
 
     Meta tensors (shape inference) give an empty output of O's shape and
     dtype on the meta device: no numbers are computed, so nothing runs."""
@@ -220,7 +218,7 @@ def flash_attention_fwd(q, k, v, scale, causal, return_lse=False):
 def _bwd_launch(variant, q, k, v, o, do, scale, causal, lse=None):
     """Check the CUDA inputs, launch backward kernel ``variant`` and count
     it.  As in ``_launch``, a measurement may name ``"f32"`` for bf16 inputs
-    routed to ``"sm90"``; ``"sm90"`` needs the forward's ``lse``."""
+    routed to ``"sm90"``.  Both kernels need the forward's ``lse``."""
     global LAUNCHES, BWD_LAUNCHES
     _check(q, k, v, "flash_attention_bwd", o=o, do=do)
     B, H, tq, D = q.shape
@@ -229,25 +227,20 @@ def _bwd_launch(variant, q, k, v, o, do, scale, causal, lse=None):
         raise MXNetError(f"flash_attention_bwd: the {variant} kernel does "
                          f"not take {q.dtype} with head dim {D}")
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    if variant == "sm90":
-        if lse is None or lse.shape != (B, H, tq) or \
-                lse.dtype != torch.float32 or lse.device != q.device or \
-                not lse.is_contiguous():
-            raise MXNetError(
-                "flash_attention_bwd: the sm90 kernel needs the forward's "
-                f"row log-sum-exp, a contiguous float32 {(B, H, tq)} tensor "
-                f"on {q.device} (flash_attention_fwd(..., return_lse=True))")
-        planes = torch.empty(2 * B * H * (-(-tq // 64) * 64),
-                             dtype=torch.float32, device=q.device)
-        stats = (lse.data_ptr(), planes.data_ptr())
-    else:                          # two scratch rows: lse and D_i
-        scratch = torch.empty((2, B * H, tq), dtype=torch.float32,
-                              device=q.device)
-        stats = (scratch[0].data_ptr(), scratch[1].data_ptr())
+    if lse is None or lse.shape != (B, H, tq) or \
+            lse.dtype != torch.float32 or lse.device != q.device or \
+            not lse.is_contiguous():
+        raise MXNetError(
+            f"flash_attention_bwd: the {variant} kernel needs the forward's "
+            f"row log-sum-exp, a contiguous float32 {(B, H, tq)} tensor "
+            f"on {q.device} (flash_attention_fwd(..., return_lse=True))")
+    planes = torch.empty(2 * B * H * (-(-tq // 64) * 64),
+                         dtype=torch.float32, device=q.device)
     _BWD_ENTRIES[variant](q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
                           o.data_ptr(), do.data_ptr(), dq.data_ptr(),
-                          dk.data_ptr(), dv.data_ptr(), *stats, B * H, tq,
-                          k.shape[2], D, float(scale), int(bool(causal)),
+                          dk.data_ptr(), dv.data_ptr(), lse.data_ptr(),
+                          planes.data_ptr(), B * H, tq, k.shape[2], D,
+                          float(scale), int(bool(causal)),
                           _DTYPE_CODE[q.dtype])
     LAUNCHES += 1
     BWD_LAUNCHES += 1
@@ -259,7 +252,9 @@ def flash_attention_bwd(q, k, v, o, do, scale, causal, lse=None):
     """dq, dk, dv of ``flash_attention_fwd`` at (q, k, v) whose output is o,
     for the output gradient dO (shaped like q; made contiguous here, since
     it arrives as a permuted view from the attention ops).  ``lse`` is the
-    forward's row log-sum-exp where it kept one; the sm90 kernel needs it.
+    forward's row log-sum-exp (``flash_attention_fwd(..., return_lse=True)``),
+    which both kernels read; the plain version on the CPU takes P from it
+    where given, else from the softmax.
 
     Meta tensors give empty outputs shaped like q, k and v."""
     devices = {t.device.type for t in (q, k, v, o, do)}

@@ -28,10 +28,10 @@ _dense_reference = dense_reference
 
 class FlashAttentionFn(torch.autograd.Function):
     """K1 forward, K1b backward.  The residuals are q, k, v and o, as in the
-    JAX package's ``_fa_fwd``, and the forward's row log-sum-exp where the
-    kernel that served it keeps one (the sm90 kernel; the plain version on
-    the CPU): the sm90 backward reads it instead of recomputing it, 4 bytes
-    per query row.  The gradient is the same function."""
+    JAX package's ``_fa_fwd``, and the forward's row log-sum-exp, which
+    every kernel (and the plain version on the CPU) writes when asked: the
+    backward reads it instead of recomputing it, 4 bytes per query row.
+    The gradient is the same function."""
 
     @staticmethod
     def forward(ctx, q, k, v, scale, causal):

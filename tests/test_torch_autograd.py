@@ -477,6 +477,65 @@ def _sm90_bwd_emulation(q, k, v, o, do, scale, causal, lse):
     return [t.to(torch.bfloat16).float().numpy() for t in (dq, dk, dv)]
 
 
+def _tf32(x):
+    """float32 to TF32 by truncation, as the f32 kernels' ``tf32_trunc``."""
+    return (x.contiguous().view(torch.int32) & -8192).view(torch.float32)
+
+
+def _mm_3xtf32(eq, a, b):
+    """a_hi b_lo + a_lo b_hi + a_hi b_hi over TF32 splits, each product of
+    two TF32 values exact in float32: a float32 product as the f32 kernels
+    form it."""
+    ah, bh = _tf32(a), _tf32(b)
+    al, bl = _tf32(a - ah), _tf32(b - bh)
+    return (torch.einsum(eq, ah, bl) + torch.einsum(eq, al, bh)
+            + torch.einsum(eq, ah, bh))
+
+
+def _f32_bwd_emulation(q, k, v, o, do, scale, causal, lse):
+    """The f32 backward's arithmetic (``csrc/flash_attention_bwd.cu``):
+    every product in 3xTF32, P = exp(s - lse) in f32, zero where masked;
+    dK and dV summed over q-tiles of 32 rows (16 at D = 128) in the order
+    its dkdv kernel walks them, dQ over key tiles of the same size."""
+    tq, tk, d = q.shape[2], k.shape[2], q.shape[3]
+    bs = 16 if d == 128 else 32
+    s = _mm_3xtf32("bhqd,bhkd->bhqk", q, k) * scale
+    keep = torch.ones(tq, tk, dtype=torch.bool)
+    if causal:
+        keep = torch.arange(tq)[:, None] >= torch.arange(tk)[None, :]
+    p = torch.where(keep, torch.exp(s - lse[..., None]), torch.tensor(0.))
+    delta = (do * o).sum(-1)
+    ds = p * (_mm_3xtf32("bhqd,bhkd->bhqk", do, v) - delta[..., None])
+    dq, dk, dv = (torch.zeros_like(t) for t in (q, k, v))
+    for i in range(0, tq, bs):
+        dv += _mm_3xtf32("bhqk,bhqd->bhkd", p[:, :, i:i + bs],
+                         do[:, :, i:i + bs])
+        dk += _mm_3xtf32("bhqk,bhqd->bhkd", ds[:, :, i:i + bs],
+                         q[:, :, i:i + bs])
+    for j in range(0, tk, bs):
+        dq += _mm_3xtf32("bhqk,bhkd->bhqd", ds[..., j:j + bs],
+                         k[:, :, j:j + bs])
+    return [t.numpy() for t in (dq * scale, dk * scale, dv)]
+
+
+@pytest.mark.parametrize("T,D,causal", [(128, 64, True), (128, 64, False),
+                                        (64, 16, True)])
+def test_f32_bwd_3xtf32_matches_jax(T, D, causal):
+    """The f32 backward's 3xTF32 arithmetic, from the forward's row
+    log-sum-exp, within the float32 pin (1e-4 relative, 1e-5 absolute) of
+    ``jax.grad`` through the JAX package's flash attention (Pallas forward
+    in interpret mode, ``_fa_bwd``)."""
+    assert kfa._bwd_variant(torch.float32, D) == "f32"
+    arrays = _qkv(13, (1, 2, T, D))
+    scale = D ** -0.5
+    want = _jax_flash_grads(arrays, scale, causal, 64, jnp.float32)
+    q, k, v, g = (torch.from_numpy(a) for a in arrays)
+    o, lse = kfa.dense_reference(q, k, v, scale, causal, return_lse=True)
+    got = _f32_bwd_emulation(q, k, v, o, g, scale, causal, lse)
+    for g_, w in zip(got, want):
+        np.testing.assert_allclose(g_, w, rtol=1e-4, atol=1e-5)
+
+
 def test_sm90_bwd_rounding_matches_jax():
     """bf16 P and dS in the second products are the roundings the
     reference lacks: the sm90 backward's arithmetic stays within the bf16

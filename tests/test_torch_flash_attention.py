@@ -6,8 +6,9 @@ CPU.  Tolerances: 1e-4 relative / 1e-5 absolute in float32 (the JAX
 package's own pin for the flash forward against its dense reference), 3e-2
 in bfloat16 (its bf16 pin: one bf16 rounding of outputs of order 1).
 
-The bf16 tensor-core kernel (``csrc/flash_attention_fwd_sm90.cu``) runs only
-on the card; here a test-local emulation of its rounding points is held
+The kernels (``csrc/flash_attention_fwd_sm90.cu``, bf16 on the tensor
+cores, and ``csrc/flash_attention_fwd.cu``, float32 in 3xTF32 form) run
+only on the card; here test-local emulations of their arithmetic are held
 against the JAX package, and the wrapper's routing is checked.
 """
 import numpy as np
@@ -154,6 +155,73 @@ def test_sm90_rounding_matches_jax(T, D, causal):
                                atol=3e-2)
 
 
+def tf32(x):
+    """float32 to TF32 by truncation (the low 13 mantissa bits cleared), as
+    the f32 kernels' ``tf32_trunc`` (``csrc/sm90.cuh``)."""
+    return (x.contiguous().view(torch.int32) & -8192).view(torch.float32)
+
+
+def mm_3xtf32(eq, a, b):
+    """A float32 product as the f32 kernels form it: a_hi b_lo + a_lo b_hi +
+    a_hi b_hi over the TF32 splits hi = tf32(x), lo = tf32(x - hi); each
+    product of two TF32 values is exact in float32, the sums float32."""
+    ah, bh = tf32(a), tf32(b)
+    al, bl = tf32(a - ah), tf32(b - bh)
+    return (torch.einsum(eq, ah, bl) + torch.einsum(eq, al, bh)
+            + torch.einsum(eq, ah, bh))
+
+
+def _f32_emulation(q, k, v, scale, causal):
+    """The f32 kernel's arithmetic: S = Q K^T in 3xTF32 times scale, the
+    online softmax in f32 across k-tiles of 32 keys (-1e30 above the causal
+    diagonal, -inf past a ragged end), each tile's P V in 3xTF32 from its
+    split P, added to O's sum in f32; l summed from the unsplit p.
+    Returns (O, lse)."""
+    tq, tk = q.shape[2], k.shape[2]
+    bn = 32
+    kf, vf = (torch.nn.functional.pad(t, (0, 0, 0, -tk % bn)) for t in (k, v))
+    m = torch.full(q.shape[:3], -1e30)
+    l = torch.zeros(q.shape[:3])
+    acc = torch.zeros(q.shape)
+    rows = torch.arange(tq)[:, None]
+    for k0 in range(0, tk, bn):
+        keys = torch.arange(k0, k0 + bn)[None, :]
+        s = mm_3xtf32("bhqd,bhkd->bhqk", q, kf[:, :, k0:k0 + bn]) * scale
+        if causal:
+            s = torch.where(keys > rows, torch.tensor(-1e30), s)
+        s = torch.where(keys >= tk, torch.tensor(-float("inf")), s)
+        m_new = torch.maximum(m, s.amax(-1))
+        corr = torch.exp(m - m_new)
+        p = torch.exp(s - m_new[..., None])
+        l = l * corr + p.sum(-1)
+        acc = acc * corr[..., None] + mm_3xtf32(
+            "bhqk,bhkd->bhqd", p, vf[:, :, k0:k0 + bn])
+        m = m_new
+    return acc / l.clamp_min(1e-30)[..., None], m + torch.log(l)
+
+
+@pytest.mark.parametrize("T,D,causal", [(128, 64, False), (128, 64, True),
+                                        (64, 16, True), (100, 16, False)])
+def test_f32_3xtf32_matches_jax(T, D, causal):
+    """The f32 kernel's 3xTF32 arithmetic, at its own k-tile width, within
+    the float32 pin of the JAX kernel (interpret mode; T=100 clips the
+    default block to 100 and takes the kernel), and its row log-sum-exp
+    within the same pin of the plain version's."""
+    assert kfa._variant(torch.float32, D) == "f32"
+    arrays = _inputs(9, (1, 2, T, D))
+    blk = 64 if T % 64 == 0 else 128
+    want = mxj.nd.flash_attention(
+        *[mxj.nd.array(a) for a in arrays], causal=causal, block_q=blk,
+        block_k=blk).asnumpy()
+    q, k, v = (torch.from_numpy(a) for a in arrays)
+    got, lse = _f32_emulation(q, k, v, D ** -0.5, causal)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-5)
+    _, lse_ref = kfa.dense_reference(q, k, v, D ** -0.5, causal,
+                                     return_lse=True)
+    np.testing.assert_allclose(lse.numpy(), lse_ref.numpy(), rtol=1e-4,
+                               atol=1e-5)
+
+
 @pytest.mark.parametrize("dtype,d,variant", [
     (BF16, 64, "sm90"), (BF16, 128, "sm90"), (BF16, 16, "f32"),
     (BF16, 32, "f32"), (torch.float32, 16, "f32"), (torch.float32, 32, "f32"),
@@ -185,8 +253,13 @@ def test_bwd_variant_refuses_unsupported_inputs(dtype, d):
 
 
 def test_lse_only_where_a_kernel_keeps_it():
-    """``return_lse``: the plain version gives (O, lse) with O unchanged;
-    meta tensors give an empty float32 (B, H, Tq) lse."""
+    """``return_lse``: every kernel keeps lse now (both forward entries take
+    its pointer, both backward entries read it); the plain version gives
+    (O, lse) with O unchanged; meta tensors give an empty float32
+    (B, H, Tq) lse."""
+    assert kfa._ENTRIES["f32"].argtypes == kfa._ENTRIES["sm90"].argtypes
+    assert kfa._BWD_ENTRIES["f32"].argtypes == \
+        kfa._BWD_ENTRIES["sm90"].argtypes
     q, k, v = [torch.from_numpy(a) for a in _inputs(8, (1, 2, 64, 16))]
     o, lse = kfa.flash_attention_fwd(q, k, v, 0.25, True, return_lse=True)
     assert torch.equal(o, kfa.flash_attention_fwd(q, k, v, 0.25, True))
