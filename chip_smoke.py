@@ -7,8 +7,8 @@ Run from the root of a checkout on a machine with a CUDA card and nvcc.
 It serves and trains the full-width flash-attention TransformerLM,
 trains ResNet-50 v1 through the port's own entry points (Gluon, and the
 symbolic path of ``Module.fit``) and the DCGAN example's two nets, runs
-the core op surface and ``MultiHeadAttention``, and holds every kernel
-against its plain version:
+the core op surface and ``MultiHeadAttention``, checkpoints, resumes and
+hot-reloads the LM, and holds every kernel against its plain version:
 
 1. setup: the card's name and power limit; build every kernel from
    ``mxnet_tpu_torch/csrc`` (one nvcc per source, in parallel); launch the
@@ -160,13 +160,48 @@ against its plain version:
    on the card each step, ``errD.backward()`` and ``errG.backward()`` on
    the (64,) loss vectors (finite losses, G's output in [-1, 1]), the
    step time and peak memory;
-13. a ``kernels`` JSON line (the forward kernels' ``launches`` are phase
+13. training state: every optimizer (the 13 of the JAX package and
+   RMSProp centered) takes ``OPT_STEPS`` float32 steps through
+   ``FusedUpdater.update_all`` on one LM layer's shapes
+   (``LAYER_SHAPES``) on the card and on the CPU, every parameter and
+   state within ``TOL_OPT_CARD`` of its largest; SGLD instead repeats
+   bitwise under one seed and draws from the card's generator; the
+   FusedUpdater equals the per-key Updater bitwise on the card for the
+   nine fused ones, in float32 and in bf16 with float32 masters.  Then the
+   full-width LM at phase 9's batch (bf16, float32 masters,
+   ``Trainer("adam")``, the parameters named ``lm_*``): run A takes
+   ``RESUME_SAVE_AT`` steps, ``checkpoint.save_trainer`` writes it once
+   synchronously and once through an async ``CheckpointManager`` into a
+   temporary directory under ``build/``, and it takes ``RESUME_STEPS`` more
+   while the write runs; run B takes the same steps uninterrupted; run C,
+   a fresh net and trainer, ``restore_or_initialize``s and takes the last
+   ``RESUME_STEPS``; the three runs use PyTorch's deterministic algorithms
+   (the embedding's backward sums without atomics): B's and C's losses and
+   parameters equal A's bitwise; 12 sm90 K1 and 12
+   sm90 K1b and one ``update_all`` per step; the checkpoint's size,
+   ``sync_save_s``, ``async_block_s``, ``async_total_s``,
+   ``block_ratio`` and ``restore_s``.  A bf16 ``BucketedPredictor`` over
+   the LM's symbol, built with B's weights, ``hot_reload``s the
+   directory: ``loaded_step`` is the saved step, ``SERVE_COMPILES`` stays
+   flat and the served logits are within ``TOL_RELOAD`` of the restored
+   net's eager ones.  Last, ``resnet18_v1`` in float32 (B=2, 64x64)
+   through ``Module.fit(checkpoint_dir=...)``, with no store and on the
+   ``tpu_sync`` store, under deterministic algorithms (with cuDNN's
+   default ones two identical fits differ in the last bits), stopped
+   after epoch 1 and resumed by a fresh Module, against an uninterrupted
+   fit (``TOL_MODULE_GLUON``, ``TOL_MODULE_AUX``), and
+   ``save_optimizer_states``/``load_optimizer_states`` bitwise.  Phases 9,
+   11 and 13 check one ``update_all`` per step and no per-key updater
+   call, and phases 9 and 11 print one optimizer step's kernel launches
+   beside the per-key loop's;
+14. a ``kernels`` JSON line (the forward kernels' ``launches`` are phase
    8's, with phase 9's as ``training_launches``, phase 11's LM leg's as
-   ``module_launches`` and phase 12's bf16 ``MultiHeadAttention`` runs' as
-   ``mha_launches``, its float32 runs' as ``mha_f32_launches``; the two K1b
-   kernels' are phase 9's main path, with phase 11's as
-   ``module_launches`` and phase 12's as ``mha_launches`` and
-   ``mha_f32_launches``, the f32 one's 0 on the main path; the f32
+   ``module_launches``, phase 12's bf16 ``MultiHeadAttention`` runs' as
+   ``mha_launches``, its float32 runs' as ``mha_f32_launches`` and phase
+   13's LM training steps' as ``resume_launches``; the two K1b kernels'
+   are phase 9's main path, with phase 11's as ``module_launches``, phase
+   12's as ``mha_launches`` and ``mha_f32_launches`` and phase 13's as
+   ``resume_launches``, the f32 one's 0 on the main path; the f32
    kernels' ``bound_ms`` at 3xTF32's rate, ``fma_bound_ms`` at the CUDA
    cores' float32 FMA rate),
    then the last line ``{"ok": true, "device": {...}}``.
@@ -182,6 +217,7 @@ epochs of 8 batches, on data drawn on the card (the same recipe, torch's
 generator in place of numpy's).  Phase 11's LM leg cuts the steps to 3.
 Phase 12's DCGAN runs 20 steps of upstream MXNet's example at its default
 widths (the JAX package's copy of the example defaults to narrower nets).
+Phase 13's LM runs cut the steps to 5 (3 before the checkpoint, 2 after).
 
 Times: ``device`` is the CUDA-event time of 20 back-to-back calls queued
 behind a spin kernel, per call (L2 warm): the kernels and the gaps between
@@ -198,12 +234,14 @@ Float32 comparisons run with TF32 off for matrix products and cuDNN
 Any failed check ends the script with a non-zero exit and no result line.
 Without a CUDA device, or outside a checkout, it exits non-zero at once.
 """
+import contextlib
 import json
 import math
 import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -1435,7 +1473,7 @@ def phase_train(mx):
     reset_counts()
     losses, walls, per_step = [], [], []
     for i in range(TRAIN_STEPS):
-        before = read_counts()
+        before, calls = read_counts(), dict(UPDATE_CALLS)
         t0 = time.perf_counter()
         with mx.autograd.record():
             loss = step(x, y)
@@ -1445,6 +1483,9 @@ def phase_train(mx):
             start, grad = weight.data().float(), weight.grad().float()
         trainer.step(TRAIN_BATCH)
         torch.cuda.synchronize()
+        u = {k: UPDATE_CALLS[k] - calls[k] for k in calls}
+        check(u == {"update_all": 1, "per_key": 0}, f"training step {i}: "
+              f"updater calls {u}; want one update_all, no per-key call")
         walls.append(time.perf_counter() - t0)
         if i == 0:
             master = trainer._updater.states[probe][1]
@@ -1511,6 +1552,16 @@ def phase_train(mx):
     else:
         print("  step kernel time not measured: torch.profiler saw no "
               "device time")
+    lo, hi = PER_KEY_STEP_MS["phase 9 LM"]
+    print(f"  one update_all per step, no per-key updater call; the median "
+          f"step {steady * 1e3:.1f} ms beside {lo}-{hi} ms with the per-key "
+          "updater")
+    live = list(enumerate(trainer._params))
+    print_optimizer_launches(
+        f"the optimizer step over {len(live)} parameters (SGD momentum, "
+        "float32 masters)", optimizer_launches(
+            trainer._updater, [i for i, _ in live],
+            [p.grad() for _, p in live], [p.data() for _, p in live]))
     return counts, {"step_ms": steady * 1e3, "peak_gib": peak / 2 ** 30,
                     "losses": losses}
 
@@ -1966,10 +2017,15 @@ def phase_module_resnet(mx, gluon):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
+    calls = dict(UPDATE_CALLS)
     marks.append(time.perf_counter())
     mod.fit(it, num_epoch=MODULE_EPOCHS, eval_metric=metric.metric,
             epoch_end_callback=epoch_end)
     counts = read_counts()
+    u = {k: UPDATE_CALLS[k] - calls[k] for k in calls}
+    check(u == {"update_all": MODULE_EPOCHS * MODULE_BATCHES, "per_key": 0},
+          f"Module.fit updater calls {u}; want one update_all per step "
+          "(the store's pushpull) and no per-key call")
     peak = torch.cuda.max_memory_allocated()
     losses = metric.materialize()
     epochs = [(b - a) * 1e3 for a, b in zip(marks, marks[1:])]
@@ -2031,7 +2087,19 @@ def phase_module_resnet(mx, gluon):
         print(f"  one Module step: the call returns after {enqueue:.1f} ms;"
               " kernel time not measured: torch.profiler saw no device "
               "time")
-    del mod, ex, it, data, labels
+    lo, hi = PER_KEY_STEP_MS["phase 11 ResNet-50 Module"]
+    print(f"  {u['update_all']} update_all calls in "
+          f"{MODULE_EPOCHS * MODULE_BATCHES} steps (the store's pushpull), "
+          f"no per-key updater call; the step {step:.1f} ms beside {lo}-{hi}"
+          " ms with the per-key updater")
+    kv = mod._kvstore
+    names = [n for n in mod._param_names if n in ex.grad_dict]
+    print_optimizer_launches(
+        f"the store's optimizer step over {len(names)} parameters (SGD "
+        "momentum, float32 masters)", optimizer_launches(
+            kv._updater, names, [ex.grad_dict[n] for n in names],
+            [kv._store[n] for n in names]))
+    del mod, ex, it, data, labels, kv
     return out
 
 
@@ -2146,13 +2214,16 @@ def phase_module_lm(mx, gluon):
     reset_counts()
     walls, per_step = [], []
     for _ in range(LM_MODULE_STEPS):
-        before = read_counts()
+        before, calls = read_counts(), dict(UPDATE_CALLS)
         t0 = time.perf_counter()
         mod.forward_backward(batch)
         mod.update()
         mod.update_metric(metric.metric, batch.label)
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3)
+        u = {k: UPDATE_CALLS[k] - calls[k] for k in calls}
+        check(u == {"update_all": 1, "per_key": 0}, f"Module LM step: "
+              f"updater calls {u}; want one update_all, no per-key call")
         after = read_counts()
         per_step.append({k: after[k] - before[k] for k in after})
     counts = read_counts()
@@ -2724,6 +2795,509 @@ def phase_dcgan(mx):
     return {"step_ms": step_ms, "first_ms": walls[0], "peak_gib": peak}
 
 
+# ---------------------------------------------------------------------------
+# phase 13: training state
+# ---------------------------------------------------------------------------
+# one layer of the LM, the shapes every optimizer steps on the card
+LAYER_SHAPES = {"ln1_gamma": (1024,), "ln1_beta": (1024,),
+                "attn_qkv_weight": (3072, 1024), "attn_qkv_bias": (3072,),
+                "attn_proj_weight": (1024, 1024), "attn_proj_bias": (1024,),
+                "ln2_gamma": (1024,), "ln2_beta": (1024,),
+                "ffn1_weight": (4096, 1024), "ffn1_bias": (4096,),
+                "ffn2_weight": (1024, 4096), "ffn2_bias": (1024,)}
+OPT_CASES = (("sgd", {"momentum": 0.9}), ("ccsgd", {"momentum": 0.9}),
+             ("nag", {"momentum": 0.9}), ("adam", {}), ("rmsprop", {}),
+             ("rmsprop", {"centered": True}), ("adagrad", {}),
+             ("adadelta", {}), ("ftrl", {}), ("adamax", {}), ("nadam", {}),
+             ("sgld", {}), ("dcasgd", {"momentum": 0.9}), ("test", {}))
+FUSED_OPTS = ("sgd", "ccsgd", "nag", "adam", "rmsprop", "adagrad",
+              "adadelta", "ftrl", "adamax")
+OPT_STEPS = 5
+# every parameter and state after OPT_STEPS, card against CPU (float32, the
+# same foreach ops; FMA contraction and reduction order differ): max |diff|
+# over the CPU value's largest magnitude
+TOL_OPT_CARD = 1e-5
+RESUME_SAVE_AT = 3      # steps before the checkpoint, then RESUME_STEPS more
+RESUME_STEPS = 2
+RESUME_LR = 1e-4        # Adam with float32 masters, bf16 weights
+RELOAD_SHAPE = (1, 64)  # the served request of the hot-reload check
+TOL_RELOAD = 3e-2       # served against eager bf16 logits, of the largest
+MODULE_CKPT_EPOCHS = 2  # resnet18_v1 f32 fit, stopped after epoch 1
+MODULE_CKPT_BATCHES = 2
+MODULE_CKPT_LR = 0.01
+# the steps' ranges with the per-key updater, before FusedUpdater became
+# the default (NVIDIA H100 80GB HBM3, 700 W; PERF.md §5): printed beside
+# phases 9 and 11's steps
+PER_KEY_STEP_MS = {"phase 9 LM": (57.0, 103.5),
+                   "phase 11 ResNet-50 Module": (154.3, 159.2)}
+UPDATE_CALLS = {"update_all": 0, "per_key": 0}
+LM_STATE_LAUNCHES = {}  # kernel launches of phase 13's LM training steps
+
+
+def count_updates(mx):
+    """Count ``FusedUpdater.update_all`` and per-key ``Updater.__call__``
+    calls in ``UPDATE_CALLS`` (the per-key calls that ``update_all`` makes
+    for a non-fused optimizer count too)."""
+    cls_all, cls_key = mx.optimizer.FusedUpdater, mx.optimizer.Updater
+    real_all, real_key = cls_all.update_all, cls_key.__call__
+
+    def update_all(self, *a, **k):
+        UPDATE_CALLS["update_all"] += 1
+        return real_all(self, *a, **k)
+
+    def per_key(self, *a, **k):
+        UPDATE_CALLS["per_key"] += 1
+        return real_key(self, *a, **k)
+
+    cls_all.update_all, cls_key.__call__ = update_all, per_key
+
+
+def optimizer_launches(updater, keys, grads, weights):
+    """The kernels of one ``update_all`` over ``keys`` and of the per-key
+    loop over the same parameters, by torch.profiler: (launches, ms) each,
+    or None where it saw no device time.  Both step the weights."""
+    def fused():
+        updater.update_all(keys, grads, weights)
+
+    def per_key():
+        for k, g, w in zip(keys, grads, weights):
+            updater(k, g, w)
+
+    out = []
+    for fn in (fused, per_key):
+        fn()                                  # states exist, warm
+        rows = kernel_rows(fn)
+        out.append((sum(r[1] for r in rows), sum(r[0] for r in rows))
+                   if rows else None)
+    return out
+
+
+def print_optimizer_launches(what, got):
+    (fused, per_key) = got
+    if fused is None or per_key is None:
+        print(f"  {what}: optimizer kernels not measured (torch.profiler saw "
+              "no device time)")
+        return
+    print(f"  {what}: one update_all {fused[0]} kernel launches, "
+          f"{fused[1]:.3f} ms of kernel time; the per-key loop over the "
+          f"same parameters {per_key[0]} launches, {per_key[1]:.3f} ms")
+
+
+def layer_data(np, seed=0):
+    rs = np.random.RandomState(seed)
+    w0 = [(0.02 * rs.randn(*s)).astype(np.float32)
+          for s in LAYER_SHAPES.values()]
+    grads = [[rs.randn(*s).astype(np.float32)
+              for s in LAYER_SHAPES.values()] for _ in range(OPT_STEPS)]
+    return w0, grads
+
+
+def run_optimizer(mx, name, kw, ctx, data, dtype="float32", fused=True,
+                  **extra):
+    w0, grads = data
+    opt = mx.optimizer.create(name, learning_rate=0.01, wd=1e-4,
+                              rescale_grad=1.0 / TRAIN_BATCH, **kw, **extra)
+    upd = mx.optimizer.get_updater(opt) if fused \
+        else mx.optimizer.Updater(opt)
+    ws = [mx.nd.array(w, ctx=ctx, dtype=dtype) for w in w0]
+    keys = list(range(len(ws)))
+    for step in grads:
+        gs = [mx.nd.array(g, ctx=ctx, dtype=dtype) for g in step]
+        if fused:
+            upd.update_all(keys, gs, ws)
+        else:
+            for k, g, w in zip(keys, gs, ws):
+                upd(k, g, w)
+    return ws, upd
+
+
+def state_leaves(state):
+    if state is None:
+        return []
+    if isinstance(state, (tuple, list)):
+        return [a for s in state for a in state_leaves(s)]
+    return [state]
+
+
+def phase_optimizers(mx):
+    """Every optimizer on one LM layer's shapes: OPT_STEPS float32 steps
+    through ``update_all`` on the card against the same on the CPU; SGLD's
+    draws repeated under one seed and taken from the card's generator;
+    the FusedUpdater against the per-key Updater on the card, bitwise, in
+    float32 and in bf16 with float32 masters."""
+    import numpy as np
+    import torch
+    data = layer_data(np)
+    gpu, cpu = mx.gpu(0), mx.cpu()
+    for name, kw in OPT_CASES:
+        if name == "sgld":
+            continue
+        t0 = time.perf_counter()
+        cw, cu = run_optimizer(mx, name, kw, cpu, data)
+        gw, gu = run_optimizer(mx, name, kw, gpu, data)
+        torch.cuda.synchronize()
+        errs, devices = [], set()
+        for k in range(len(cw)):
+            for a, b in zip([gw[k]] + state_leaves(gu.states[k]),
+                            [cw[k]] + state_leaves(cu.states[k])):
+                devices.add(a.device.type)
+                scale = b.abs().max().item()
+                errs.append((a.cpu() - b).abs().max().item() /
+                            (scale if scale else 1.0))
+        check(devices == {"cuda"}, f"{name}: weights and states on "
+              f"{devices}, not all on the card")
+        err = max(errs)
+        print(f"  {name} {kw or ''}: {OPT_STEPS} steps on the card against "
+              f"the CPU, {len(errs)} tensors, max |diff| over each one's "
+              f"largest {err:.3e} ({time.perf_counter() - t0:.1f} s)")
+        check(err <= TOL_OPT_CARD, f"{name} {kw}: card against CPU {err:.3e}"
+              f" (limit {TOL_OPT_CARD})")
+    # SGLD: random, so repeated under a seed and drawn on the card
+    dev, host = gpu.torch_device(), torch.device("cpu")
+    runs = []
+    for _ in range(2):
+        mx.random.seed(11)
+        before = {d: mx.random.generator(d).get_state() for d in (dev, host)}
+        ws, _ = run_optimizer(mx, "sgld", {}, gpu, data)
+        runs.append(ws)
+        check(not torch.equal(before[dev],
+                              mx.random.generator(dev).get_state()),
+              "SGLD drew nothing from the card's generator")
+        check(torch.equal(before[host],
+                          mx.random.generator(host).get_state()),
+              "SGLD drew from the CPU generator")
+    check(all(torch.equal(a, b) for a, b in zip(*runs)),
+          "SGLD does not repeat under one seed")
+    print("  sgld: bitwise equal under one seed, drawn from the CUDA "
+          "generator (the CPU generator untouched)")
+    # fused against per-key, bitwise
+    for dtype in ("float32", "bfloat16"):
+        mp = {"multi_precision": True} if dtype == "bfloat16" else {}
+        for name, kw in OPT_CASES:
+            if name not in FUSED_OPTS:
+                continue
+            fw, fu = run_optimizer(mx, name, kw, gpu, data, dtype, True,
+                                   **mp)
+            kw_, ku = run_optimizer(mx, name, kw, gpu, data, dtype, False,
+                                    **mp)
+            same = all(torch.equal(a, b) for a, b in zip(fw, kw_)) and all(
+                torch.equal(x, y) for k in fu.states for x, y in zip(
+                    state_leaves(fu.states[k]), state_leaves(ku.states[k])))
+            check(same, f"{name} {kw} {dtype}: FusedUpdater and the per-key "
+                  "Updater differ on the card")
+        print(f"  FusedUpdater against the per-key Updater on the card, "
+              f"{dtype}{' with float32 masters' if mp else ''}: bitwise "
+              f"equal in all {sum(n in FUSED_OPTS for n, _ in OPT_CASES)} "
+              "cases of the fused optimizers")
+
+
+def lm_train_setup(mx, seed=0):
+    """Phase 9's net and TrainStep under the name prefix ``lm_`` (every
+    net of this phase has the same parameter names), bf16 with float32
+    masters, ``Trainer("adam")``."""
+    import numpy as np
+    from mxnet_tpu_torch.gluon.model_zoo.transformer import TransformerLM
+    mx.random.seed(seed)
+    net = TransformerLM(**CONFIG, attn_type="flash", prefix="lm_")
+    net.initialize(mx.init.Xavier(), ctx=mx.gpu(0))
+    net(mx.nd.array(np.zeros((1, 8), np.float32), ctx=mx.gpu(0)))
+    step = train_step_block(mx, net)
+    step.cast("bfloat16")
+    trainer = mx.gluon.Trainer(step.collect_params(), "adam",
+                               {"learning_rate": RESUME_LR,
+                                "multi_precision": True})
+    return net, step, trainer
+
+
+def lm_batches(mx):
+    import numpy as np
+    rs = np.random.RandomState(1)
+    out = []
+    for _ in range(RESUME_SAVE_AT + RESUME_STEPS):
+        toks = rs.randint(0, CONFIG["vocab"], (TRAIN_BATCH,
+                                               CONFIG["max_len"] + 1))
+        out.append((mx.nd.array(toks[:, :-1].astype(np.float32),
+                                ctx=mx.gpu(0)),
+                    mx.nd.array(toks[:, 1:].astype(np.float32),
+                                ctx=mx.gpu(0))))
+    return out
+
+
+@contextlib.contextmanager
+def deterministic():
+    """PyTorch's deterministic algorithms, for phase 13's resume
+    comparisons only: the embedding's backward then sums without atomics,
+    and cuDNN takes deterministic weight-gradient algorithms (with its
+    default ones two identical fits differ from their first batch's
+    gradients on: ``experiments/resume_determinism.py``)."""
+    import torch
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def lm_steps(mx, step, trainer, batches, rec):
+    """One training step per batch, under deterministic algorithms:
+    losses, host times, launches and update calls per step into
+    ``rec``."""
+    import torch
+    L = CONFIG["num_layers"]
+    for x, y in batches:
+        before, calls = read_counts(), dict(UPDATE_CALLS)
+        t0 = time.perf_counter()
+        with deterministic():
+            with mx.autograd.record():
+                loss = step(x, y)
+            loss.backward()
+            trainer.step(TRAIN_BATCH)
+            torch.cuda.synchronize()
+        rec["walls"].append((time.perf_counter() - t0) * 1e3)
+        rec["losses"].append(loss.item())
+        after = read_counts()
+        c = {k: after[k] - before[k] for k in after}
+        for k, v in c.items():
+            LM_STATE_LAUNCHES[k] = LM_STATE_LAUNCHES.get(k, 0) + v
+        u = {k: UPDATE_CALLS[k] - calls[k] for k in calls}
+        check(c["flash_attention.sm90"] == L and c["flash_attention.f32"] == 0
+              and c["flash_attention.bwd.sm90"] == L
+              and c["flash_attention.bwd.f32"] == 0,
+              f"phase 13 LM step: launches {c}; want {L} sm90 K1 and {L} "
+              "sm90 K1b, none on f32")
+        check(u == {"update_all": 1, "per_key": 0}, f"phase 13 LM step: "
+              f"updater calls {u}; want one update_all and no per-key call")
+
+
+def lm_params(trainer):
+    return [p.data().detach().clone() for p in trainer._params]
+
+
+def dir_gib(path):
+    return sum(os.path.getsize(os.path.join(r, f))
+               for r, _, fs in os.walk(path) for f in fs) / 2 ** 30
+
+
+def phase_resume(mx, root):
+    """The full-width LM through ``Trainer("adam")``: run A takes
+    RESUME_SAVE_AT steps, is checkpointed (sync, then async into
+    ``root``) and takes RESUME_STEPS more while the async write runs; run
+    B takes the same steps uninterrupted; run C, a fresh net and trainer, restores from
+    ``root`` and takes the last RESUME_STEPS.  B and C equal A bitwise.
+    Then a bf16 BucketedPredictor over the LM's symbol hot-reloads
+    ``root``."""
+    import gc
+    import shutil
+    import numpy as np
+    import torch
+    from mxnet_tpu_torch import checkpoint as ckpt
+    from mxnet_tpu_torch.observability import metrics as M
+    from mxnet_tpu_torch.serving import BucketedPredictor
+    gc.collect()
+    torch.cuda.empty_cache()
+    batches = lm_batches(mx)
+    recs = {k: {"walls": [], "losses": []} for k in "ABC"}
+    # run A: the checkpointed run
+    net, step, trainer = lm_train_setup(mx)
+    lm_steps(mx, step, trainer, batches[:RESUME_SAVE_AT], recs["A"])
+    params = {p.name: p for p in trainer._params}
+    sync_dir = os.path.join(root, "sync")
+    t0 = time.perf_counter()
+    ckpt.save_trainer(ckpt.CheckpointManager(sync_dir, async_save=False),
+                      RESUME_SAVE_AT, params, trainer)
+    sync_save = time.perf_counter() - t0
+    gib = dir_gib(sync_dir)
+    shutil.rmtree(sync_dir)
+    mgr = ckpt.CheckpointManager(os.path.join(root, "async"))
+    t0 = time.perf_counter()
+    ckpt.save_trainer(mgr, RESUME_SAVE_AT, params, trainer)
+    async_block = time.perf_counter() - t0
+    lm_steps(mx, step, trainer, batches[RESUME_SAVE_AT:], recs["A"])
+    mgr.wait()
+    async_total = time.perf_counter() - t0
+    mgr.close()
+    want = lm_params(trainer)
+    del net, step, trainer, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    # run B: uninterrupted, as A is
+    net, step, trainer = lm_train_setup(mx)
+    lm_steps(mx, step, trainer, batches, recs["B"])
+    serve_init = {p.name: p.data().detach().clone() for p in trainer._params
+                  if not p.name.startswith("trainstep")}
+    again = lm_params(trainer)
+    del net, step, trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    # run C: a fresh net and trainer resume from the checkpoint
+    net, step, trainer = lm_train_setup(mx, seed=5)
+    t0 = time.perf_counter()
+    got_step = ckpt.restore_or_initialize(
+        ckpt.CheckpointManager(os.path.join(root, "async")),
+        {p.name: p for p in trainer._params}, trainer)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    check(got_step == RESUME_SAVE_AT, f"restored step {got_step}, want "
+          f"{RESUME_SAVE_AT}")
+    counts_t = trainer._optimizer._index_update_count
+    check(set(counts_t.values()) == {RESUME_SAVE_AT},
+          f"restored update counts {set(counts_t.values())}")
+    # the served hot reload, against the restored net's eager logits
+    ids = np.random.RandomState(2).randint(
+        0, CONFIG["vocab"], RELOAD_SHAPE).astype(np.float32)
+    eager = net(mx.nd.array(ids, ctx=mx.gpu(0))).float()
+    pred = BucketedPredictor(net(mx.sym.var("data")), serve_init,
+                             {"data": RELOAD_SHAPE}, batch_buckets=[1],
+                             dev=mx.gpu(0)).warmup()
+    compiles = M.SERVE_COMPILES.value
+
+    def served():
+        return torch.from_numpy(np.asarray(pred.predict(data=ids)[0],
+                                           dtype=np.float32))
+
+    before_reload = served()
+    t0 = time.perf_counter()
+    loaded = pred.hot_reload(os.path.join(root, "async"))
+    reload_s = time.perf_counter() - t0
+    after_reload = served()
+    scale = eager.abs().max().item()
+    reload_err = (after_reload - eager.cpu()).abs().max().item() / scale
+    moved = (before_reload - eager.cpu()).abs().max().item() / scale
+    print(f"  hot reload: loaded_step {loaded} in {reload_s:.2f} s; served "
+          f"bf16 logits {RELOAD_SHAPE} against the restored net's eager "
+          f"logits: max |diff| over the largest {reload_err:.3e} (limit "
+          f"{TOL_RELOAD}; {moved:.3e} before the reload); SERVE_COMPILES "
+          f"{compiles:.0f} -> {M.SERVE_COMPILES.value:.0f}")
+    check(loaded == RESUME_SAVE_AT and pred.loaded_step == RESUME_SAVE_AT,
+          f"hot_reload loaded step {loaded}")
+    check(M.SERVE_COMPILES.value == compiles, "the hot reload built buckets")
+    check(reload_err <= TOL_RELOAD, f"served logits after the reload differ "
+          f"by {reload_err:.3e}")
+    pred.close()
+    del pred, eager
+    lm_steps(mx, step, trainer, batches[RESUME_SAVE_AT:], recs["C"])
+    got = lm_params(trainer)
+    del net, step, trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    def differ(xs, ys):
+        """How many tensors are not bitwise equal, and the largest |diff|
+        over its tensor's largest."""
+        return (sum(not torch.equal(a, b) for a, b in zip(xs, ys)),
+                max(((a.float() - b.float()).abs().max()
+                     / b.float().abs().max().clamp_min(1e-30)).item()
+                    for a, b in zip(xs, ys)))
+
+    a_losses = recs["A"]["losses"]
+    b_n, b_rel = differ(again, want)
+    c_n, c_rel = differ(got, want)
+    print(f"  LM resume, bf16 with float32 masters, Adam lr {RESUME_LR}, "
+          f"B={TRAIN_BATCH} T={CONFIG['max_len']}, deterministic "
+          f"algorithms: losses A {a_losses}, B {recs['B']['losses']}, C "
+          f"(resumed) {recs['C']['losses']}")
+    print(f"  against A, of {len(want)} tensors: B (uninterrupted) {b_n} "
+          f"differ, max |diff| over the largest {b_rel:.3e}; C (resumed) "
+          f"{c_n} differ, {c_rel:.3e}")
+    check(b_n == 0 and recs["B"]["losses"] == a_losses, "two uninterrupted "
+          "LM runs differ under deterministic algorithms")
+    check(c_n == 0 and recs["C"]["losses"] == a_losses[RESUME_SAVE_AT:],
+          "the resumed LM run differs from the uninterrupted one")
+    step_b = statistics.median(recs["B"]["walls"][1:])
+    overlapped = recs["A"]["walls"][RESUME_SAVE_AT:]
+    print(f"  checkpoint: {gib:.3f} GiB ({len(want)} parameters, float32 "
+          f"masters and Adam moments); sync_save_s {sync_save:.3f}, "
+          f"async_block_s {async_block:.3f}, async_total_s {async_total:.3f}"
+          f" (save to committed, {RESUME_STEPS} steps overlapped), "
+          f"block_ratio {async_block / sync_save:.4f}, restore_s "
+          f"{restore_s:.3f}")
+    print(f"  steps overlapping the async write {[round(w, 1) for w in overlapped]}"
+          f" ms against the uninterrupted run's median {step_b:.1f} ms")
+    return dict(LM_STATE_LAUNCHES)
+
+
+def phase_module_checkpoint(mx, root):
+    """resnet18_v1 in float32 (B=2, 64x64) through
+    ``Module.fit(checkpoint_dir=...)``, with no store and on the
+    ``tpu_sync`` store (the optimizer on its ``pushpull``, ``bench.py``'s):
+    stopped after epoch 1 and resumed by a fresh Module, against an
+    uninterrupted fit, under deterministic algorithms; then
+    ``save_optimizer_states``/``load_optimizer_states`` round-tripped."""
+    import numpy as np
+    import torch
+    from mxnet_tpu_torch import checkpoint as ckpt
+    rs = np.random.RandomState(4)
+    n = GRAD_VISION_SHAPE[0] * MODULE_CKPT_BATCHES
+    xs = rs.normal(size=(n,) + GRAD_VISION_SHAPE[1:]).astype(np.float32)
+    ys = rs.randint(0, 1000, n).astype(np.float32)
+    sym = resnet_symbol(mx, "resnet18_v1")
+
+    def fit(epochs, kvstore, ckpt_dir=None):
+        mx.random.seed(0)
+        mod = mx.mod.Module(sym, context=mx.gpu(0))
+        it = mx.io.NDArrayIter(mx.nd.array(xs, ctx=mx.gpu(0)),
+                               mx.nd.array(ys, ctx=mx.gpu(0)),
+                               batch_size=GRAD_VISION_SHAPE[0])
+        calls = dict(UPDATE_CALLS)
+        with deterministic():
+            mod.fit(it, num_epoch=epochs, kvstore=kvstore,
+                    checkpoint_dir=ckpt_dir, optimizer="sgd",
+                    optimizer_params={"learning_rate": MODULE_CKPT_LR,
+                                      "momentum": 0.9, "wd": 1e-4},
+                    initializer=mx.init.Xavier(rnd_type="gaussian",
+                                               factor_type="in",
+                                               magnitude=2))
+        return mod, {k: UPDATE_CALLS[k] - calls[k] for k in calls}
+
+    start = fit(0, "local")[0].get_params()[0]   # the weights fit starts from
+    for kvstore in ("local", "tpu_sync"):
+        want, calls = fit(MODULE_CKPT_EPOCHS, kvstore)
+        check(bool(want._update_on_kvstore) == (kvstore == "tpu_sync"),
+              f"Module.fit({kvstore}): update_on_kvstore "
+              f"{want._update_on_kvstore}")
+        check(calls == {"update_all": MODULE_CKPT_EPOCHS * MODULE_CKPT_BATCHES,
+                        "per_key": 0},
+              f"Module.fit({kvstore}) updater calls {calls}")
+        d = os.path.join(root, f"module-{kvstore}")
+        fit(1, kvstore, d)
+        got, _ = fit(MODULE_CKPT_EPOCHS, kvstore, d)
+        check(ckpt.all_steps(d) == [1, MODULE_CKPT_EPOCHS],
+              f"Module checkpoints {ckpt.all_steps(d)}")
+        w_arg, w_aux = want.get_params()
+        arg, aux = got.get_params()
+        param_err = max(((arg[k] - w_arg[k]).abs().max()
+                         / (w_arg[k] - start[k]).abs().max().clamp_min(1e-30)
+                         ).item() for k in w_arg)
+        aux_err = max((aux[k] - w_aux[k]).abs().max().item() for k in w_aux)
+        bitwise = all(torch.equal(arg[k], w_arg[k]) for k in w_arg) and all(
+            torch.equal(aux[k], w_aux[k]) for k in w_aux)
+        print(f"  resnet18_v1 f32 B={GRAD_VISION_SHAPE[0]}, "
+              f"{MODULE_CKPT_BATCHES} batches an epoch, kvstore {kvstore!r}"
+              f" (update on the store: {want._update_on_kvstore}), "
+              f"Module.fit(checkpoint_dir) stopped after epoch 1 and "
+              f"resumed, against an uninterrupted {MODULE_CKPT_EPOCHS}-epoch"
+              f" fit: parameters max |diff| over each one's largest change "
+              f"{param_err:.3e}, moving statistics {aux_err:.3e} (limits "
+              f"{TOL_MODULE_GLUON}, {TOL_MODULE_AUX}); bitwise equal: "
+              f"{bitwise}")
+        check(param_err <= TOL_MODULE_GLUON, f"resumed Module ({kvstore}) "
+              f"parameters differ by {param_err:.3e}")
+        check(aux_err <= TOL_MODULE_AUX, f"resumed Module ({kvstore}) "
+              f"moving statistics differ by {aux_err:.3e}")
+    fname = os.path.join(root, "resnet18.states")
+    updater = got._state_updater()
+    states = {k: [t.clone() for t in state_leaves(s)]
+              for k, s in updater.states.items()}
+    got.save_optimizer_states(fname)
+    got.load_optimizer_states(fname)
+    updater = got._state_updater()
+    round_trip = all(torch.equal(a.cpu(), b.cpu()) for k, s in
+                     updater.states.items()
+                     for a, b in zip(state_leaves(s), states[k]))
+    print(f"  save/load_optimizer_states ({kvstore}) bitwise: {round_trip}")
+    check(round_trip, "Module optimizer states did not round-trip bitwise")
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2741,6 +3315,7 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
     L = CONFIG["num_layers"]
+    count_updates(mx)
     try:
         print("== phase 1: setup")
         k0 = phase_setup(mx)
@@ -2792,6 +3367,16 @@ def main():
         mha_counts, mha_f32_counts, _ = phase_mha(mx)
         phase_dcgan(mx)
         print(f"phase 12: {time.perf_counter() - t_core:.1f} s")
+        print("== phase 13: training state (optimizers, checkpoints, "
+              "resume, hot reload)")
+        t_state = time.perf_counter()
+        phase_optimizers(mx)
+        os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+        with tempfile.TemporaryDirectory(
+                dir=os.path.join(ROOT, "build")) as root:
+            state_counts = phase_resume(mx, root)
+            phase_module_checkpoint(mx, root)
+        print(f"phase 13: {time.perf_counter() - t_state:.1f} s")
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -2912,11 +3497,14 @@ def main():
         entry["module_launches"] = module_counts[f"flash_attention.{variant}"]
         entry["mha_launches"] = mha_counts[variant]
         entry["mha_f32_launches"] = mha_f32_counts[variant]
+        entry["resume_launches"] = state_counts[f"flash_attention.{variant}"]
     for entry, variant in zip(kernels_line["kernels"][3:5], ("sm90", "f32")):
         entry["module_launches"] = module_counts[
             f"flash_attention.bwd.{variant}"]
         entry["mha_launches"] = mha_counts[f"bwd.{variant}"]
         entry["mha_f32_launches"] = mha_f32_counts[f"bwd.{variant}"]
+        entry["resume_launches"] = state_counts[
+            f"flash_attention.bwd.{variant}"]
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(kernels_line))
     print(json.dumps({"ok": True, "device": {

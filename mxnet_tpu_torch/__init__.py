@@ -20,8 +20,10 @@ PyTorch's cuDNN convolutions.  The symbolic path trains a Symbol:
 ``Symbol.simple_bind``/``bind`` give an ``mx.executor.Executor``,
 ``mx.mod.Module`` fits it from ``mx.io`` iterators through ``mx.kv``
 (``mx.kvstore``), with ``mx.model`` checkpoints, ``mx.callback`` and
-``mx.monitor``.  It imports torch and numpy, never jax or the JAX
-package.
+``mx.monitor``.  ``mx.checkpoint`` writes atomic, validated checkpoint
+directories (async, with retention) that resume a Trainer or a
+``Module.fit`` and hot-reload a served predictor.  It imports torch and
+numpy, never jax or the JAX package.
 """
 
 __version__ = "1.0.0.torch0"
@@ -61,3 +63,4 @@ from . import module
 from . import module as mod
 from . import callback
 from . import monitor
+from . import checkpoint

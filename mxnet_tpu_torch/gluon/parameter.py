@@ -57,6 +57,29 @@ class Parameter:
     def __repr__(self):
         return f"Parameter {self.name} (shape={self.shape}, dtype={self.dtype})"
 
+    def __getstate__(self):
+        """What ``Updater.get_states(dump_optimizer=True)`` pickles through
+        the optimizer's ``param_dict``: the reference's attribute names
+        without the data (a loading Trainer points ``param_dict`` back at
+        its live parameters), the owning blocks or the symbol variable, and
+        the dtype by name (bfloat16's numpy dtype needs ml_dtypes)."""
+        state = self.__dict__.copy()
+        state.update(_data=None, _var=None, _owners=[],
+                     dtype=np_dtype(self.dtype).name)
+        return state
+
+    def __setstate__(self, state):
+        """Also a reference Parameter's ``__dict__``: its ``_data`` and
+        ``_grad`` arrays are dropped, and it gains the port's
+        ``_owners``."""
+        state = dict(state, _data=None, _var=None, _owners=[])
+        state.pop("_grad", None)
+        try:
+            state["dtype"] = np_dtype(state.get("dtype"))
+        except (MXNetError, TypeError):
+            pass
+        self.__dict__.update(state)
+
     @property
     def is_deferred(self) -> bool:
         return self._data is None and bool(self._deferred_init)

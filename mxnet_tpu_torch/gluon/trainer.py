@@ -4,28 +4,38 @@ The counterpart of ``mxnet_tpu/gluon/trainer.py`` on one device: it
 applies an Optimizer to a ParameterDict.  The kvstore follows the JAX
 package's rules (``model._create_kvstore``): on one device a kvstore name
 without "dist" or "tpu" gives none, and ``step`` is ``update`` with the
-gradients rescaled by 1/batch_size through the per-parameter ``Updater``;
-a ``KVStore`` instance, or a "tpu"/"nccl" name, gives a one-device store,
-created at the first step, and ``step`` pushes each gradient to it and
-pulls the weight back (``pushpull``): the optimizer runs on the store,
-unless ``update_on_kvstore=False``, where the store only reduces (over one
-device) and the ``Updater`` runs here.
+gradients rescaled by 1/batch_size through the ``FusedUpdater``, one
+``update_all`` over every live parameter (``MXNET_FUSED_TRAINER=0`` pins
+the per-key loop: kept only because the JAX package reads the same
+variable, it gives the same bits more slowly); a ``KVStore`` instance, or
+a "tpu"/"nccl" name, gives a one-device store, created at the first step,
+and ``step`` pushes the gradients to it and pulls the weights back
+(``pushpull``): the optimizer runs on the store, unless
+``update_on_kvstore=False``, where the store only reduces (over one
+device) and the updater runs here.
 
 A gradient that no backward has rewritten since the last step raises
 ``UserWarning`` (the reference's stale-gradient error), or with
 ``ignore_stale_grad=True`` leaves its parameter out of the update (the
 kvstore route masks nothing, as in the reference).
 
+``save_states`` / ``load_states`` (and their bytes forms, the checkpoint
+module's surface) write and read the JAX package's files: without
+gradient compression or a loss scaler, the raw updater pickle with the
+optimizer.  After a load the optimizer's ``param_dict`` points back at
+this trainer's parameters.
+
 Not ported yet, and raising ``NotImplementedError`` that names the item:
 a distributed kvstore (ROADMAP.md, queue item 6), parameters on several
-devices (item 6), gradient compression and ``save_states`` /
-``load_states`` (queue item 4: the JAX package pickles its optimizer
-objects there).
+devices (item 6), gradient compression and the fp16 loss scaler (queue
+item 4), also where a state file carries their state.
 """
 from __future__ import annotations
 
 from .. import optimizer as opt
+from ..base import MXNetError, getenv
 from ..model import _create_kvstore
+from ..ndarray import ndarray as _nd
 from .parameter import Parameter, ParameterDict
 
 
@@ -60,17 +70,21 @@ class Trainer:
         self._kvstore = kvstore
         self._update_on_kvstore_arg = update_on_kvstore
         self._kv_initialized = False
+        self._fused = bool(getenv("MXNET_FUSED_TRAINER", True))
+
+    def _param_dict(self):
+        return {i: param for i, param in enumerate(self._params)}
 
     def _init_optimizer(self, optimizer, optimizer_params):
-        param_dict = {i: param for i, param in enumerate(self._params)}
         if isinstance(optimizer, opt.Optimizer):
             if optimizer_params:
                 raise ValueError("optimizer_params must be None if optimizer "
                                  "is an Optimizer instance")
             self._optimizer = optimizer
-            self._optimizer.param_dict = param_dict
+            self._optimizer.param_dict = self._param_dict()
         else:
-            self._optimizer = opt.create(optimizer, param_dict=param_dict,
+            self._optimizer = opt.create(optimizer,
+                                         param_dict=self._param_dict(),
                                          **optimizer_params)
         self._updater = opt.get_updater(self._optimizer)
 
@@ -168,12 +182,60 @@ class Trainer:
             raise ValueError("update() when the optimizer runs on the "
                              "kvstore: call step() instead")
         self._optimizer.rescale_grad = self._scale / batch_size
-        for i, p in self._live(ignore_stale_grad):
-            self._updater(i, p.grad(), p.data())
+        live = self._live(ignore_stale_grad)
+        if self._fused:
+            self._updater.update_all([i for i, _ in live],
+                                     [p.grad() for _, p in live],
+                                     [p.data() for _, p in live])
+        else:
+            for i, p in live:
+                self._updater(i, p.grad(), p.data())
+        for _, p in live:
             p.fresh_grad = False
 
+    # -- optimizer states ----------------------------------------------------
+    def _state_updater(self):
+        if not self._kv_initialized:
+            self._init_kvstore()
+        if self._update_on_kvstore:
+            if self._kv._updater is None:
+                raise MXNetError("no optimizer set")
+            return self._kv._updater
+        return self._updater
+
+    def get_states_bytes(self) -> bytes:
+        """The updater's states with the optimizer, as ``save_states``
+        writes them (the checkpoint module's trainer surface)."""
+        return self._state_updater().get_states(dump_optimizer=True)
+
+    def set_states_bytes(self, payload: bytes) -> None:
+        """Inverse of ``get_states_bytes``; also reads the JAX package's
+        files, raw or in its ``__mxt_trainer_states__`` wrapper.  A
+        wrapper carrying compression residuals or a loss scaler raises
+        ``NotImplementedError`` before anything is loaded."""
+        updater = self._state_updater()
+        obj = _nd.loads(payload)
+        if isinstance(obj, dict) and obj.get("__mxt_trainer_states__") == 1:
+            extras = [k for k in ("bucket", "kv_residuals", "scaler")
+                      if obj.get(k)]
+            if extras:
+                raise NotImplementedError(
+                    f"Trainer.set_states_bytes: the file carries {extras}: "
+                    "gradient compression and the fp16 loss scaler are not "
+                    "ported yet (ROADMAP.md, queue item 4)")
+            payload = obj["updater"]
+        updater.set_states(payload)
+        self._optimizer = updater.optimizer
+        self._optimizer.param_dict = self._param_dict()
+        if self._update_on_kvstore:
+            self._kv._optimizer = self._optimizer
+        else:
+            self._updater = updater
+
     def save_states(self, fname):
-        raise NotImplementedError(f"Trainer.save_states: {opt._STATES_ITEM}")
+        """Write the states to ``fname`` atomically (``nd.write_atomic``)."""
+        _nd.write_atomic(fname, self.get_states_bytes())
 
     def load_states(self, fname):
-        raise NotImplementedError(f"Trainer.load_states: {opt._STATES_ITEM}")
+        with open(fname, "rb") as f:
+            self.set_states_bytes(f.read())

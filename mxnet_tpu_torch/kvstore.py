@@ -7,11 +7,14 @@ optimizer to the stored weight (``set_optimizer``: update on the store) or
 stores the sum; ``pull`` copies the stored value into the outputs, in
 place.  ``nccl`` and ``tpu_sync`` on one device reduce over that device
 alone, as the JAX store does when it has one worker, so no collective
-runs.  ``rank`` is 0 and ``num_workers`` 1.
+runs.  ``rank`` is 0 and ``num_workers`` 1.  A push over a list of keys
+makes one ``FusedUpdater.update_all`` call; ``save_optimizer_states`` /
+``load_optimizer_states`` write and read the updater's states in the JAX
+package's format.
 
 Not ported, and raising ``NotImplementedError`` that names the queue item
-(ROADMAP.md): the ``dist_*`` types and ``row_sparse_pull`` (item 6),
-gradient compression and ``save/load_optimizer_states`` (item 4).
+(ROADMAP.md): the ``dist_*`` types and ``row_sparse_pull`` (item 6) and
+gradient compression (item 4).
 """
 from __future__ import annotations
 
@@ -21,12 +24,12 @@ import torch
 
 from . import optimizer as opt
 from .base import MXNetError
+from .ndarray.ndarray import write_atomic
 
 _TYPES = ("local", "device", "local_allreduce_cpu", "local_allreduce_device",
           "nccl", "tpu_sync", "dist", "dist_sync", "dist_async",
           "dist_device_sync", "dist_sync_device")
-_ITEM4 = "not ported yet (ROADMAP.md, queue item 4: the fused step and " \
-         "checkpoints)"
+_ITEM4 = "not ported yet (ROADMAP.md, queue item 4)"
 
 
 def _key_list(key):
@@ -77,16 +80,23 @@ class KVStore:
         an optimizer is set, else store the sum (parity:
         kvstore_local.h:191, assign, not accumulate)."""
         keys, is_list = _key_list(key)
+        merged = []
         for k, vlist in zip(keys, _val_list(value, len(keys), is_list)):
             if k not in self._store:
                 raise MXNetError(f"key {k} has not been inited")
-            merged = vlist[0]
+            m = vlist[0]
             for v in vlist[1:]:
-                merged = merged + v.to(merged.device)
-            if self._updater is not None:
-                self._updater(_updater_key(k), merged, self._store[k])
-            else:
-                self._store[k] = merged.detach().clone()
+                m = m + v.to(m.device)
+            merged.append(m)
+        if isinstance(self._updater, opt.FusedUpdater):
+            self._updater.update_all([_updater_key(k) for k in keys], merged,
+                                     [self._store[k] for k in keys])
+        elif self._updater is not None:
+            for k, m in zip(keys, merged):
+                self._updater(_updater_key(k), m, self._store[k])
+        else:
+            for k, m in zip(keys, merged):
+                self._store[k] = m.detach().clone()
 
     def pull(self, key, out=None, priority: int = 0) -> None:
         """Copy each key's stored value into its outputs, in place."""
@@ -134,14 +144,19 @@ class KVStore:
         return 0
 
     def save_optimizer_states(self, fname: str, dump_optimizer=False):
-        raise NotImplementedError(
-            f"KVStore.save_optimizer_states: optimizer-state files are "
-            f"{_ITEM4}")
+        """Write the updater's states (and the optimizer, with
+        ``dump_optimizer``) to ``fname`` atomically
+        (``nd.write_atomic``)."""
+        if self._updater is None:
+            raise MXNetError("no optimizer set")
+        write_atomic(fname, self._updater.get_states(dump_optimizer))
 
     def load_optimizer_states(self, fname: str):
-        raise NotImplementedError(
-            f"KVStore.load_optimizer_states: optimizer-state files are "
-            f"{_ITEM4}")
+        if self._updater is None:
+            raise MXNetError("no optimizer set")
+        with open(fname, "rb") as f:
+            self._updater.set_states(f.read())
+        self._optimizer = self._updater.optimizer
 
 
 def create(name: str = "local") -> KVStore:

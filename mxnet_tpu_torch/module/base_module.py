@@ -2,10 +2,11 @@
 python/mxnet/module/base_module.py: fit :376-487, score, predict, the
 forward/backward contract, parameter get/set).
 
-The counterpart of ``mxnet_tpu/module/base_module.py``.  The JAX module's
-flight-recorder, step and trace spans wait for observability (ROADMAP.md,
-queue item 5); ``fit``'s ``checkpoint_dir`` for the checkpoint manager
-(item 4) and ``supervise`` for the training supervisor (item 5).
+The counterpart of ``mxnet_tpu/module/base_module.py``; ``fit``'s
+``checkpoint_dir`` resumes from and saves into a ``checkpoint``
+directory.  The JAX module's flight-recorder, step and trace spans wait
+for observability (ROADMAP.md, queue item 5), and ``supervise`` for the
+training supervisor (item 5).
 """
 from __future__ import annotations
 
@@ -14,6 +15,7 @@ import time
 
 import torch
 
+from .. import checkpoint as _ckpt
 from .. import metric as _metric
 from .. import ndarray as nd
 from ..context import cpu
@@ -139,13 +141,15 @@ class BaseModule:
         """Train loop (parity: base_module.py:376-487): bind, initialize
         (an already initialized module keeps its parameters and optimizer),
         then per epoch forward_backward, update and the metric per batch,
-        the callbacks, and ``score`` on ``eval_data``."""
+        the callbacks, and ``score`` on ``eval_data``.
+
+        ``checkpoint_dir`` resumes from the newest valid checkpoint there
+        (parameters, aux states and optimizer states; ``begin_epoch``
+        advances to the saved epoch), saves one atomic async checkpoint
+        every ``checkpoint_period`` epochs and after the last, keeps the
+        newest ``checkpoint_max_keep`` (None = all), and waits for the
+        writes before returning."""
         assert num_epoch is not None, "please specify number of epochs"
-        if checkpoint_dir is not None:
-            raise NotImplementedError(
-                "fit(checkpoint_dir=...): the checkpoint manager is not "
-                "ported yet (ROADMAP.md, queue item 4: checkpoints); use "
-                "epoch_end_callback=mx.callback.do_checkpoint(prefix)")
         if supervise:
             raise NotImplementedError(
                 "fit(supervise=True): the training supervisor is not ported "
@@ -165,21 +169,51 @@ class BaseModule:
                          force_init=force_init)
         self.init_optimizer(kvstore=kvstore, optimizer=optimizer,
                             optimizer_params=optimizer_params)
+        ckpt = None
+        if checkpoint_dir is not None:
+            ckpt = _ckpt.CheckpointManager(checkpoint_dir,
+                                           max_to_keep=checkpoint_max_keep)
+            begin_epoch = max(begin_epoch, self._resume(ckpt, checkpoint_dir))
         if validation_metric is None:
             validation_metric = eval_metric
         if not isinstance(eval_metric, _metric.EvalMetric):
             eval_metric = _metric.create(eval_metric)
-        self._fit_epochs(train_data, eval_data, eval_metric,
-                         validation_metric, epoch_end_callback,
-                         batch_end_callback, eval_end_callback,
-                         eval_batch_end_callback, monitor, begin_epoch,
-                         num_epoch)
+        try:
+            self._fit_epochs(train_data, eval_data, eval_metric,
+                             validation_metric, epoch_end_callback,
+                             batch_end_callback, eval_end_callback,
+                             eval_batch_end_callback, monitor, begin_epoch,
+                             num_epoch, ckpt, checkpoint_period)
+        finally:
+            if ckpt is not None:
+                ckpt.close()  # every queued write committed, or raised
+
+    def _resume(self, ckpt, checkpoint_dir) -> int:
+        """Load the newest valid checkpoint under ``ckpt``; its epoch, or
+        0 when there is none."""
+        restored = ckpt.restore()
+        if restored is None:
+            return 0
+        epoch, state = restored
+        args, auxs, opt_states, _ = _ckpt.unpack_module_state(state)
+        self.set_params({k: nd.array(v, ctx=cpu()) for k, v in args.items()},
+                        {k: nd.array(v, ctx=cpu()) for k, v in auxs.items()})
+        if opt_states is not None:
+            if hasattr(self, "set_optimizer_states_bytes"):
+                self.set_optimizer_states_bytes(opt_states)
+            else:
+                self.logger.warning(
+                    "checkpoint carries optimizer state but %s cannot "
+                    "restore it; resuming params only", type(self).__name__)
+        self.logger.info("fit: resumed from checkpoint epoch %d in %s",
+                         epoch, checkpoint_dir)
+        return int(epoch)
 
     def _fit_epochs(self, train_data, eval_data, eval_metric,
                     validation_metric, epoch_end_callback,
                     batch_end_callback, eval_end_callback,
                     eval_batch_end_callback, monitor, begin_epoch,
-                    num_epoch):
+                    num_epoch, ckpt=None, checkpoint_period=1):
         for epoch in range(begin_epoch, num_epoch):
             tic = time.time()
             eval_metric.reset()
@@ -219,6 +253,15 @@ class BaseModule:
             if epoch_end_callback is not None:
                 for callback in _as_list(epoch_end_callback):
                     callback(epoch, self.symbol, arg_params_, aux_params_)
+            if ckpt is not None and (
+                    (epoch + 1) % max(1, checkpoint_period) == 0
+                    or epoch == num_epoch - 1):   # the last epoch is saved
+                # the host copy happens here, the write off the loop
+                opt_bytes = self.get_optimizer_states_bytes() \
+                    if hasattr(self, "get_optimizer_states_bytes") else None
+                ckpt.save(epoch + 1, _ckpt.pack_module_state(
+                    self.symbol, arg_params_, aux_params_,
+                    optimizer_states=opt_bytes))
             if eval_data:
                 res = self.score(eval_data, validation_metric,
                                  score_end_callback=eval_end_callback,

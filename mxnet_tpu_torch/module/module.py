@@ -10,12 +10,15 @@ their gradient buffers, on that device; ``init_params`` draws the weights
 in the JAX module's order, so one seed gives the same weights in both
 packages.  Each batch is copied into the bound input tensors.  ``update``
 goes through the kvstore (``pushpull``, update on the store) or the
-per-parameter ``Updater``, by ``model._create_kvstore``'s rules.
+``FusedUpdater``'s ``update_all``, by ``model._create_kvstore``'s rules.
+``save_optimizer_states`` / ``load_optimizer_states`` (and
+``save_checkpoint(save_optimizer_states=True)``, ``Module.load(...,
+load_optimizer_states=True)``) write and read the JAX package's
+``.states`` files.
 
 Not ported, and raising ``NotImplementedError`` that names the queue item
 (ROADMAP.md): more than one context, ``group2ctxs`` and sparse gradients
-(item 6); the ``MXNET_FUSED_STEP`` single-program step and the
-optimizer-state files (item 4).
+(item 6); the ``MXNET_FUSED_STEP`` single-program step (item 4).
 """
 from __future__ import annotations
 
@@ -24,11 +27,12 @@ import logging
 import torch
 
 from .. import optimizer as opt
-from ..base import getenv
+from ..base import MXNetError, getenv
 from ..context import Context, current_context
 from ..initializer import InitDesc, Uniform
 from ..io import DataDesc
 from ..model import _create_kvstore, load_checkpoint, save_checkpoint
+from ..ndarray.ndarray import write_atomic
 from .base_module import BaseModule, _check_input_names
 
 _ITEM6 = "not ported yet (ROADMAP.md, queue item 6: scale-out and sparse)"
@@ -83,6 +87,7 @@ class Module(BaseModule):
         self._kvstore = None
         self._update_on_kvstore = None
         self._updater = None
+        self._preload_opt_states = None
         self._exec = None
         self._data_shapes = None
         self._label_shapes = None
@@ -91,16 +96,15 @@ class Module(BaseModule):
     @staticmethod
     def load(prefix, epoch, load_optimizer_states=False, **kwargs):
         """A Module over the checkpoint's symbol, its parameters set when it
-        is bound and initialized."""
-        if load_optimizer_states:
-            raise NotImplementedError(
-                "Module.load(load_optimizer_states=True): optimizer-state "
-                "files are not ported yet (ROADMAP.md, queue item 4)")
+        is bound and initialized, and with ``load_optimizer_states`` the
+        ``prefix-epoch.states`` file loaded by ``init_optimizer``."""
         sym, args, auxs = load_checkpoint(prefix, epoch)
         mod = Module(symbol=sym, **kwargs)
         mod._arg_params = args
         mod._aux_params = auxs
         mod.params_initialized = True
+        if load_optimizer_states:
+            mod._preload_opt_states = f"{prefix}-{epoch:04d}.states"
         return mod
 
     def save_checkpoint(self, prefix, epoch, save_optimizer_states=False,
@@ -305,9 +309,8 @@ class Module(BaseModule):
             return
         if getenv("MXNET_FUSED_STEP", 0):
             raise NotImplementedError(
-                "MXNET_FUSED_STEP=1: the single-program training step and "
-                "FusedUpdater are not ported yet (ROADMAP.md, queue item 4: "
-                "the fused step)")
+                "MXNET_FUSED_STEP=1: the single-program training step is "
+                "not ported yet (ROADMAP.md, queue item 4: the fused step)")
         if self._params_dirty:
             self._sync_params_from_devices()
         kvstore, update_on_kvstore = _create_kvstore(
@@ -351,6 +354,9 @@ class Module(BaseModule):
         if not update_on_kvstore:
             self._updater = opt.get_updater(optimizer)
         self.optimizer_initialized = True
+        if self._preload_opt_states is not None:
+            self.load_optimizer_states(self._preload_opt_states)
+            self._preload_opt_states = None
 
     # -- compute --------------------------------------------------------------
     def _set_batch(self, data_batch, is_train):
@@ -400,8 +406,8 @@ class Module(BaseModule):
             self._kvstore.pushpull(names, [[g] for g in grads],
                                    out=[[a] for a in aggs])
             grads = aggs
-        for (i, n), g in zip(live, grads):
-            self._updater(i, g, self._exec.arg_dict[n])
+        self._updater.update_all([i for i, _ in live], grads,
+                                 [self._exec.arg_dict[n] for n in names])
 
     def get_outputs(self, merge_multi_context=True):
         assert self.binded and self.params_initialized
@@ -421,17 +427,49 @@ class Module(BaseModule):
         assert self.binded
         mon.install(self._exec)
 
+    def _state_updater(self):
+        assert self.optimizer_initialized
+        updater = self._kvstore._updater if self._update_on_kvstore \
+            else self._updater
+        if updater is None:
+            raise MXNetError("no optimizer set")
+        return updater
+
+    def get_optimizer_states_bytes(self) -> bytes:
+        """The updater's states with the optimizer, whose update counts
+        Adam's bias correction and the lr schedulers read (the JAX package
+        writes the states alone, and a resumed Adam restarts its bias
+        correction there): the checkpoint module's Module surface,
+        ``fit(checkpoint_dir=...)``."""
+        return self._state_updater().get_states(dump_optimizer=True)
+
+    def set_optimizer_states_bytes(self, payload: bytes) -> None:
+        """Inverse of ``get_optimizer_states_bytes``; also reads the JAX
+        package's files, which carry the states alone."""
+        updater = self._state_updater()
+        updater.set_states(payload)
+        self._optimizer = updater.optimizer
+        if self._update_on_kvstore:
+            self._kvstore._optimizer = updater.optimizer
+
+    def _resume(self, ckpt, checkpoint_dir) -> int:
+        """``fit``'s restore; a store that updates holds its own copy of
+        the weights, which ``init_optimizer`` took from the fresh ones, so
+        it takes the restored ones (the JAX package's store keeps the
+        fresh ones: ROADMAP.md §3)."""
+        epoch = super()._resume(ckpt, checkpoint_dir)
+        if epoch and self._update_on_kvstore:
+            for name in self._param_names:
+                self._kvstore.init(name, self._exec.arg_dict[name])
+        return epoch
+
     def save_optimizer_states(self, fname):
-        raise NotImplementedError(
-            "Module.save_optimizer_states: optimizer-state files are not "
-            "ported yet (ROADMAP.md, queue item 4: the fused step and "
-            "checkpoints)")
+        """Write the states to ``fname`` atomically (``nd.write_atomic``)."""
+        write_atomic(fname, self.get_optimizer_states_bytes())
 
     def load_optimizer_states(self, fname):
-        raise NotImplementedError(
-            "Module.load_optimizer_states: optimizer-state files are not "
-            "ported yet (ROADMAP.md, queue item 4: the fused step and "
-            "checkpoints)")
+        with open(fname, "rb") as f:
+            self.set_optimizer_states_bytes(f.read())
 
     def reshape(self, data_shapes, label_shapes=None):
         """Rebind for new input shapes, sharing the tensors whose shapes

@@ -25,6 +25,7 @@ from __future__ import annotations
 
 import io
 import os
+import pickle
 import struct
 
 import numpy as _np
@@ -35,8 +36,14 @@ from ..base import MXNetError, bfloat16, np_dtype, torch_dtype
 from ..context import as_device
 
 
+_RAW_BF16 = _np.dtype("V2")
+
+
 def _from_numpy(src: _np.ndarray) -> torch.Tensor:
-    if bfloat16 is not None and src.dtype == bfloat16:
+    """A tensor over a host array; ``ml_dtypes.bfloat16`` and 2-byte raw
+    (``|V2``, how numpy stores bfloat16) both become bfloat16."""
+    if src.dtype == _RAW_BF16 or (bfloat16 is not None
+                                  and src.dtype == bfloat16):
         return torch.from_numpy(_np.ascontiguousarray(src).view(_np.int16)
                                 ).view(torch.bfloat16)
     return torch.from_numpy(_np.ascontiguousarray(src))
@@ -195,6 +202,16 @@ def asnumpy(x: torch.Tensor) -> _np.ndarray:
     return x.numpy()
 
 
+def host_copy(x: torch.Tensor) -> _np.ndarray:
+    """An owned host copy that needs no ``ml_dtypes``: bfloat16 comes back
+    as 2-byte raw data (``|V2``), which ``array`` and ``_rebuild_ndarray``
+    read back as bfloat16."""
+    x = x.detach().to("cpu", copy=True)
+    if x.dtype == torch.bfloat16:
+        return x.view(torch.int16).numpy().view(_RAW_BF16)
+    return x.numpy()
+
+
 def attach_grad(x: torch.Tensor, grad_req: str = "write") -> torch.Tensor:
     """Make ``x`` an autograd variable with a zeroed gradient buffer
     (parity: NDArray.attach_grad); ``grad_req`` is "write", "add" or
@@ -216,6 +233,15 @@ def grad(x: torch.Tensor):
 # ---------------------------------------------------------------------------
 # the reference-era binary container (dmlc list, kMXAPINDArrayListMagic)
 _REFERENCE_LIST_MAGIC = 0x112
+
+
+def write_atomic(fname: str, payload: bytes) -> None:
+    """Write ``payload`` beside ``fname`` and move it over ``fname`` with
+    one ``os.replace``: a crash mid-write never leaves a torn file there."""
+    tmp = f"{fname}.tmp-{os.getpid()}"
+    with open(tmp, "wb") as f:
+        f.write(payload)
+    os.replace(tmp, fname)
 
 
 def save(fname: str, data) -> None:
@@ -292,3 +318,88 @@ def load_frombuffer(buf, ctx=None):
     _check_container(buf, "<buffer>")
     with _np.load(io.BytesIO(buf), allow_pickle=False) as z:
         return _to_tensors(_unpack(z), ctx)
+
+
+# ---------------------------------------------------------------------------
+# pickling (updater states, ``Trainer.save_states``)
+# ---------------------------------------------------------------------------
+def _rebuild_ndarray(np_data, dev_type, dev_id):
+    """The target of the JAX package's ``NDArray.__reduce__``
+    (``mxnet_tpu/ndarray/ndarray.py:555-561``) and of the port's own
+    reducer: a CPU tensor.  An updater moves each state onto its weight's
+    device when it first uses it, so a file written on a card loads on a
+    machine without one and resumes there, and the other way round."""
+    return array(np_data, ctx=torch.device("cpu"), dtype=np_data.dtype)
+
+
+class _StatePickler(pickle.Pickler):
+    """Writes tensors as ``_rebuild_ndarray(numpy, dev_type, dev_id)``, the
+    reducer shape of the JAX package's NDArray, never as torch storages;
+    bfloat16 as 2-byte raw data."""
+
+    def reducer_override(self, obj):
+        if isinstance(obj, torch.Tensor):
+            dev = obj.device
+            return _rebuild_ndarray, (
+                host_copy(obj), "gpu" if dev.type == "cuda" else "cpu",
+                dev.index or 0)
+        return NotImplemented
+
+
+def dumps(obj) -> bytes:
+    """``pickle.dumps`` with tensors written as host arrays."""
+    buf = io.BytesIO()
+    _StatePickler(buf).dump(obj)
+    return buf.getvalue()
+
+
+# what a state file may name: the port's own classes at the JAX package's
+# module paths, numpy's array and scalar reconstructors, and plain builtins
+_PORT_MODULES = ("optimizer", "lr_scheduler", "gluon.parameter", "context",
+                 "initializer")
+_NUMPY_MODULES = ("numpy", "numpy.core.multiarray", "numpy._core.multiarray",
+                  "numpy.core.numeric", "numpy._core.numeric")
+_NUMPY_NAMES = ("_reconstruct", "scalar", "dtype", "ndarray", "_frombuffer")
+_BUILTINS = {("builtins", n) for n in (
+    "set", "frozenset", "complex", "slice", "range", "bytearray", "bytes",
+    "tuple", "list", "dict", "int", "float", "bool", "str", "object")} | {
+    ("collections", "OrderedDict"), ("copyreg", "_reconstructor")}
+
+
+class _StateUnpickler(pickle.Unpickler):
+    def find_class(self, module, name):
+        if module.startswith("ml_dtypes"):
+            raise MXNetError(
+                f"the state file holds {module}.{name} arrays (bfloat16 "
+                "written by the JAX package through ml_dtypes); the port "
+                "reads bfloat16 only as 2-byte raw data and does not need "
+                "ml_dtypes")
+        package, _, rel = module.partition(".")
+        if package in ("mxnet_tpu", "mxnet_tpu_torch"):
+            module = f"mxnet_tpu_torch.{rel}"
+            if (rel, name) == ("ndarray.ndarray", "_rebuild_ndarray"):
+                return _rebuild_ndarray
+            if rel in _PORT_MODULES:
+                import importlib
+                obj = getattr(importlib.import_module(module), name, None)
+                if isinstance(obj, type):
+                    return obj
+            raise MXNetError(f"the state file names {module}.{name}, which "
+                             "the port does not have or does not load")
+        if module in _NUMPY_MODULES and (
+                name in _NUMPY_NAMES or isinstance(
+                    getattr(_np, name, None), type) and issubclass(
+                        getattr(_np, name), _np.generic)):
+            return super().find_class(module, name)
+        if (module, name) in _BUILTINS:
+            return super().find_class(module, name)
+        raise MXNetError(f"the state file names {module}.{name}, which a "
+                         "state file may not load")
+
+
+def loads(payload: bytes):
+    """Read what ``dumps`` or the JAX package's ``pickle.dumps`` of
+    updater states wrote, allowing only the port's own classes (a path in
+    the JAX package read as the same path in the port), numpy and builtins;
+    anything else raises ``MXNetError``, and nothing is returned."""
+    return _StateUnpickler(io.BytesIO(payload)).load()

@@ -1,19 +1,33 @@
-"""Optimizers and the Updater (parity: python/mxnet/optimizer.py).
+"""Optimizers, the Updater and the FusedUpdater (parity:
+python/mxnet/optimizer.py).
 
 The counterpart of ``mxnet_tpu/optimizer.py``: ``Optimizer`` (learning
 rate and its scheduler, weight decay, ``rescale_grad``, ``clip_gradient``,
 per-parameter ``lr_mult`` / ``wd_mult``, per-index update counts,
 ``multi_precision`` with float32 master weights for bfloat16 and float16
-weights, the multipliers a Module's graph carries, ``sym=``), ``SGD`` and
-``Adam``, which step through the update ops of
-``ops/optimizer_ops.py`` in place, one parameter at a time, and the
-per-parameter ``Updater``.
+weights, the multipliers a Module's graph carries, ``sym=``) and its 13
+registered optimizers under the JAX names: ``SGD``, ``ccSGD``, ``NAG``,
+``Adam``, ``RMSProp`` (``centered``), ``AdaGrad``, ``AdaDelta``, ``Ftrl``,
+``Adamax``, ``Nadam``, ``SGLD``, ``DCASGD`` and ``Test``.
 
-``get_updater`` returns that ``Updater``: it computes the same update as
-the JAX package's default ``FusedUpdater`` (which traces every parameter's
-step into one program; its ``MXNET_FUSED_TRAINER=0`` path is this one).
-``FusedUpdater``, the other optimizers and the pickled updater states are
-not ported yet (ROADMAP.md, queue item 4).
+The eight that the JAX package fuses (``fused = True``: SGD, NAG, Adam,
+RMSProp, AdaGrad, AdaDelta, Ftrl, Adamax) step through the multi-tensor
+passes of ``ops/optimizer_ops.py`` (``torch._foreach_*``): ``fused_step``
+takes the parameters of one device and dtype at once, and a per-parameter
+``update`` is ``fused_step`` on a list of one, so the two paths are the
+same arithmetic.  Under ``multi_precision`` a bfloat16 or float16 weight
+steps its float32 master and takes its cast (the in-place ops keep every
+weight and state in its own dtype, which the JAX package's ``cast_like``
+restores).  Nadam, SGLD, DCASGD and Test update one parameter at a time,
+as in the JAX package.
+
+``get_updater`` returns a ``FusedUpdater``: ``update_all(indices, grads,
+weights)`` advances every index's count, then makes one ``fused_step`` per
+(device, dtype, multi-precision) group; an optimizer that is not fused
+takes the per-key loop.  ``Updater.get_states`` / ``set_states`` pickle
+the states (and with ``dump_optimizer`` the optimizer) in the JAX
+package's format (``ndarray.dumps`` / ``ndarray.loads``); loaded states
+move onto their weight's device when it is first updated.
 """
 from __future__ import annotations
 
@@ -22,13 +36,12 @@ from typing import Any, Dict
 
 import torch
 
-from . import ndarray as nd
+from . import random as _random
 from .base import MXNetError, Registry
+from .ndarray import ndarray as _nd
+from .ops import optimizer_ops as _ops
 
 _REG = Registry("optimizer")
-_STATES_ITEM = ("updater states are pickled with the checkpoint module, "
-                "which is not ported yet (ROADMAP.md, queue item 4: the "
-                "fused step and checkpoints)")
 
 
 def _is_low_prec(dtype) -> bool:
@@ -38,6 +51,9 @@ def _is_low_prec(dtype) -> bool:
 
 
 class Optimizer:
+    #: True when the optimizer steps lists of parameters (``fused_step``)
+    fused = False
+
     def __init__(self, rescale_grad=1.0, param_idx2name=None, wd=0.0,
                  clip_gradient=None, learning_rate=0.01, lr_scheduler=None,
                  sym=None, begin_num_update=0, multi_precision=False,
@@ -83,17 +99,49 @@ class Optimizer:
             return (self.create_state(index, w32), w32)
         return self.create_state(index, weight)
 
+    # -- the step -----------------------------------------------------------
     def update(self, index, weight, grad, state):
-        raise NotImplementedError
+        """One parameter's step; a fused optimizer runs ``fused_step`` on
+        a list of one."""
+        if not self.fused:
+            raise NotImplementedError
+        self._update_count(index)
+        self.fused_step([index], [weight], [grad], [state], False)
 
     def update_multi_precision(self, index, weight, grad, state):
-        if self.multi_precision and _is_low_prec(weight.dtype):
+        use_mp = self.multi_precision and _is_low_prec(weight.dtype)
+        if self.fused:
+            self._update_count(index)
+            self.fused_step([index], [weight], [grad], [state], use_mp)
+        elif use_mp:
             inner, w32 = state
             self.update(index, w32, grad.float(), inner)
             with torch.no_grad():
                 weight.copy_(w32)
         else:
             self.update(index, weight, grad, state)
+
+    def fused_step(self, indices, weights, grads, states, multi_precision):
+        """Step the parameters ``indices`` (one device, one dtype) whose
+        counts have advanced: low-precision weights under
+        ``multi_precision`` step their float32 masters and take their
+        casts."""
+        lrs = [self._get_lr(i) for i in indices]
+        wds = [self._get_wd(i) for i in indices]
+        ts = [self._index_update_count[i] for i in indices]
+        if multi_precision:
+            inner = [s[0] for s in states]
+            masters = [s[1] for s in states]
+            self._multi_update(masters, _like(grads, masters, torch.float32),
+                               inner, lrs, wds, ts)
+            with torch.no_grad():
+                torch._foreach_copy_(weights, masters)
+        else:
+            self._multi_update(weights, _like(grads, weights), states, lrs,
+                               wds, ts)
+
+    def _multi_update(self, weights, grads, states, lrs, wds, ts):
+        raise NotImplementedError
 
     # -- lr/wd plumbing ------------------------------------------------------
     def set_learning_rate(self, lr):
@@ -152,10 +200,26 @@ class Optimizer:
         return wd
 
     def _common_kwargs(self):
-        kw = dict(rescale_grad=self.rescale_grad)
-        if self.clip_gradient is not None:
-            kw["clip_gradient"] = self.clip_gradient
-        return kw
+        return dict(rescale_grad=self.rescale_grad,
+                    clip_gradient=-1.0 if self.clip_gradient is None
+                    else self.clip_gradient)
+
+    def _prepped(self, grad):
+        """``clip(grad * rescale_grad)`` for the per-key optimizers."""
+        return _ops.prep_grads([grad], **self._common_kwargs())[0]
+
+
+def _like(grads, weights, dtype=None):
+    """The gradients in ``dtype`` with their weights' strides, so a list
+    and its lists of one take the same ``_foreach`` route."""
+    out = []
+    for g, w in zip(grads, weights):
+        if dtype is not None and g.dtype != dtype:
+            g = g.to(dtype)
+        if g.stride() != w.stride():
+            g = torch.empty_like(w, dtype=g.dtype).copy_(g)
+        out.append(g)
+    return out
 
 
 register = Optimizer.register
@@ -164,7 +228,9 @@ create = Optimizer.create_optimizer
 
 @register
 class SGD(Optimizer):
-    """SGD with momentum and multi-precision (parity: optimizer.py:435)."""
+    """SGD with momentum and multi-precision (parity: optimizer.py:245)."""
+
+    fused = True
 
     def __init__(self, momentum=0.0, **kwargs):
         super().__init__(**kwargs)
@@ -177,38 +243,49 @@ class SGD(Optimizer):
             return None
         return torch.zeros_like(weight)
 
-    def _update_impl(self, index, weight, grad, state, multi_precision):
-        """One count bump and one update op (update and
-        update_multi_precision share it, so num_update advances once per
-        step)."""
-        self._update_count(index)
-        lr, wd = self._get_lr(index), self._get_wd(index)
-        kw = self._common_kwargs()
-        if multi_precision:
-            inner, w32 = state
-            if self.momentum != 0.0:
-                nd.mp_sgd_mom_update(weight, grad, inner, w32, lr=lr, wd=wd,
-                                     momentum=self.momentum, **kw)
-            else:
-                nd.mp_sgd_update(weight, grad, w32, lr=lr, wd=wd, **kw)
-        elif state is not None:
-            nd.sgd_mom_update(weight, grad, state, lr=lr, wd=wd,
-                              momentum=self.momentum, **kw)
+    def _multi_update(self, weights, grads, states, lrs, wds, ts):
+        if self.momentum == 0.0:
+            _ops.multi_sgd_update(weights, grads, lrs, wds,
+                                  **self._common_kwargs())
         else:
-            nd.sgd_update(weight, grad, lr=lr, wd=wd, **kw)
+            _ops.multi_sgd_mom_update(weights, grads, states, lrs, wds,
+                                      momentum=self.momentum,
+                                      **self._common_kwargs())
 
-    def update(self, index, weight, grad, state):
-        self._update_impl(index, weight, grad, state, False)
 
-    def update_multi_precision(self, index, weight, grad, state):
-        use_mp = self.multi_precision and _is_low_prec(weight.dtype)
-        self._update_impl(index, weight, grad, state, use_mp)
+@register
+class ccSGD(SGD):
+    """Deprecated alias of SGD (parity: optimizer.py:347)."""
+
+
+@register
+class NAG(Optimizer):
+    """Nesterov accelerated SGD (parity: optimizer.py:352, the lookahead
+    form: w -= lr * (grad + momentum * mom) after mom = momentum * mom +
+    grad)."""
+
+    fused = True
+
+    def __init__(self, momentum=0.0, **kwargs):
+        super().__init__(**kwargs)
+        self.momentum = momentum
+
+    def create_state(self, index, weight):
+        return None if self.momentum == 0.0 else torch.zeros_like(weight)
+
+    def _multi_update(self, weights, grads, states, lrs, wds, ts):
+        _ops.multi_nag_update(weights, grads,
+                              None if self.momentum == 0.0 else states,
+                              lrs, wds, momentum=self.momentum,
+                              **self._common_kwargs())
 
 
 @register
 class Adam(Optimizer):
     """Adam with the bias correction folded into the learning rate
-    (parity: optimizer.py Adam)."""
+    (parity: optimizer.py:428)."""
+
+    fused = True
 
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
                  epsilon=1e-8, **kwargs):
@@ -218,38 +295,317 @@ class Adam(Optimizer):
     def create_state(self, index, weight):
         return (torch.zeros_like(weight), torch.zeros_like(weight))
 
+    def _multi_update(self, weights, grads, states, lrs, wds, ts):
+        lrs = [lr * math.sqrt(1.0 - self.beta2 ** t) / (1.0 - self.beta1 ** t)
+               for lr, t in zip(lrs, ts)]
+        _ops.multi_adam_update(weights, grads, [s[0] for s in states],
+                               [s[1] for s in states], lrs, wds,
+                               beta1=self.beta1, beta2=self.beta2,
+                               epsilon=self.epsilon, **self._common_kwargs())
+
+
+@register
+class RMSProp(Optimizer):
+    """RMSProp, Tieleman-Hinton's or, with ``centered``, Graves' (parity:
+    optimizer.py:488)."""
+
+    fused = True
+
+    def __init__(self, learning_rate=0.001, gamma1=0.9, gamma2=0.9,
+                 epsilon=1e-8, centered=False, clip_weights=None, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.gamma1, self.gamma2 = gamma1, gamma2
+        self.centered = centered
+        self.epsilon = epsilon
+        self.clip_weights = clip_weights
+
+    def create_state(self, index, weight):
+        if self.centered:
+            return (torch.zeros_like(weight), torch.zeros_like(weight), torch.zeros_like(weight))
+        return (torch.zeros_like(weight),)
+
+    def _multi_update(self, weights, grads, states, lrs, wds, ts):
+        kw = dict(self._common_kwargs(), gamma1=self.gamma1,
+                  epsilon=self.epsilon,
+                  clip_weights=self.clip_weights or -1.0)
+        if self.centered:
+            _ops.multi_rmspropalex_update(
+                weights, grads, [s[0] for s in states],
+                [s[1] for s in states], [s[2] for s in states], lrs, wds,
+                gamma2=self.gamma2, **kw)
+        else:
+            _ops.multi_rmsprop_update(weights, grads, [s[0] for s in states],
+                                      lrs, wds, **kw)
+
+
+@register
+class AdaGrad(Optimizer):
+    """AdaGrad (parity: optimizer.py:542)."""
+
+    fused = True
+
+    def __init__(self, eps=1e-7, **kwargs):
+        super().__init__(**kwargs)
+        self.float_stable_eps = eps
+
+    def create_state(self, index, weight):
+        return torch.zeros_like(weight)
+
+    def _multi_update(self, weights, grads, states, lrs, wds, ts):
+        _ops.multi_adagrad_update(weights, grads, states, lrs, wds,
+                                  eps=self.float_stable_eps,
+                                  **self._common_kwargs())
+
+
+@register
+class AdaDelta(Optimizer):
+    """AdaDelta, which takes no learning rate (parity: optimizer.py:574);
+    its accumulators are float32 whatever the weight's dtype, as there."""
+
+    fused = True
+
+    def __init__(self, rho=0.90, epsilon=1e-5, **kwargs):
+        super().__init__(**kwargs)
+        self.rho, self.epsilon = rho, epsilon
+
+    def create_state(self, index, weight):
+        return (torch.zeros_like(weight, dtype=torch.float32), torch.zeros_like(weight, dtype=torch.float32))
+
+    def _multi_update(self, weights, grads, states, lrs, wds, ts):
+        _ops.multi_adadelta_update(weights, grads, [s[0] for s in states],
+                                   [s[1] for s in states], wds, rho=self.rho,
+                                   epsilon=self.epsilon,
+                                   **self._common_kwargs())
+
+
+@register
+class Ftrl(Optimizer):
+    """FTRL-proximal (parity: optimizer.py:613); its ``z`` and ``n`` are
+    float32, as there."""
+
+    fused = True
+
+    def __init__(self, lamda1=0.01, learning_rate=0.1, beta=1, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.lamda1, self.beta = lamda1, beta
+
+    def create_state(self, index, weight):
+        return (torch.zeros_like(weight, dtype=torch.float32), torch.zeros_like(weight, dtype=torch.float32))
+
+    def _multi_update(self, weights, grads, states, lrs, wds, ts):
+        _ops.multi_ftrl_update(weights, grads, [s[0] for s in states],
+                               [s[1] for s in states], lrs, wds,
+                               lamda1=self.lamda1, beta=self.beta,
+                               **self._common_kwargs())
+
+
+@register
+class Adamax(Optimizer):
+    """Adamax, Adam under the infinity norm (parity: optimizer.py:643); its
+    moments are float32, as there."""
+
+    fused = True
+
+    def __init__(self, learning_rate=0.002, beta1=0.9, beta2=0.999, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.beta1, self.beta2 = beta1, beta2
+
+    def create_state(self, index, weight):
+        return (torch.zeros_like(weight, dtype=torch.float32), torch.zeros_like(weight, dtype=torch.float32))
+
+    def _multi_update(self, weights, grads, states, lrs, wds, ts):
+        lrs = [lr / (1.0 - self.beta1 ** t) for lr, t in zip(lrs, ts)]
+        _ops.multi_adamax_update(weights, grads, [s[0] for s in states],
+                                 [s[1] for s in states], lrs, wds,
+                                 beta1=self.beta1, beta2=self.beta2,
+                                 **self._common_kwargs())
+
+
+@register
+class Nadam(Optimizer):
+    """Adam with Nesterov momentum (parity: optimizer.py:680).  Its momentum
+    schedule is one product over every update of every parameter, as
+    there."""
+
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-8, schedule_decay=0.004, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.beta1, self.beta2 = beta1, beta2
+        self.epsilon = epsilon
+        self.schedule_decay = schedule_decay
+        self.m_schedule = 1.0
+
+    def create_state(self, index, weight):
+        return (torch.zeros_like(weight, dtype=torch.float32), torch.zeros_like(weight, dtype=torch.float32))
+
+    @torch.no_grad()
     def update(self, index, weight, grad, state):
         self._update_count(index)
         t = self._index_update_count[index]
-        lr = self._get_lr(index) * math.sqrt(1.0 - self.beta2 ** t) / \
-            (1.0 - self.beta1 ** t)
-        mean, var = state
-        nd.adam_update(weight, grad, mean, var, lr=lr, wd=self._get_wd(index),
-                       beta1=self.beta1, beta2=self.beta2,
-                       epsilon=self.epsilon, **self._common_kwargs())
+        lr, wd = self._get_lr(index), self._get_wd(index)
+        grad = grad * self.rescale_grad + wd * weight
+        if self.clip_gradient is not None:
+            grad = grad.clamp(-self.clip_gradient, self.clip_gradient)
+        momentum_t = self.beta1 * (1.0 - 0.5 * 0.96 ** (
+            t * self.schedule_decay))
+        momentum_t_1 = self.beta1 * (1.0 - 0.5 * 0.96 ** (
+            (t + 1) * self.schedule_decay))
+        self.m_schedule *= momentum_t
+        m_schedule_next = self.m_schedule * momentum_t_1
+        m_t, v_t = state
+        m_t.copy_(self.beta1 * m_t + (1.0 - self.beta1) * grad)
+        v_t.copy_(self.beta2 * v_t + (1.0 - self.beta2) * grad * grad)
+        grad_prime = grad / (1.0 - self.m_schedule)
+        m_t_prime = m_t / (1.0 - m_schedule_next)
+        v_t_prime = v_t / (1.0 - self.beta2 ** t)
+        m_t_bar = (1.0 - momentum_t) * grad_prime + momentum_t_1 * m_t_prime
+        weight.copy_(weight - lr * m_t_bar / (v_t_prime.sqrt() + self.epsilon))
+
+
+@register
+class SGLD(Optimizer):
+    """Stochastic gradient Langevin dynamics (parity: optimizer.py:715):
+    the noise comes from the port's generator for the weight's device."""
+
+    @torch.no_grad()
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        lr, wd = self._get_lr(index), self._get_wd(index)
+        grad = self._prepped(grad)
+        noise = torch.empty_like(weight).normal_(
+            0, math.sqrt(lr), generator=_random.generator(weight.device))
+        weight.copy_(weight - lr / 2 * (grad + wd * weight) + noise)
+
+
+@register
+class DCASGD(Optimizer):
+    """Delay-compensated asynchronous SGD (parity: optimizer.py:730)."""
+
+    def __init__(self, momentum=0.0, lamda=0.04, **kwargs):
+        super().__init__(**kwargs)
+        self.momentum = momentum
+        self.weight_previous: Dict[Any, torch.Tensor] = {}
+        self.lamda = lamda
+
+    def create_state(self, index, weight):
+        mom = None if self.momentum == 0.0 else torch.zeros_like(weight, dtype=torch.float32)
+        return (mom, weight.detach().clone())
+
+    @torch.no_grad()
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        lr, wd = self._get_lr(index), self._get_wd(index)
+        grad = self._prepped(grad)
+        mom, previous_weight = state
+        comp = grad + wd * weight + self.lamda * grad * grad * (
+            weight - previous_weight)
+        if mom is not None:
+            mom.copy_(self.momentum * mom - lr * comp)
+            weight.copy_(weight + mom)
+        else:
+            weight.copy_(weight - lr * comp)
+        previous_weight.copy_(weight)
+
+
+@register
+class Test(Optimizer):
+    """The kvstore tests' optimizer (parity: optimizer.py:762): w += grad *
+    rescale_grad, and the state keeps w."""
+
+    def create_state(self, index, weight):
+        return torch.zeros_like(weight, dtype=torch.float32)
+
+    @torch.no_grad()
+    def update(self, index, weight, grad, state):
+        weight.copy_(weight + grad * self.rescale_grad)
+        state.copy_(weight)
+
+
+def _on_device(state, device):
+    if isinstance(state, torch.Tensor):
+        return state.to(device)
+    if isinstance(state, (tuple, list)):
+        return type(state)(_on_device(s, device) for s in state)
+    return state
 
 
 class Updater:
-    """Applies an optimizer with per-index states (parity:
-    optimizer.get_updater)."""
+    """Applies an optimizer with per-index states (parity: optimizer.py:827,
+    the per-key path)."""
 
     def __init__(self, optimizer: Optimizer):
         self.optimizer = optimizer
         self.states: Dict[Any, Any] = {}
+        # False for a state loaded by set_states and not yet moved to its
+        # weight's device
+        self.states_synced: Dict[Any, bool] = {}
 
-    def __call__(self, index, grad, weight):
+    def _ensure_state(self, index, weight):
         if index not in self.states:
             self.states[index] = self.optimizer.create_state_multi_precision(
                 index, weight)
+            self.states_synced[index] = True
+        elif not self.states_synced.get(index, False):
+            self.states[index] = _on_device(self.states[index], weight.device)
+            self.states_synced[index] = True
+
+    def __call__(self, index, grad, weight):
+        self._ensure_state(index, weight)
         self.optimizer.update_multi_precision(index, weight, grad,
                                               self.states[index])
 
     def set_states(self, states):
-        raise NotImplementedError(f"Updater.set_states: {_STATES_ITEM}")
+        """Load ``get_states``' bytes, the port's or the JAX package's: the
+        states, and the optimizer when the file carries one.  A file the
+        port cannot read raises ``MXNetError`` and changes nothing."""
+        states = _nd.loads(states)
+        if isinstance(states, tuple) and len(states) == 2:
+            states, optimizer = states
+            if not isinstance(optimizer, Optimizer):
+                raise MXNetError("the state file's optimizer is a "
+                                 f"{type(optimizer).__name__}")
+            self.optimizer = optimizer
+        if not isinstance(states, dict):
+            raise MXNetError("the state file holds a "
+                             f"{type(states).__name__}, not a dict of states")
+        self.states = states
+        self.states_synced = dict.fromkeys(self.states, False)
 
     def get_states(self, dump_optimizer=False):
-        raise NotImplementedError(f"Updater.get_states: {_STATES_ITEM}")
+        if dump_optimizer:
+            return _nd.dumps((self.states, self.optimizer))
+        return _nd.dumps(self.states)
 
 
-def get_updater(optimizer: Optimizer) -> Updater:
-    return Updater(optimizer)
+class FusedUpdater(Updater):
+    """Multi-tensor updater (parity: optimizer.py:954): ``update_all``
+    steps every parameter of one device and dtype with one pass of
+    ``torch._foreach_*`` ops.  The JAX package traces that step into one
+    program; here it is a few kernels per group, whatever the number of
+    parameters.  Per-key ``__call__`` stays available and runs the same
+    arithmetic on a list of one."""
+
+    def update_all(self, indices, grads, weights) -> None:
+        opt_ = self.optimizer
+        if not opt_.fused:
+            for i, g, w in zip(indices, grads, weights):
+                self(i, g, w)
+            return
+        indices = list(indices)
+        for i, w in zip(indices, weights):
+            self._ensure_state(i, w)
+        for i in indices:
+            opt_._update_count(i)
+        groups: Dict[tuple, list] = {}
+        for i, g, w in zip(indices, grads, weights):
+            mp = opt_.multi_precision and _is_low_prec(w.dtype)
+            groups.setdefault((w.device, w.dtype, mp), []).append((i, g, w))
+        for (_, _, mp), items in groups.items():
+            idx = [i for i, _, _ in items]
+            opt_.fused_step(idx, [w for _, _, w in items],
+                            [g for _, g, _ in items],
+                            [self.states[i] for i in idx], mp)
+
+
+def get_updater(optimizer: Optimizer) -> FusedUpdater:
+    return FusedUpdater(optimizer)

@@ -24,8 +24,10 @@ passed; a gpu context without a CUDA device raises ``MXNetError``.  Every
 device step runs under ``torch.cuda.device`` of the predictor's device,
 since the batcher and server dispatch from threads of their own.
 
-Hot reload from checkpoints (``hot_reload``, ``start_auto_reload``) needs
-``checkpoint/`` and raises until it is ported (ROADMAP.md, queue item 4).
+``hot_reload`` swaps the served weights for a ``checkpoint`` directory's
+newest valid step without rebuilding a bucket (the entries hold no
+weights: every dispatch reads the live pair), and ``start_auto_reload``
+polls a directory for new steps from a thread of its own.
 """
 from __future__ import annotations
 
@@ -47,11 +49,6 @@ from ..symbol.graph import GraphPlan, meta_tensor
 from .buckets import BucketSpec, bucket_label, pad_to_shape
 
 __all__ = ["BucketedPredictor", "ModelEvictedError"]
-
-_CHECKPOINTS = ("checkpoint hot reload needs checkpoint/, which is not "
-                "ported yet (ROADMAP.md, queue item 4: the fused step and "
-                "checkpoint/)")
-
 
 class ModelEvictedError(MXNetError):
     """A dispatch or bucket build reached a predictor whose device weights
@@ -470,6 +467,7 @@ class BucketedPredictor:
         if self._closed:
             return
         self._closed = True
+        self.stop_auto_reload()
         with self._compile_lock:
             self.evict()
             self._host_payload = ({}, {})
@@ -483,8 +481,110 @@ class BucketedPredictor:
         self.close()
 
     # -- checkpoint hot reload -----------------------------------------------
+    @property
+    def loaded_step(self):
+        """Step of the last hot-reloaded checkpoint (None = construction
+        params still serving)."""
+        return getattr(self, "_loaded_step", None)
+
+    @staticmethod
+    def _as_checkpoint_manager(source):
+        from ..checkpoint import CheckpointManager
+        if isinstance(source, CheckpointManager):
+            return source
+        return CheckpointManager(str(source))
+
     def hot_reload(self, source, step=None) -> int:
-        raise NotImplementedError(f"hot_reload: {_CHECKPOINTS}")
+        """Swap the served weights for those of the newest valid
+        checkpoint under ``source`` (a checkpoint directory or
+        ``CheckpointManager``), or of ``step``, without rebuilding a
+        bucket: shapes must match the serving graph; each value takes the
+        served dtype.  A parameter loads from a ``param:`` or ``arg:``
+        entry, an aux state from ``aux:`` or ``param:``.  A checkpoint
+        that lacks a served name or has another shape raises, and the old
+        weights keep serving.  Returns the loaded step."""
+        from ..checkpoint import ARG_PREFIX, AUX_PREFIX, PARAM_PREFIX
+        if not self._resident:
+            raise MXNetError(
+                "hot_reload: model weights are evicted — readmit() first")
+        mgr = self._as_checkpoint_manager(source)
+        res = mgr.restore(step)
+        if res is None:
+            raise MXNetError(
+                f"hot_reload: no valid checkpoint under {mgr.directory!r}")
+        got_step, state = res
+
+        def lookup(name, prefixes, what, cur):
+            for prefix in prefixes:
+                if prefix + name in state:
+                    host = nd.array(state[prefix + name], ctx=cpu())
+                    if tuple(host.shape) != tuple(cur.shape):
+                        raise MXNetError(
+                            f"hot_reload: {what} '{name}' shape "
+                            f"{tuple(host.shape)} != serving shape "
+                            f"{tuple(cur.shape)}")
+                    return host.to(cur.dtype)
+            raise MXNetError(
+                f"hot_reload: checkpoint step {got_step} lacks served "
+                f"{what} '{name}' — old weights keep serving")
+
+        old_params, old_aux = self._weights
+        new_host = ({n: lookup(n, (PARAM_PREFIX, ARG_PREFIX), "parameter", c)
+                     for n, c in old_params.items()},
+                    {n: lookup(n, (AUX_PREFIX, PARAM_PREFIX), "aux state", c)
+                     for n, c in old_aux.items()})
+        with self._on_device():
+            new = tuple({k: v.to(self._device) for k, v in d.items()}
+                        for d in new_host)
+        # one assignment commits both dicts: in-flight dispatches hold the
+        # old pair, new ones see the new pair; under the lifecycle lock,
+        # so a racing evict/close is not clobbered
+        with self._compile_lock:
+            if not self._resident:
+                raise MXNetError("hot_reload: model was evicted mid-reload "
+                                 "— readmit() first")
+            self._weights = new
+            self._host_payload = new_host
+            self._loaded_step = got_step
+        return got_step
 
     def start_auto_reload(self, source, interval_s: float = 30.0) -> None:
-        raise NotImplementedError(f"start_auto_reload: {_CHECKPOINTS}")
+        """Poll ``source`` every ``interval_s`` and hot-reload whenever a
+        newer valid checkpoint lands.  A failed poll or swap is logged,
+        the old weights keep serving and the thread keeps polling;
+        ``_last_reload_error`` holds the last failure (None after a clean
+        poll)."""
+        import logging
+        if getattr(self, "_reload_thread", None) is not None:
+            raise MXNetError("auto-reload already running")
+        mgr = self._as_checkpoint_manager(source)
+        stop = threading.Event()
+        self._reload_interval_s = float(interval_s)
+        self._last_reload_ok = time.monotonic()
+        self._last_reload_error: Optional[str] = None
+
+        def _poll():
+            while not stop.wait(interval_s):
+                try:
+                    newest = mgr.latest_step()
+                    if newest is not None and newest != self.loaded_step:
+                        self.hot_reload(mgr)
+                    self._last_reload_ok = time.monotonic()
+                    self._last_reload_error = None
+                except Exception as e:  # noqa: BLE001 — keep serving
+                    self._last_reload_error = f"{type(e).__name__}: {e}"
+                    logging.getLogger(__name__).warning(
+                        "auto-reload failed (serving old weights): %s", e)
+
+        self._reload_stop = stop
+        self._reload_thread = threading.Thread(
+            target=_poll, name="mxt-serve-reload", daemon=True)
+        self._reload_thread.start()
+
+    def stop_auto_reload(self) -> None:
+        t = getattr(self, "_reload_thread", None)
+        if t is None:
+            return
+        self._reload_stop.set()
+        t.join(timeout=5)
+        self._reload_thread = None

@@ -139,6 +139,10 @@ class ResilientServer:
     stall_timeout_s : float
         Work queued but no dispatch completed for this long marks
         unready (a hung backend looks exactly like this).
+    reload_staleness_s : float, optional
+        When the predictor runs ``start_auto_reload``, an unsuccessful
+        polling streak longer than this marks unready (default: 3x the
+        reload interval).
     max_tenants : int
         Bound on distinct tenant names (default 256).  ``tenant`` is a
         CLIENT CLASS (service, priority tier), not a per-user id —
@@ -156,6 +160,7 @@ class ResilientServer:
                  unready_latency_ms: Optional[float] = None,
                  unready_failure_rate: float = 0.5,
                  stall_timeout_s: float = 10.0,
+                 reload_staleness_s: Optional[float] = None,
                  max_tenants: int = 256):
         self._pred = predictor
         self.max_queue = int(getenv("MXNET_SERVE_MAX_QUEUE", 64)) \
@@ -180,6 +185,7 @@ class ResilientServer:
         self.unready_latency_ms = unready_latency_ms
         self.unready_failure_rate = float(unready_failure_rate)
         self.stall_timeout_s = float(stall_timeout_s)
+        self.reload_staleness_s = reload_staleness_s
         self.max_tenants = int(max_tenants)
         if self.max_tenants < 1:
             raise MXNetError("max_tenants must be >= 1")
@@ -659,7 +665,15 @@ class ResilientServer:
         anchor = last if last is not None else self._t_start
         checks["dispatch_stall"] = not (
             has_work and now - anchor > self.stall_timeout_s)
-        # 5. the scheduler itself
+        # 5. hot-reload freshness (only when auto-reload is running)
+        if getattr(self._pred, "_reload_thread", None) is not None:
+            staleness = self.reload_staleness_s
+            if staleness is None:
+                staleness = 3.0 * self._pred._reload_interval_s
+            age = time.monotonic() - self._pred._last_reload_ok
+            detail["reload_age_s"] = round(age, 3)
+            checks["hot_reload_fresh"] = age <= staleness
+        # 6. the scheduler itself
         checks["scheduler_alive"] = (self._thread.is_alive()
                                      and self._fatal is None)
         ready = all(checks.values()) and not self._closed

@@ -191,7 +191,7 @@ def test_non_batch_major_output_rejected_at_warmup():
         pred.warmup()
 
 
-def test_evict_and_readmit_from_the_host_payload(lm):
+def test_evict_and_readmit_from_the_host_payload(lm, tmp_path):
     js, path = lm
     tp = serving.BucketedPredictor(js, path, SHAPE, dev=CPU, **LATTICE)
     x = _ids((2, 16))
@@ -203,8 +203,15 @@ def test_evict_and_readmit_from_the_host_payload(lm):
     tp.readmit()
     np.testing.assert_array_equal(tp.predict(data=x)[0], want)
     assert M.SERVE_READMITS.value - r0 == 2      # the model, then a bucket
-    with pytest.raises(NotImplementedError, match="queue item 4"):
-        tp.hot_reload("ckpt")
+    # hot reload (ported since): the same weights from a checkpoint
+    # directory, no bucket built, the same logits
+    state = {k if ":" in k else f"arg:{k}": v
+             for k, v in mxt.nd.load(path, ctx=CPU).items()}
+    mxt.checkpoint.CheckpointManager(str(tmp_path), async_save=False).save(
+        3, state)
+    n = tp.num_compiled
+    assert tp.hot_reload(str(tmp_path)) == 3 and tp.num_compiled == n
+    np.testing.assert_array_equal(tp.predict(data=x)[0], want)
     tp.close()
     with pytest.raises(MXNetError, match="closed"):
         tp.readmit()
