@@ -8,7 +8,9 @@ It serves and trains the full-width flash-attention TransformerLM,
 trains ResNet-50 v1 through the port's own entry points (Gluon, and the
 symbolic path of ``Module.fit``) and the DCGAN example's two nets, runs
 the core op surface and ``MultiHeadAttention``, checkpoints, resumes and
-hot-reloads the LM, and holds every kernel against its plain version:
+hot-reloads the LM, feeds ``Module.fit`` from a record file, mirrors the
+backward, serves an exported decode cell, and holds every kernel against
+its plain version:
 
 1. setup: the card's name and power limit; build every kernel from
    ``mxnet_tpu_torch/csrc`` (one nvcc per source, in parallel); launch the
@@ -194,14 +196,53 @@ hot-reloads the LM, and holds every kernel against its plain version:
    11 and 13 check one ``update_all`` per step and no per-key updater
    call, and phases 9 and 11 print one optimizer step's kernel launches
    beside the per-key loop's;
-14. a ``kernels`` JSON line (the forward kernels' ``launches`` are phase
+14. the record-file input path, in a temporary directory under
+   ``build/``: (a) 2,048 synthetic ImageNet-shaped images (uint8 256x256x3,
+   ``.npy`` payloads, labels 0-999, seed 0) written to a ``.rec`` and its
+   ``.idx``, timed; (b) ``ImageRecordIter`` (B=256, 224x224, shuffled,
+   random crop and mirror, ImageNet's mean and std, ``device_augment`` to
+   bf16, ``min(16, cpu_count)`` threads, 4 batches read ahead) alone: every
+   batch a bf16 (256, 3, 224, 224) tensor on the card, an epoch's labels a
+   permutation, images/s over a warm epoch; ``device_augment`` in float32
+   against the host path under the same seed (no mirror, whose flips the
+   two paths draw from different streams; one thread) within
+   ``TOL_REC_F32``, labels equal; (c) phase 11's ResNet-50 ``Module.fit``
+   (3 epochs of 8 batches) fed by that iterator: finite NLL, no kernel of
+   the repo launched, step, images/s and peak memory beside phase 11's
+   resident step; then one more epoch, from a fresh iterator, under
+   torch.profiler: its device time per step (uploads, augment and the
+   step's kernels) and the fed step less it; (g) ``ImageRecordDataset`` over (a)'s file
+   through a ``DataLoader``, one batch on the card equal to the images
+   written; (d) the native runtime built from ``src/runtime`` with g++,
+   2,048 raw uint8 3x224x224 records through ``TensorRecordIter`` (B=256,
+   shuffled) to the card: an epoch's labels a permutation of those
+   written, a sampled record's bytes equal, images/s; (e)
+   ``MXNET_BACKWARD_DO_MIRROR``: one resnet18_v1 float32 Module step
+   (B=2, 64x64, deterministic algorithms) mirrored against unmirrored,
+   gradients and moving statistics bitwise (else within ``TOL_MIRROR`` of
+   each one's largest, with the reason); phase 11's ResNet-50 Module on a
+   resident batch, mirrored and not, ``MIRROR_STEPS`` steps each: step
+   time and peak memory, each step's NLL within ``TOL_MIRROR_LOSS``
+   (relative) of the unmirrored run's; then ``MIRROR_DET_STEPS`` steps
+   each under deterministic algorithms, parameters and moving statistics
+   after them bitwise (else within ``TOL_MIRROR``); phase 11's LM
+   ``Module`` leg mirrored, every kernel count set to 0 before it and read
+   after: 24 sm90 K1 and 12 sm90 K1b launches a step, none on f32, finite
+   falling NLL within ``TOL_MIRROR_LOSS`` of phase 11's for the same
+   weights, batch and steps, its step and peak beside phase 11's; (f) ``export_decode_step`` of phase 3's float32
+   net, loaded by ``predictor.Predictor`` on the card, 8 greedy tokens
+   from a 16-token prompt with the cache outputs fed back as inputs,
+   equal to ``generate(kv_cache=True)``'s;
+15. a ``kernels`` JSON line (the forward kernels' ``launches`` are phase
    8's, with phase 9's as ``training_launches``, phase 11's LM leg's as
    ``module_launches``, phase 12's bf16 ``MultiHeadAttention`` runs' as
    ``mha_launches``, its float32 runs' as ``mha_f32_launches`` and phase
-   13's LM training steps' as ``resume_launches``; the two K1b kernels'
+   13's LM training steps' as ``resume_launches`` and phase 14's mirrored
+   LM leg's as ``mirror_launches``; the two K1b kernels'
    are phase 9's main path, with phase 11's as ``module_launches``, phase
-   12's as ``mha_launches`` and ``mha_f32_launches`` and phase 13's as
-   ``resume_launches``, the f32 one's 0 on the main path; the f32
+   12's as ``mha_launches`` and ``mha_f32_launches``, phase 13's as
+   ``resume_launches`` and phase 14's as ``mirror_launches``, the f32
+   one's 0 on the main path; the f32
    kernels' ``bound_ms`` at 3xTF32's rate, ``fma_bound_ms`` at the CUDA
    cores' float32 FMA rate),
    then the last line ``{"ok": true, "device": {...}}``.
@@ -218,6 +259,10 @@ generator in place of numpy's).  Phase 11's LM leg cuts the steps to 3.
 Phase 12's DCGAN runs 20 steps of upstream MXNet's example at its default
 widths (the JAX package's copy of the example defaults to narrower nets).
 Phase 13's LM runs cut the steps to 5 (3 before the checkpoint, 2 after).
+Phase 14's record set is 2,048 images (one epoch of ``bench.py``'s 8
+batches; ImageNet's is 1.28 M), its mirrored runs take 5 ResNet-50 steps
+and 3 LM steps.  The host has no image decoder (no cv2, no PIL), so the
+records carry ``.npy`` and raw payloads.
 
 Times: ``device`` is the CUDA-event time of 20 back-to-back calls queued
 behind a spin kernel, per call (L2 warm): the kernels and the gaps between
@@ -1962,6 +2007,28 @@ def module_data(mx, n):
     return data.to(torch.bfloat16), labels
 
 
+def bind_resnet_module(mx, sym):
+    """``bench.py``'s Module: ``sym`` bound on gpu(0) with bf16 data of
+    B=256 at 224x224 and float32 labels, Xavier gaussian 'in' magnitude 2
+    from seed 0, SGD lr 0.05, momentum 0.9, wd 1e-4 with float32 masters
+    on the ``tpu_sync`` kvstore."""
+    import numpy as np
+    mod = mx.mod.Module(sym, context=mx.gpu(0))
+    mod.bind(data_shapes=[mx.io.DataDesc(
+                 "data", (VISION_BATCH, 3, VISION_IMG, VISION_IMG),
+                 "bfloat16")],
+             label_shapes=[mx.io.DataDesc("softmax_label", (VISION_BATCH,),
+                                          np.float32)])
+    mx.random.seed(0)
+    mod.init_params(mx.init.Xavier(rnd_type="gaussian", factor_type="in",
+                                   magnitude=2))
+    mod.init_optimizer(kvstore="tpu_sync", optimizer="sgd",
+                       optimizer_params={"learning_rate": VISION_LR,
+                                         "momentum": 0.9, "wd": 1e-4,
+                                         "multi_precision": True})
+    return mod
+
+
 def phase_module_resnet(mx, gluon):
     """``bench.py``'s path through the port: ResNet-50 v1's symbol,
     ``Module`` on gpu(0) bound with bf16 data, Xavier, SGD with f32 masters
@@ -1978,19 +2045,7 @@ def phase_module_resnet(mx, gluon):
     n = VISION_BATCH * MODULE_BATCHES
     data, labels = module_data(mx, n)
     it = mx.io.NDArrayIter(data, labels, batch_size=VISION_BATCH)
-    mod = mx.mod.Module(sym, context=mx.gpu(0))
-    mod.bind(data_shapes=[mx.io.DataDesc(
-                 "data", (VISION_BATCH, 3, VISION_IMG, VISION_IMG),
-                 "bfloat16")],
-             label_shapes=[mx.io.DataDesc("softmax_label", (VISION_BATCH,),
-                                          np.float32)])
-    mx.random.seed(0)
-    mod.init_params(mx.init.Xavier(rnd_type="gaussian", factor_type="in",
-                                   magnitude=2))
-    mod.init_optimizer(kvstore="tpu_sync", optimizer="sgd",
-                       optimizer_params={"learning_rate": VISION_LR,
-                                         "momentum": 0.9, "wd": 1e-4,
-                                         "multi_precision": True})
+    mod = bind_resnet_module(mx, sym)
     ex = mod._exec
     dtypes = {str(t.dtype)[6:] for t in ex.arg_dict.values()}
     bn_f32 = all(t.dtype == torch.float32 for n_, t in
@@ -2167,18 +2222,39 @@ def phase_module_vs_gluon(mx):
     return param_err, aux_err
 
 
-def phase_module_lm(mx, gluon):
+@contextlib.contextmanager
+def mirrored(on=True):
+    """``MXNET_BACKWARD_DO_MIRROR`` set while the executors are bound (the
+    executor reads it when it is made)."""
+    old = os.environ.get("MXNET_BACKWARD_DO_MIRROR")
+    if on:
+        os.environ["MXNET_BACKWARD_DO_MIRROR"] = "1"
+    else:
+        os.environ.pop("MXNET_BACKWARD_DO_MIRROR", None)
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop("MXNET_BACKWARD_DO_MIRROR", None)
+        else:
+            os.environ["MXNET_BACKWARD_DO_MIRROR"] = old
+
+
+def phase_module_lm(mx, gluon, mirror=False):
     """The full-width TransformerLM's symbol in bf16 under
     ``SoftmaxOutput(preserve_shape=True, normalization="valid")`` over the
     (8, 1024, 32768) logits, trained through ``Module`` at phase 9's batch:
     every kernel count set to 0, then LM_MODULE_STEPS steps of
     forward_backward + update, each launching K1 and K1b once per layer
-    on the sm90 kernels through ``Executor.backward``."""
+    on the sm90 kernels through ``Executor.backward``.  With ``mirror``
+    (phase 14) the executor runs in checkpointed segments and each step
+    launches K1 twice per layer (the backward runs the forward again)."""
     import gc
     import numpy as np
     import torch
     from mxnet_tpu_torch.gluon.model_zoo.transformer import TransformerLM
     L, B, T = CONFIG["num_layers"], TRAIN_BATCH, CONFIG["max_len"]
+    k1_per_step = 2 * L if mirror else L
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -2191,8 +2267,9 @@ def phase_module_lm(mx, gluon):
                                normalization="valid", name="softmax")
     weights = {p.name: p.data() for p in net.collect_params().values()}
     mod = mx.mod.Module(sym, context=mx.gpu(0))
-    mod.bind([mx.io.DataDesc("data", (B, T), np.float32)],
-             [mx.io.DataDesc("softmax_label", (B, T), np.float32)])
+    with mirrored(mirror):
+        mod.bind([mx.io.DataDesc("data", (B, T), np.float32)],
+                 [mx.io.DataDesc("softmax_label", (B, T), np.float32)])
     mod.init_params(arg_params=weights)
     del net, weights
     mod.init_optimizer(optimizer="sgd", optimizer_params={
@@ -2202,7 +2279,10 @@ def phase_module_lm(mx, gluon):
            if n not in ("data", "softmax_label")}
     print(f"  LM symbol bound: {len(sym.list_arguments())} arguments "
           f"({sorted(wdt)}), data and label float32, in "
-          f"{time.perf_counter() - t0:.1f} s")
+          f"{time.perf_counter() - t0:.1f} s; {mod._exec._segments} "
+          f"segment(s) of {len(mod._exec._plan.steps)} steps")
+    check(mirror == (mod._exec._segments > 1), f"mirror {mirror} gave "
+          f"{mod._exec._segments} segment(s)")
     check(wdt == {"bfloat16"}, f"LM weights bound as {wdt}, not bfloat16")
     toks = np.random.RandomState(0).randint(0, CONFIG["vocab"], (B, T + 1))
     batch = mx.io.DataBatch(
@@ -2232,7 +2312,8 @@ def phase_module_lm(mx, gluon):
     losses = metric.materialize()
     peak = torch.cuda.max_memory_allocated()
     step = statistics.median(walls[1:])
-    print(f"  Module LM training bf16, B={B} T={T}: NLL {losses} (the last "
+    print(f"  Module LM training bf16{', mirrored' if mirror else ''}, "
+          f"B={B} T={T}: NLL {losses} (the last "
           f"after {LM_MODULE_STEPS} updates); step times (host clock, "
           f"synchronized) {[round(w, 1) for w in walls]} ms, after the "
           f"first {step:.1f} ms, {B * T / step * 1e3:.0f} tokens/s; peak "
@@ -2242,11 +2323,16 @@ def phase_module_lm(mx, gluon):
     check(np.isfinite(losses).all(), f"Module LM losses not finite: {losses}")
     check(losses[-1] < losses[0], f"Module LM loss did not fall: {losses}")
     for i, c in enumerate(per_step):
-        check(c["flash_attention.sm90"] == L and c["flash_attention.f32"] == 0
+        check(c["flash_attention.sm90"] == k1_per_step
+              and c["flash_attention.f32"] == 0
               and c["flash_attention.bwd.sm90"] == L
               and c["flash_attention.bwd.f32"] == 0,
-              f"Module LM step {i}: launches {c}; want {L} sm90 K1 and {L} "
-              "sm90 K1b, none on f32")
+              f"Module LM step {i}: launches {c}; want {k1_per_step} sm90 "
+              f"K1 and {L} sm90 K1b, none on f32")
+    if mirror:
+        del mod, batch
+        return counts, {"step_ms": step, "peak_gib": peak / 2 ** 30,
+                        "losses": losses}
 
     def one_step():
         mod.forward_backward(batch)
@@ -3298,6 +3384,493 @@ def phase_module_checkpoint(mx, root):
     check(round_trip, "Module optimizer states did not round-trip bitwise")
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the record-file input path
+# ---------------------------------------------------------------------------
+REC_IMAGES = 2048      # 8 batches of B=256: bench.py's epoch
+REC_SRC = 256          # stored images 256x256x3 uint8, cropped to 224
+# ImageNet's mean and std per channel, as upstream's train_imagenet.py
+REC_NORM = dict(mean_r=123.68, mean_g=116.28, mean_b=103.53, std_r=58.395,
+                std_g=57.12, std_b=57.375)
+REC_CHECK_BATCHES = 2  # device_augment float32 against the host path
+TOL_REC_F32 = 1e-4     # normalised float32 batches, absolute
+MIRROR_STEPS = 5       # ResNet-50 mirrored and not: 1 warm-up + 4 timed
+TOL_MIRROR = 1e-5      # of each one's largest, where not bitwise
+# each timed step's NLL, mirrored against unmirrored, relative: those steps
+# run cuDNN's default algorithms, and two identical fits then differ from
+# their first batch's gradients on; a recomputation that is wrong (a
+# segment fed the wrong inputs, statistics updated twice) moves it further
+TOL_MIRROR_LOSS = 1e-3
+MIRROR_DET_STEPS = 2   # ResNet-50 steps under deterministic algorithms,
+                       # whose parameters and statistics are compared
+EXPORT_PROMPT = 16
+
+
+def rec_iter(mx, path, **kw):
+    """Phase 14's ``ImageRecordIter``: ``data_shape`` (3, 224, 224), B=256,
+    shuffled, random crop, ImageNet's mean and std, 4 batches read ahead,
+    on gpu(0); ``kw`` overrides."""
+    args = dict(data_shape=(3, VISION_IMG, VISION_IMG),
+                batch_size=VISION_BATCH, shuffle=True, rand_crop=True,
+                rand_mirror=True, device_augment=True,
+                device_dtype="bfloat16",
+                preprocess_threads=min(16, os.cpu_count() or 1),
+                prefetch_buffer=4, ctx=mx.gpu(0), **REC_NORM)
+    args.update(kw)
+    return mx.io.ImageRecordIter(path, **args)
+
+
+def write_image_rec(mx, root):
+    """2,048 synthetic ImageNet-shaped images (uint8 256x256x3, ``.npy``
+    payloads, labels 0-999, seed 0) into ``root/images.rec`` and its
+    ``.idx``: (path, the first 64 images, labels)."""
+    import numpy as np
+    rs = np.random.RandomState(0)
+    labels = rs.randint(0, 1000, REC_IMAGES)
+    path = os.path.join(root, "images.rec")
+    t0 = time.perf_counter()
+    rec = mx.recordio.MXIndexedRecordIO(os.path.join(root, "images.idx"),
+                                        path, "w")
+    first = []
+    for i in range(REC_IMAGES):
+        img = rs.randint(0, 256, (REC_SRC, REC_SRC, 3), dtype=np.uint8)
+        if i < 64:
+            first.append(img)
+        rec.write_idx(i, mx.recordio.pack_img(
+            (0, float(labels[i]), i, 0), img, img_fmt=".npy"))
+    rec.close()
+    secs = time.perf_counter() - t0
+    nbytes = os.path.getsize(path)
+    print(f"  (a) wrote {REC_IMAGES} images ({REC_SRC}x{REC_SRC}x3 uint8, "
+          f".npy payloads) and the index: {nbytes / 1e6:.1f} MB in "
+          f"{secs:.2f} s ({nbytes / secs / 1e6:.0f} MB/s)")
+    return path, np.stack(first), labels.astype(np.float32)
+
+
+def read_epoch(it, check_batch=None):
+    """One epoch of ``it`` to its end: (batches, seconds), the card
+    synchronised at the end."""
+    import torch
+    t0 = time.perf_counter()
+    n = 0
+    for batch in it:
+        if check_batch is not None:
+            check_batch(batch)
+        n += 1
+    torch.cuda.synchronize()
+    return n, time.perf_counter() - t0
+
+
+def phase_rec_iter(mx, path, labels):
+    """(b) the iterator alone: one warm epoch timed; every batch a bf16
+    (256, 3, 224, 224) tensor on the card; device_augment in float32
+    against the host path under the same seed."""
+    import random
+    import numpy as np
+    import torch
+    it = rec_iter(mx, path)
+    seen = []
+
+    def check_batch(b):
+        x, y = b.data[0], b.label[0]
+        check(x.dtype == torch.bfloat16 and x.is_cuda and tuple(x.shape) ==
+              (VISION_BATCH, 3, VISION_IMG, VISION_IMG) and y.is_cuda,
+              f"ImageRecordIter batch {x.dtype} {tuple(x.shape)} on "
+              f"{x.device}, label on {y.device}")
+        seen.append(y)
+
+    n0, t_cold = read_epoch(it, check_batch)
+    it.reset()
+    seen.clear()
+    n1, t_warm = read_epoch(it, check_batch)
+    got = torch.cat(seen).cpu().numpy()
+    check(n0 == n1 == REC_IMAGES // VISION_BATCH and
+          sorted(got.tolist()) == sorted(labels.tolist()),
+          f"an epoch gave {n1} batches or other labels")
+    threads = min(16, os.cpu_count() or 1)
+    rate = REC_IMAGES / t_warm
+    print(f"  (b) ImageRecordIter, B={VISION_BATCH}, shuffled, random crop "
+          f"and mirror, mean/std, device_augment bf16, {threads} "
+          f"preprocess threads, prefetch 4 (host: {os.cpu_count()} CPUs): "
+          f"first epoch {t_cold:.2f} s, warm epoch {t_warm:.3f} s, "
+          f"{rate:.1f} images/s; every batch bf16 "
+          f"{(VISION_BATCH, 3, VISION_IMG, VISION_IMG)} on the card, labels "
+          "a permutation")
+    # float32 on the device against the host path: no mirror (the two
+    # paths draw its flips from different streams) and one thread (the
+    # crops draw from Python's random in the order images are decoded)
+    outs = []
+    for dev in (True, False):
+        random.seed(0)
+        np.random.seed(0)
+        ref = rec_iter(mx, path, rand_mirror=False, device_augment=dev,
+                       device_dtype="float32", preprocess_threads=1,
+                       prefetch_buffer=1)
+        outs.append([ref.next() for _ in range(REC_CHECK_BATCHES)])
+        ref.close()
+    err = 0.0
+    for d, h in zip(*outs):
+        check(d.data[0].dtype == torch.float32 and d.data[0].is_cuda,
+              "device_augment float32 batch not float32 on the card")
+        check(torch.equal(d.label[0], h.label[0]),
+              "device_augment labels differ from the host path's")
+        err = max(err, (d.data[0] - h.data[0]).abs().max().item())
+    print(f"  device_augment float32 against the host path, "
+          f"{REC_CHECK_BATCHES} batches, same seed: max |diff| {err:.3e} "
+          f"(limit {TOL_REC_F32}), labels equal")
+    check(err <= TOL_REC_F32, f"device_augment differs from the host path "
+          f"by {err:.3e}")
+    return rate
+
+
+def phase_rec_fit(mx, path, resident, it_rate):
+    """(c) phase 11's ResNet-50 ``Module.fit`` (3 epochs of 8 batches)
+    fed by the ``ImageRecordIter`` of (b)."""
+    import gc
+    import numpy as np
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+    sym = resnet_symbol(mx, VISION_MODEL)
+    mod = bind_resnet_module(mx, sym)
+    it = rec_iter(mx, path)
+    metric = DeviceNLL(mx)
+    marks = []
+
+    def epoch_end(epoch, sym_, arg, aux):
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    marks.append(time.perf_counter())
+    mod.fit(it, num_epoch=MODULE_EPOCHS, eval_metric=metric.metric,
+            epoch_end_callback=epoch_end)
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    losses = metric.materialize()
+    epochs = [(b - a) * 1e3 for a, b in zip(marks, marks[1:])]
+    step = (marks[-1] - marks[1]) * 1e3 / (MODULE_BATCHES *
+                                           (MODULE_EPOCHS - 1))
+    rate = VISION_BATCH / step * 1e3
+    print(f"  (c) Module.fit fed by ImageRecordIter: epochs "
+          f"{[round(e, 1) for e in epochs]} ms (one synchronisation each); "
+          f"{step:.1f} ms per step over the two timed epochs, {rate:.1f} "
+          f"images/s; peak memory {peak / 2 ** 30:.2f} GiB")
+    print(f"  beside phase 11's resident step {resident['step_ms']:.1f} ms, "
+          f"{resident['images_s']:.1f} images/s, peak "
+          f"{resident['peak_gib']:.2f} GiB; fed over resident "
+          f"{step / resident['step_ms']:.3f}x; the iterator alone "
+          f"{it_rate:.1f} images/s")
+    print(f"  NLL per batch {[round(v, 4) for v in losses]}")
+    check(len(losses) == MODULE_EPOCHS * MODULE_BATCHES and
+          np.isfinite(losses).all(), f"fed Module losses: {losses}")
+    check(not any(counts.values()), f"the fed Module path launched a kernel "
+          f"of the repo: {counts}")
+    it.close()
+
+    def traced_epoch():
+        # a fresh iterator, so that every upload and augment of the epoch
+        # falls inside the trace; closed before the trace ends
+        fresh = rec_iter(mx, path)
+        mod.fit(fresh, begin_epoch=MODULE_EPOCHS,
+                num_epoch=MODULE_EPOCHS + 1, eval_metric=metric.metric)
+        fresh.close()
+
+    rows = kernel_rows(traced_epoch)
+    if rows:
+        # the augment runs on a stream of its own: its kernels may overlap
+        # the step's, so the sum bounds the device's busy time from above
+        busy = sum(r[0] for r in rows) / MODULE_BATCHES
+        up = [r for r in rows if "HtoD" in r[2]]
+        up_ms = sum(r[0] for r in up) / MODULE_BATCHES
+        print(f"  one fed epoch under torch.profiler: device time per step "
+              f"{busy:.3f} ms (kernels and copies of both streams, summed), "
+              f"of which host-to-device copies {up_ms:.3f} ms "
+              f"({sum(r[1] for r in up)} copies in the epoch); beside phase "
+              f"11's resident kernel time "
+              f"{resident.get('kernel_ms', float('nan')):.3f} ms; the fed "
+              f"step less its device time {step - busy:.3f} ms (the "
+              "resident step's "
+              f"{resident.get('host_gaps_ms', float('nan')):.3f} ms)")
+        for g, (ms, count) in sorted(group_rows(rows).items(),
+                                     key=lambda kv: -kv[1][0]):
+            print(f"    {g}: {ms / MODULE_BATCHES:.3f} ms per step, "
+                  f"{count} launches in the epoch")
+    else:
+        print("  fed epoch device time not measured: torch.profiler saw no "
+              "device time")
+    del mod
+
+
+def phase_tensor_rec(mx, root):
+    """(d) ``TensorRecordIter`` over 2,048 raw uint8 3x224x224 records on
+    the native loader, B=256, shuffled."""
+    import numpy as np
+    import torch
+    from mxnet_tpu_torch import _native
+    from mxnet_tpu_torch.kernels import _build
+    t0 = time.perf_counter()
+    _native.lib()
+    built = _build.BUILD_LOG.get("mxtpu_runtime", {}).get("seconds")
+    print(f"  (d) native runtime (src/runtime, g++): loaded in "
+          f"{time.perf_counter() - t0:.2f} s"
+          + (f" (built in {built:.2f} s)" if built else ""))
+    rs = np.random.RandomState(1)
+    data = rs.randint(0, 256, (REC_IMAGES, 3, VISION_IMG, VISION_IMG),
+                      dtype=np.uint8)
+    labels = np.arange(REC_IMAGES, dtype=np.float32)
+    path = os.path.join(root, "tensors.rec")
+    t0 = time.perf_counter()
+    mx.io.save_tensor_rec(path, data, labels)
+    secs = time.perf_counter() - t0
+    nbytes = os.path.getsize(path)
+    it = mx.io.TensorRecordIter(path, (3, VISION_IMG, VISION_IMG),
+                                VISION_BATCH, shuffle=True, seed=0,
+                                prefetch_buffer=4, ctx=mx.gpu(0))
+    seen, first = [], []
+
+    def check_batch(b):
+        x, y = b.data[0], b.label[0]
+        check(x.dtype == torch.uint8 and x.is_cuda and y.is_cuda and
+              tuple(x.shape) == (VISION_BATCH, 3, VISION_IMG, VISION_IMG),
+              f"TensorRecordIter batch {x.dtype} {tuple(x.shape)} on "
+              f"{x.device}")
+        seen.append(y)
+        if not first:
+            first.append((x[5].cpu().numpy(), int(y[5].item())))
+
+    n, t_epoch = read_epoch(it, check_batch)
+    got = torch.cat(seen).cpu().numpy()
+    rate = REC_IMAGES / t_epoch
+    print(f"  wrote {REC_IMAGES} records ({nbytes / 1e6:.1f} MB) in "
+          f"{secs:.2f} s; one shuffled epoch, B={VISION_BATCH}, to the card:"
+          f" {n} batches in {t_epoch:.3f} s, {rate:.1f} images/s")
+    check(sorted(got.tolist()) == labels.tolist(),
+          "TensorRecordIter's labels are not a permutation of those written")
+    check(not np.array_equal(got, labels), "TensorRecordIter did not "
+          "shuffle")
+    sample, idx = first[0]
+    check(np.array_equal(sample, data[idx]), f"record {idx}'s bytes differ "
+          "from those written")
+    print(f"  labels a permutation of those written; record {idx}'s bytes "
+          "equal")
+    del it, data
+
+
+def mirror_resnet18_step(mx, sym, mirror):
+    """resnet18_v1's ``sym`` in f32 (B=2, 64x64), one Module
+    forward_backward from seed 0 under deterministic algorithms:
+    (segments, gradients, moving statistics)."""
+    import numpy as np
+    rs = np.random.RandomState(3)
+    xs = rs.normal(size=GRAD_VISION_SHAPE).astype(np.float32)
+    ys = rs.randint(0, 1000, GRAD_VISION_SHAPE[0]).astype(np.float32)
+    mod = mx.mod.Module(sym, context=mx.gpu(0))
+    with mirrored(mirror):
+        mod.bind([("data", GRAD_VISION_SHAPE)],
+                 [("softmax_label", (GRAD_VISION_SHAPE[0],))])
+    mx.random.seed(0)
+    mod.init_params(mx.init.Xavier(rnd_type="gaussian", factor_type="in",
+                                   magnitude=2))
+    with deterministic():
+        mod.forward_backward(mx.io.DataBatch(
+            [mx.nd.array(xs, ctx=mx.gpu(0))],
+            [mx.nd.array(ys, ctx=mx.gpu(0))]))
+    ex = mod._exec
+    return ex._segments, {n: g.clone() for n, g in ex.grad_dict.items()}, \
+        {n: a.clone() for n, a in ex.aux_dict.items()}
+
+
+def mirror_resnet50_steps(mx, sym, mirror, steps=MIRROR_STEPS, det=False):
+    """Phase 11's ResNet-50 Module (bf16, B=256) of ``sym`` on one resident
+    batch,
+    mirrored or not: ``steps`` steps, the first a warm-up, under
+    deterministic algorithms with ``det``; (median step ms, peak GiB,
+    segments, losses, parameters and moving statistics after the steps)."""
+    import gc
+    import numpy as np
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+    with mirrored(mirror):
+        mod = bind_resnet_module(mx, sym)
+    data, labels = module_data(mx, VISION_BATCH)
+    batch = mx.io.DataBatch([data], [labels])
+    metric = DeviceNLL(mx)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    walls = []
+    with deterministic() if det else contextlib.nullcontext():
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            mod.forward_backward(batch)
+            mod.update()
+            mod.update_metric(metric.metric, batch.label)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    losses = metric.materialize()
+    segs = mod._exec._segments
+    arg, aux = mod.get_params()
+    params = {n: t.clone() for n, t in list(arg.items()) + list(aux.items())}
+    del mod, batch, data, labels
+    check(np.isfinite(losses).all(), f"ResNet-50 losses {losses}")
+    return statistics.median(walls[1:]), peak, segs, losses, params
+
+
+def mirror_diff(want, got):
+    """(bitwise, the largest |diff| of a tensor over that tensor's largest
+    magnitude) of two {name: tensor} with the same names."""
+    import torch
+    bitwise = all(torch.equal(want[n], got[n]) for n in want)
+    err = max((got[n].float() - want[n].float()).abs().max().item() /
+              max(want[n].float().abs().max().item(), 1e-30) for n in want)
+    return bitwise, err
+
+
+def phase_mirror(mx, lm_gluon, lm_module):
+    """(e) ``MXNET_BACKWARD_DO_MIRROR``: resnet18_v1 f32 mirrored against
+    unmirrored; ResNet-50 and the LM Module leg mirrored, peak memory and
+    step time against unmirrored (the LM's: phase 11's run)."""
+    sym = resnet_symbol(mx, "resnet18_v1")
+    (s0, g0, a0), (s1, g1, a1) = (mirror_resnet18_step(mx, sym, m)
+                                  for m in (False, True))
+    check(s0 == 1 and s1 > 1, f"segments {s0} and {s1}")
+    bitwise, err = mirror_diff({**g0, **a0}, {**g1, **a1})
+    print(f"  (e) resnet18_v1 f32 B={GRAD_VISION_SHAPE[0]} Module step under "
+          f"deterministic algorithms, {s1} segments against 1: "
+          f"{len(g0)} gradients and {len(a0)} moving statistics "
+          + ("bitwise equal" if bitwise else
+             f"not bitwise (cuDNN picks its algorithms per call and the "
+             f"recomputed forward is another call); max |diff| over each "
+             f"one's largest {err:.3e} (limit {TOL_MIRROR})"))
+    check(bitwise or err <= TOL_MIRROR, f"mirrored resnet18_v1 step differs "
+          f"by {err:.3e}")
+    sym = resnet_symbol(mx, VISION_MODEL)
+    rows = {m: mirror_resnet50_steps(mx, sym, m) for m in (False, True)}
+    for m, (step, peak, segs, losses, _) in rows.items():
+        print(f"  ResNet-50 Module B={VISION_BATCH} bf16, "
+              f"{'mirrored' if m else 'unmirrored'} ({segs} segment(s)): "
+              f"{step:.1f} ms per step (median of {MIRROR_STEPS - 1} after a "
+              f"warm-up), peak {peak:.2f} GiB; NLL "
+              f"{[round(v, 4) for v in losses]}")
+    (s_p, p_p, _, l_p, _), (s_m, p_m, _, l_m, _) = rows[False], rows[True]
+    l_err = max(abs(b - a) / abs(a) for a, b in zip(l_p, l_m))
+    print(f"  ResNet-50 mirrored over unmirrored: step {s_m / s_p:.3f}x, "
+          f"peak {p_m / p_p:.3f}x; NLL of each step max relative |diff| "
+          f"{l_err:.3e} (limit {TOL_MIRROR_LOSS})")
+    check(l_err <= TOL_MIRROR_LOSS, f"mirrored ResNet-50 NLL {l_m} against "
+          f"unmirrored {l_p}")
+    det = [mirror_resnet50_steps(mx, sym, m, MIRROR_DET_STEPS, det=True)[4]
+           for m in (False, True)]
+    bitwise, err = mirror_diff(*det)
+    print(f"  ResNet-50 {MIRROR_DET_STEPS} steps under deterministic "
+          f"algorithms, mirrored against unmirrored: {len(det[0])} parameters"
+          " and moving statistics after them "
+          + ("bitwise equal" if bitwise else
+             f"not bitwise; max |diff| over each one's largest {err:.3e} "
+             f"(limit {TOL_MIRROR})"))
+    check(bitwise or err <= TOL_MIRROR, f"mirrored ResNet-50 parameters "
+          f"differ by {err:.3e}")
+    counts, lm = phase_module_lm(mx, lm_gluon, mirror=True)
+    lm_err = max(abs(b - a) / abs(a) for a, b in
+                 zip(lm_module["losses"], lm["losses"]))
+    print(f"  LM Module leg mirrored: step {lm['step_ms']:.1f} ms, peak "
+          f"{lm['peak_gib']:.2f} GiB against phase 11's unmirrored "
+          f"{lm_module['step_ms']:.1f} ms, {lm_module['peak_gib']:.2f} GiB "
+          f"({lm['step_ms'] / lm_module['step_ms']:.3f}x, "
+          f"{lm['peak_gib'] / lm_module['peak_gib']:.3f}x); NLL against "
+          f"phase 11's (same weights, batch and steps) max relative |diff| "
+          f"{lm_err:.3e} (limit {TOL_MIRROR_LOSS})")
+    check(len(lm["losses"]) == len(lm_module["losses"]) and
+          lm_err <= TOL_MIRROR_LOSS, f"mirrored LM NLL {lm['losses']} "
+          f"against phase 11's {lm_module['losses']}")
+    return counts, {"resnet50": rows, "lm": lm}
+
+
+def phase_export(mx, root):
+    """(f) ``export_decode_step`` of phase 3's float32 net, served by a
+    ``Predictor`` on the card: 8 greedy tokens from a 16-token prompt,
+    the cache outputs fed back, against ``generate(kv_cache=True)``."""
+    import gc
+    import numpy as np
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+    flash, dense = build_nets(mx)
+    del dense
+    prompt = np.random.RandomState(42).randint(
+        0, CONFIG["vocab"], (1, EXPORT_PROMPT)).astype(np.float32)
+    want = mx.nd.asnumpy(flash.generate(mx.nd.array(prompt, ctx=mx.gpu(0)),
+                                        MAX_NEW, kv_cache=True))
+    prefix = os.path.join(root, "lm-decode")
+    t0 = time.perf_counter()
+    names = flash.export_decode_step(prefix)
+    t_export = time.perf_counter() - t0
+    blk = flash.blocks._children[0].attn
+    cache = (1, blk._h, CONFIG["max_len"], blk._dh)
+    del flash
+    gc.collect()
+    torch.cuda.empty_cache()
+    shapes = {"data0": (1, 1), "data1": (1,)}
+    shapes.update({n: cache for n in names[2:]})
+    t0 = time.perf_counter()
+    pred = mx.predictor.create(prefix + "-symbol.json", prefix + "-0000.params",
+                               shapes, dev=mx.gpu(0))
+    t_load = time.perf_counter() - t0
+    toks = [float(t) for t in prompt[0]]
+    t0 = time.perf_counter()
+    for t in range(EXPORT_PROMPT + MAX_NEW - 1):
+        pred.set_input("data0", np.array([[toks[t]]], np.float32))
+        pred.set_input("data1", np.array([float(t)], np.float32))
+        pred.forward()
+        outs = pred.outputs
+        for name, c in zip(names[2:], outs[1:]):
+            pred.set_input(name, c)
+        if t + 1 >= EXPORT_PROMPT:
+            toks.append(float(outs[0].argmax(-1)[0]))
+    torch.cuda.synchronize()
+    t_decode = time.perf_counter() - t0
+    got = np.array([toks], np.float32)
+    size = os.path.getsize(prefix + "-0000.params")
+    print(f"  (f) export_decode_step, float32: {len(names)} inputs, "
+          f"{size / 2 ** 30:.3f} GiB of parameters, written in "
+          f"{t_export:.2f} s, loaded by Predictor on the card in "
+          f"{t_load:.2f} s; {EXPORT_PROMPT + MAX_NEW - 1} steps in "
+          f"{t_decode:.2f} s; new tokens "
+          f"{got[0, EXPORT_PROMPT:].astype(int).tolist()}")
+    check(np.array_equal(got, want), f"Predictor tokens "
+          f"{got[0, EXPORT_PROMPT:].tolist()} differ from generate's "
+          f"{want[0, EXPORT_PROMPT:].tolist()}")
+    print("  equal to generate(kv_cache=True)'s tokens")
+    del pred
+
+
+def phase_rec_dataset(mx, path, first):
+    """(g) ``ImageRecordDataset`` over (a)'s file through a ``DataLoader``:
+    one batch to the card."""
+    import numpy as np
+    import torch
+    ds = mx.gluon.data.vision.ImageRecordDataset(path)
+    first = first[:REC_IMAGES]
+    loader = mx.gluon.data.DataLoader(ds, batch_size=len(first))
+    t0 = time.perf_counter()
+    x, y = next(iter(loader))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    check(len(ds) == REC_IMAGES and isinstance(x, torch.Tensor) and x.is_cuda
+          and tuple(x.shape) == first.shape
+          and x.dtype == torch.uint8, f"ImageRecordDataset batch "
+          f"{getattr(x, 'shape', None)} on {getattr(x, 'device', None)}")
+    check(np.array_equal(x.cpu().numpy(), first), "ImageRecordDataset's "
+          "images differ from those written")
+    print(f"  (g) ImageRecordDataset + DataLoader: one batch "
+          f"{tuple(x.shape)} uint8 on the card in {secs:.3f} s, equal to the "
+          "images written")
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3356,9 +3929,9 @@ def main():
         print(f"phase 10: {time.perf_counter() - t_vision:.1f} s")
         print("== phase 11: the symbolic path (Module.fit)")
         t_module = time.perf_counter()
-        phase_module_resnet(mx, vision_gluon)
+        resident = phase_module_resnet(mx, vision_gluon)
         phase_module_vs_gluon(mx)
-        module_counts, _ = phase_module_lm(mx, lm_gluon)
+        module_counts, lm_module = phase_module_lm(mx, lm_gluon)
         print(f"phase 11: {time.perf_counter() - t_module:.1f} s")
         print("== phase 12: the core op surface, MultiHeadAttention, DCGAN")
         t_core = time.perf_counter()
@@ -3377,6 +3950,18 @@ def main():
             state_counts = phase_resume(mx, root)
             phase_module_checkpoint(mx, root)
         print(f"phase 13: {time.perf_counter() - t_state:.1f} s")
+        print("== phase 14: the record-file input path")
+        t_rec = time.perf_counter()
+        with tempfile.TemporaryDirectory(
+                dir=os.path.join(ROOT, "build")) as root:
+            path, first, labels = write_image_rec(mx, root)
+            it_rate = phase_rec_iter(mx, path, labels)
+            phase_rec_fit(mx, path, resident, it_rate)
+            phase_rec_dataset(mx, path, first)
+            phase_tensor_rec(mx, root)
+            mirror_counts, _ = phase_mirror(mx, lm_gluon, lm_module)
+            phase_export(mx, root)
+        print(f"phase 14: {time.perf_counter() - t_rec:.1f} s")
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -3498,12 +4083,15 @@ def main():
         entry["mha_launches"] = mha_counts[variant]
         entry["mha_f32_launches"] = mha_f32_counts[variant]
         entry["resume_launches"] = state_counts[f"flash_attention.{variant}"]
+        entry["mirror_launches"] = mirror_counts[f"flash_attention.{variant}"]
     for entry, variant in zip(kernels_line["kernels"][3:5], ("sm90", "f32")):
         entry["module_launches"] = module_counts[
             f"flash_attention.bwd.{variant}"]
         entry["mha_launches"] = mha_counts[f"bwd.{variant}"]
         entry["mha_f32_launches"] = mha_f32_counts[f"bwd.{variant}"]
         entry["resume_launches"] = state_counts[
+            f"flash_attention.bwd.{variant}"]
+        entry["mirror_launches"] = mirror_counts[
             f"flash_attention.bwd.{variant}"]
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(kernels_line))

@@ -20,7 +20,10 @@ PyTorch's cuDNN convolutions.  The symbolic path trains a Symbol:
 ``Symbol.simple_bind``/``bind`` give an ``mx.executor.Executor``,
 ``mx.mod.Module`` fits it from ``mx.io`` iterators through ``mx.kv``
 (``mx.kvstore``), with ``mx.model`` checkpoints, ``mx.callback`` and
-``mx.monitor``.  ``mx.checkpoint`` writes atomic, validated checkpoint
+``mx.monitor``.  ``mx.recordio``, ``mx.image`` and ``mx.io``'s record
+iterators read ``.rec`` files, the raw-tensor ones through the native
+host runtime (``_native``, built from ``src/runtime`` with g++ on first
+use).  ``mx.checkpoint`` writes atomic, validated checkpoint
 directories (async, with retention) that resume a Trainer or a
 ``Module.fit`` and hot-reload a served predictor.  It imports torch and
 numpy, never jax or the JAX package.
@@ -58,6 +61,8 @@ from . import executor
 from . import kvstore
 from . import kvstore as kv
 from . import io
+from . import recordio
+from . import image
 from . import model
 from . import module
 from . import module as mod

@@ -22,9 +22,15 @@ torch's autograd differentiates it:
   tensors once per forward, in place and unrecorded (``write_back``): no
   recorded op saved them, so torch's version check stays quiet.
 
+With ``MXNET_BACKWARD_DO_MIRROR`` set, a train-mode forward with a
+gradient to take runs the plan in ``MXNET_MIRROR_SEGMENTS`` checkpointed
+segments (else sqrt(steps), at least 2): only the values crossing a
+segment boundary are kept, and the backward runs each segment's forward
+again (``GraphPlan.run``).
+
 Not ported, and raising ``NotImplementedError`` that names the queue item
 (ROADMAP.md): ``group2ctx`` model parallelism and row-sparse gradients
-(item 6), the ``MXNET_BACKWARD_DO_MIRROR`` remat (item 10).
+(item 6).
 """
 from __future__ import annotations
 
@@ -67,9 +73,14 @@ class Executor:
         self._plan = GraphPlan(symbol)
         self._grad_names = [n for n in self._plan.arg_names
                             if self.grad_req.get(n, "null") != "null"]
-        # MXNET_BACKWARD_DO_MIRROR: rematerialised segments, for which
-        # GraphPlan.run raises (any count above one)
-        self._segments = 2 if getenv("MXNET_BACKWARD_DO_MIRROR", 0) else 1
+        # MXNET_BACKWARD_DO_MIRROR: the train-mode forward runs in
+        # checkpointed segments (GraphPlan.run), MXNET_MIRROR_SEGMENTS of
+        # them, else sqrt(steps) and at least 2 (a whole-graph checkpoint
+        # saves nothing)
+        self._segments = 1
+        if getenv("MXNET_BACKWARD_DO_MIRROR", 0):
+            self._segments = int(getenv("MXNET_MIRROR_SEGMENTS", 0) or 0) \
+                or max(2, int(len(self._plan.steps) ** 0.5))
         self._monitor = None
         self._monitor_all = False
         self._outputs: Optional[List[torch.Tensor]] = None

@@ -1,11 +1,15 @@
 """gluon.data datasets (parity: python/mxnet/gluon/data/dataset.py).
 
-``Dataset``, ``SimpleDataset`` and ``ArrayDataset``.  ``RecordFileDataset``
-needs ``recordio`` and is not ported yet (ROADMAP.md, queue item 10).
+``Dataset``, ``SimpleDataset``, ``ArrayDataset`` and ``RecordFileDataset``
+(the raw records of a ``.rec`` through its ``.idx``).
 """
 from __future__ import annotations
 
+import os
+
 import torch
+
+from ... import recordio
 
 
 class Dataset:
@@ -77,3 +81,20 @@ class ArrayDataset(Dataset):
 
     def __len__(self):
         return self._length
+
+
+class RecordFileDataset(Dataset):
+    """The records of a ``.rec`` file, as bytes, in the order of its
+    ``.idx`` (the same name with ``.idx``)."""
+
+    def __init__(self, filename):
+        self.idx_file = os.path.splitext(filename)[0] + ".idx"
+        self.filename = filename
+        self._record = recordio.MXIndexedRecordIO(self.idx_file,
+                                                  self.filename, "r")
+
+    def __getitem__(self, idx):
+        return self._record.read_idx(self._record.keys[idx])
+
+    def __len__(self):
+        return len(self._record.keys)

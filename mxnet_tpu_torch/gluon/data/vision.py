@@ -4,8 +4,10 @@
 and ``CIFAR100`` the python-pickle batches, from a local ``root``
 directory: files are staged there, nothing is fetched.  Images come back
 as (N, H, W, C) float32 in [0, 1] on the current context, labels as int32
-numpy arrays.  ``ImageRecordDataset`` and ``ImageFolderDataset`` need
-``recordio`` and the image decoder, which are not ported yet.
+numpy arrays.  ``ImageRecordDataset`` (a ``.rec`` of packed images) and
+``ImageFolderDataset`` (a folder of class subfolders) decode one image per
+item through ``recordio`` (``.npy`` payloads by numpy, JPEG and PNG by cv2
+or PIL) into an HWC uint8 tensor on the current context.
 """
 from __future__ import annotations
 
@@ -14,10 +16,11 @@ import pickle
 
 import numpy as _np
 
+from ... import recordio
 from ...base import MXNetError
 from ...io import _read_idx
 from ...ndarray import array
-from .dataset import Dataset
+from .dataset import Dataset, RecordFileDataset
 
 
 class _DownloadedDataset(Dataset):
@@ -137,16 +140,55 @@ class CIFAR100(_DownloadedDataset):
         self._label = _np.asarray(d[key]).astype(_np.int32)
 
 
-class ImageRecordDataset(Dataset):
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "gluon.data.vision.ImageRecordDataset reads .rec files through "
-            "recordio, which is not ported yet (ROADMAP.md, queue item 10)")
+class ImageRecordDataset(RecordFileDataset):
+    """(image, label) from a ``.rec`` of packed images; the image as MXNet
+    decodes it (BGR with ``flag=1``)."""
+
+    def __init__(self, filename, flag=1, transform=None):
+        super().__init__(filename)
+        self._flag = flag
+        self._transform = transform
+
+    def __getitem__(self, idx):
+        header, img_bytes = recordio.unpack(super().__getitem__(idx))
+        img = array(recordio._imdecode_bytes(img_bytes, self._flag))
+        if self._transform is not None:
+            return self._transform(img, header.label)
+        return img, header.label
 
 
 class ImageFolderDataset(Dataset):
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "gluon.data.vision.ImageFolderDataset decodes images through "
-            "the image module over recordio's runtime, which is not ported "
-            "yet (ROADMAP.md, queue item 10)")
+    """(image, label) from a folder of class subfolders, the classes in
+    sorted order (``synsets``); .jpg, .jpeg and .png files."""
+
+    def __init__(self, root, flag=1, transform=None):
+        self._root = os.path.expanduser(root)
+        self._flag = flag
+        self._transform = transform
+        self._exts = [".jpg", ".jpeg", ".png"]
+        self._list_images(self._root)
+
+    def _list_images(self, root):
+        self.synsets = []
+        self.items = []
+        for folder in sorted(os.listdir(root)):
+            path = os.path.join(root, folder)
+            if not os.path.isdir(path):
+                continue
+            label = len(self.synsets)
+            self.synsets.append(folder)
+            for filename in sorted(os.listdir(path)):
+                filename = os.path.join(path, filename)
+                if os.path.splitext(filename)[1].lower() in self._exts:
+                    self.items.append((filename, label))
+
+    def __getitem__(self, idx):
+        fname, label = self.items[idx]
+        with open(fname, "rb") as f:
+            img = array(recordio._imdecode_bytes(f.read(), self._flag))
+        if self._transform is not None:
+            return self._transform(img, label)
+        return img, label
+
+    def __len__(self):
+        return len(self.items)

@@ -19,9 +19,10 @@ Decoding:
 The KV cell and the beam step re-compose the same sub-blocks and
 parameters as the forward.  The decode-step wrappers are active blocks:
 each traces itself into a Symbol graph once and runs it through its
-``CachedOp``.  The decode-step export is not ported yet (ROADMAP.md, queue
-item 10), and the sequence-parallel attention types need scale-out (queue
-item 6); both raise ``NotImplementedError``.
+``CachedOp``.  ``export_decode_step`` writes the KV cell as a Symbol and a
+``.params`` file that ``predictor.Predictor`` serves.  The
+sequence-parallel attention types need scale-out (ROADMAP.md, queue item
+6) and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -285,10 +286,31 @@ class TransformerLM(HybridBlock):
                 F.array(cum_np[:, 0], ctx=ctx))
 
     def export_decode_step(self, prefix, batch_size=1):
-        raise NotImplementedError(
-            "export_decode_step writes the KV cell's graph as a "
-            "checkpoint; it is not ported yet (ROADMAP.md, queue item 10: "
-            "the rest of the symbolic path)")
+        """Write the KV decode cell as ``{prefix}-symbol.json`` and
+        ``{prefix}-0000.params`` for ``predictor.Predictor``, which decodes
+        by feeding the cache outputs back as inputs.
+
+        Inputs, in order: data0 the token (B, 1), data1 its position (1,),
+        data2..data{2L+1} the per-layer K/V caches (B, H, max_len, dh).
+        Outputs: [logits (B, vocab), *updated caches].  Returns the input
+        names.  (The flat C ABI over the artifact comes with queue item 7.)
+        """
+        from ... import ndarray as F
+        from ...model import save_checkpoint
+        self._check_kv_supported()
+        step = self._kv_step()["sample"]
+        w = self.head.weight.data()
+        tok = F.zeros((batch_size, 1), ctx=w.device)
+        pos = F.zeros((1,), ctx=w.device)
+        caches = self._init_caches(batch_size, ctx=w.device, dtype=w.dtype)
+        inputs, out = step._get_graph(tok, pos, *caches)
+        aux_names = set(out.list_auxiliary_states())
+        params = {name: p.data() for name, p in step.collect_params().items()}
+        save_checkpoint(
+            prefix, 0, out,
+            {k: v for k, v in params.items() if k not in aux_names},
+            {k: v for k, v in params.items() if k in aux_names})
+        return [i.name for i in inputs]
 
     @staticmethod
     def _sample(last, temperature, rng, top_k=0, top_p=0.0):

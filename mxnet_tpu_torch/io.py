@@ -13,14 +13,22 @@ wrapped batch): a source resident on the card never goes through the host.
 A numpy source gives CPU tensors, which ``Module`` copies into its bound
 buffers on the card.
 
+The record-file iterators: ``ImageRecordIter`` (``image.ImageIter`` over a
+``.rec`` behind a ``PrefetchingIter``, optionally with the augmentation's
+float work on the device), ``ImageDetRecordIter`` (``detection``) and
+``TensorRecordIter``, whose batches the native runtime's loader thread
+(``_native``, ``src/runtime/prefetch.cc``) assembles from raw-tensor
+records off the GIL.  Their batches land on the iterator's context
+(``ctx``, else the current context when it is built).
+
 Not ported, and raising ``NotImplementedError`` that names the queue item
-(ROADMAP.md): ``ImageRecordIter``, ``ImageDetRecordIter`` and
-``TensorRecordIter`` wait for ``recordio``/``image`` (item 10),
-``LibSVMIter`` for sparse storage (item 6).
+(ROADMAP.md): ``LibSVMIter`` waits for sparse storage (item 6).
 """
 from __future__ import annotations
 
+import ctypes
 import gzip
+import os
 import queue
 import struct
 import threading
@@ -31,6 +39,7 @@ import numpy as _np
 import torch
 
 from .base import MXNetError, np_dtype
+from .context import as_device
 from .ndarray.ndarray import _from_numpy
 
 DataDesc = namedtuple("DataDesc", ["name", "shape", "dtype", "layout"])
@@ -268,7 +277,7 @@ class PrefetchingIter(DataIter):
     the wrapped iterator wait in a queue.  An exception in the thread is
     raised to the consumer.  Copying each batch to a device in the thread
     (the JAX package's ``device=``) comes with ``prefetch_to_device``
-    (ROADMAP.md, queue item 8)."""
+    (ROADMAP.md, queue item 5)."""
 
     def __init__(self, iters, rename_data=None, rename_label=None,
                  depth=2):
@@ -447,12 +456,159 @@ def _not_ported(name, what):
     return fn
 
 
-_RECORDIO = "recordio and image decoding are not ported yet (queue item " \
-            "10: the rest of the symbolic path)"
-ImageRecordIter = _not_ported("ImageRecordIter", _RECORDIO)
-ImageDetRecordIter = _not_ported("ImageDetRecordIter", _RECORDIO)
-TensorRecordIter = _not_ported("TensorRecordIter", _RECORDIO)
 LibSVMIter = _not_ported("LibSVMIter", "sparse storage is not ported yet "
                                        "(queue item 6: scale-out and sparse)")
+
+
+def ImageDetRecordIter(path_imgrec, data_shape, batch_size, **kwargs):
+    """Detection record iterator (parity:
+    src/io/iter_image_det_recordio.cc:582): box-aware augmenters, labels
+    (B, max objects, object width) padded with -1; see ``detection``."""
+    from .detection import ImageDetRecordIter as _impl
+    return _impl(path_imgrec=path_imgrec, data_shape=data_shape,
+                 batch_size=batch_size, **kwargs)
+
+
+def ImageRecordIter(path_imgrec, data_shape, batch_size, label_width=1,
+                    shuffle=False, mean_r=0., mean_g=0., mean_b=0., std_r=1.,
+                    std_g=1., std_b=1., rand_crop=False, rand_mirror=False,
+                    preprocess_threads=4, prefetch_buffer=4,
+                    device_augment=False, device_dtype="float32", ctx=None,
+                    **kwargs):
+    """Image record iterator (parity: src/io/iter_image_recordio_2.cc):
+    decodes a ``.rec``'s payloads and yields augmented NCHW batches, read
+    ahead by ``prefetch_buffer`` batches in a thread.
+
+    With ``device_augment`` the host decodes and crops only and uploads
+    one uint8 NHWC batch; the mirror, the cast, mean/std and the transpose
+    run on the device, whose output dtype is ``device_dtype`` (e.g.
+    ``"bfloat16"`` for a bf16 training step)."""
+    from .image import ImageRecordIterPy
+    it = ImageRecordIterPy(path_imgrec=path_imgrec,
+                           data_shape=tuple(data_shape),
+                           batch_size=batch_size, label_width=label_width,
+                           shuffle=shuffle, mean=(mean_r, mean_g, mean_b),
+                           std=(std_r, std_g, std_b), rand_crop=rand_crop,
+                           rand_mirror=rand_mirror,
+                           preprocess_threads=preprocess_threads, ctx=ctx,
+                           **kwargs)
+    if device_augment:
+        it._device_augment = True
+        it._device_dtype = device_dtype
+        it.provide_data = [DataDesc(d.name, d.shape, np_dtype(device_dtype))
+                           for d in it.provide_data]
+    return PrefetchingIter(it, depth=int(prefetch_buffer))
+
+
+class TensorRecordIter(DataIter):
+    """Batches of raw-tensor records from the native loader.
+
+    The runtime's loader thread (``src/runtime/prefetch.cc``, parity
+    src/io/iter_prefetcher.h and iter_batchloader.h) reads IRHeader
+    records whose payloads are ``data_shape`` values of ``dtype`` (as
+    ``save_tensor_rec`` writes them), assembles ``prefetch_buffer``
+    batches ahead into pooled host buffers off the GIL, and shuffles under
+    ``seed`` (and the epoch).  Each batch is copied to the iterator's
+    context; a last partial batch is padded from its own start with
+    ``round_batch`` (``pad`` says how many), else returned short."""
+
+    def __init__(self, path_imgrec, data_shape, batch_size, label_width=1,
+                 shuffle=False, seed=0, prefetch_buffer=2, dtype="uint8",
+                 data_name="data", label_name="softmax_label",
+                 round_batch=True, ctx=None):
+        super().__init__(batch_size)
+        from . import _native
+        self.data_shape = tuple(data_shape)
+        self.label_width = label_width
+        self.dtype = _np.dtype(dtype)
+        self.data_name = data_name
+        self.label_name = label_name
+        self.round_batch = round_batch
+        self._device = as_device(ctx)
+        self._sample_nbytes = int(_np.prod(self.data_shape)) * \
+            self.dtype.itemsize
+        if not os.path.isfile(path_imgrec):
+            raise MXNetError(f"record file not found: {path_imgrec}")
+        self._h = None
+        self._lib = _native.lib()
+        self._h = self._lib.MXTBatchLoaderCreate(
+            path_imgrec.encode(), batch_size, self._sample_nbytes,
+            label_width, int(prefetch_buffer), int(bool(shuffle)), int(seed))
+        if self._h is None:
+            raise MXNetError("native batch loader failed on %s: %s" % (
+                path_imgrec, self._lib.MXTGetLastError().decode()))
+
+    @property
+    def provide_data(self):
+        return [DataDesc(self.data_name, (self.batch_size,) + self.data_shape,
+                         self.dtype)]
+
+    @property
+    def provide_label(self):
+        shp = (self.batch_size,) if self.label_width == 1 else \
+            (self.batch_size, self.label_width)
+        return [DataDesc(self.label_name, shp, _np.float32)]
+
+    def reset(self):
+        self._lib.MXTBatchLoaderReset(self._h)
+
+    def _wrap(self, data_np, label_np, n):
+        """A DataBatch of ``n`` rows, padded by repeating its rows from the
+        start under ``round_batch``.  The arrays may be views of the
+        loader's buffer, which its next call reuses: the tensors are
+        copies (a synchronous copy to the card, or a clone on the CPU)."""
+        pad = self.batch_size - n
+        label_np = label_np.reshape(n, -1)
+        if pad and self.round_batch:
+            reps = -(-self.batch_size // n)
+            data_np = _np.concatenate([data_np] * reps)[:self.batch_size]
+            label_np = _np.concatenate([label_np] * reps)[:self.batch_size]
+        if self.label_width == 1:
+            label_np = label_np.reshape(-1)
+
+        def own(a):
+            t = _from_numpy(a)
+            return t.clone() if self._device.type == "cpu" \
+                else t.to(self._device)
+
+        return DataBatch(
+            data=[own(data_np)], label=[own(label_np)],
+            pad=pad if self.round_batch else 0, index=None,
+            provide_data=self.provide_data, provide_label=self.provide_label)
+
+    def next(self):
+        data_p, label_p = ctypes.c_void_p(), ctypes.c_void_p()
+        n = self._lib.MXTBatchLoaderNext(self._h, data_p, label_p)
+        if n < 0:
+            raise MXNetError("native batch loader: %s" %
+                             self._lib.MXTGetLastError().decode())
+        if n == 0:
+            raise StopIteration
+        per = int(_np.prod(self.data_shape))
+        raw = (ctypes.c_uint8 * (n * self._sample_nbytes)).from_address(
+            data_p.value)
+        data_np = _np.frombuffer(raw, self.dtype, count=n * per).reshape(
+            (n,) + self.data_shape)
+        lw = max(self.label_width, 1)
+        lraw = (ctypes.c_float * (n * lw)).from_address(label_p.value)
+        return self._wrap(data_np, _np.frombuffer(lraw, _np.float32), n)
+
+    def __del__(self):
+        if getattr(self, "_h", None) is not None:
+            self._lib.MXTBatchLoaderFree(self._h)
+            self._h = None
+
+
+def save_tensor_rec(path, data, labels):
+    """Write arrays as raw-tensor records for ``TensorRecordIter``."""
+    from .recordio import IRHeader, MXRecordIO, pack
+    w = MXRecordIO(path, "w")
+    for i, (x, y) in enumerate(zip(data, labels)):
+        y = _np.atleast_1d(_np.asarray(y, _np.float32))
+        label = y if y.size > 1 else float(y[0])
+        w.write(pack(IRHeader(0, label, i, 0),
+                     _np.ascontiguousarray(x).tobytes()))
+    w.close()
+
 
 MXDataIter = DataIter

@@ -7,6 +7,10 @@ libraries export plain C functions that take raw pointers and a stream;
 ``load(name)`` builds on first use and returns the ``ctypes.CDLL``, and an
 ``Entry`` is one bound entry point that a wrapper calls.
 ``build()`` starts one ``nvcc`` per source, all at once, and waits for all.
+``build_host(name, sources, headers, flags)`` does the same for a C++
+library of the host (the native runtime, ``_native/``): ``g++`` into
+``build/runtime/lib<name>-<hash>.so``, rebuilt when a source, a header or
+a flag changes, under the same lock.
 
 Nothing here runs when the package is imported: the CPU tests import every
 module on a machine that has no ``nvcc``.
@@ -17,6 +21,7 @@ import ctypes
 import glob
 import hashlib
 import os
+import platform
 import shutil
 import subprocess
 import threading
@@ -87,6 +92,42 @@ def build(names=SOURCES, force=False) -> dict:
     if failed:
         raise MXNetError("\n".join(failed))
     return BUILD_LOG
+
+
+def build_host(name: str, sources, headers=(), flags=()) -> str:
+    """Compile the C++ ``sources`` (paths) into one shared library with
+    ``g++ flags -shared`` unless it is built already; returns its path.
+    The file name carries a hash of the sources, ``headers``, flags, the
+    compiler's version and the machine's architecture, so that a library
+    built by another toolchain is never loaded.
+    Raises ``MXNetError`` with the compiler's output if the build fails."""
+    cxx = shutil.which("g++")
+    if cxx is None:
+        raise MXNetError(f"building {name} needs g++, and none was found")
+    version = subprocess.run([cxx, "--version"], capture_output=True,
+                             text=True).stdout
+    h = hashlib.sha256("\0".join([*flags, version, platform.machine()])
+                       .encode())
+    for f in list(sources) + list(headers):
+        with open(f, "rb") as fh:
+            h.update(fh.read())
+    out_dir = os.path.join(os.path.dirname(BUILD_DIR), "runtime")
+    out = os.path.join(out_dir, f"lib{name}-{h.hexdigest()[:16]}.so")
+    with _LOCK:
+        if os.path.exists(out):
+            return out
+        os.makedirs(out_dir, exist_ok=True)
+        tmp = f"{out}.tmp{os.getpid()}"
+        t0 = time.perf_counter()
+        proc = subprocess.run([cxx, *flags, "-shared", "-o", tmp,
+                               *sources], capture_output=True, text=True)
+        BUILD_LOG[name] = {"seconds": time.perf_counter() - t0,
+                           "log": proc.stdout + proc.stderr}
+        if proc.returncode != 0:
+            raise MXNetError(f"g++ failed for {name} (exit "
+                             f"{proc.returncode}):\n{proc.stderr}")
+        os.replace(tmp, out)
+    return out
 
 
 def load(name: str) -> ctypes.CDLL:

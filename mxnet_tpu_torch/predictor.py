@@ -122,6 +122,14 @@ class Predictor:
         return nd.asnumpy(self._outputs[index])
 
     @property
+    def outputs(self) -> List[torch.Tensor]:
+        """The last forward's outputs, on the predictor's device (what a
+        decode loop feeds back through ``set_input``)."""
+        if not self._outputs:
+            raise MXNetError("call forward() before outputs")
+        return list(self._outputs)
+
+    @property
     def num_outputs(self) -> int:
         return len(self._symbol.list_outputs())
 

@@ -15,9 +15,19 @@ data's trailing width, src/operator/nn/fully_connected-inl.h; convolution
 weights, BatchNorm's four per-channel vectors) and the loss outputs'
 labels, for the ops the port has.
 
+``run(segments=k)`` with k > 1 is ``MXNET_BACKWARD_DO_MIRROR``'s
+rematerialisation: the steps are cut into k contiguous segments (bounds
+``round(i * n / k)``, as the JAX package's ``_segment_layout``), each run
+under ``torch.utils.checkpoint`` (non-reentrant), so that only the values
+that cross a segment boundary are kept for the backward and each segment's
+forward runs again inside it.  The aux outputs of the first run are the
+ones returned (the recomputation's are dropped), and the port's own
+generator (dropout) is put back to its state of the first run before a
+segment is recomputed, so the same masks are drawn.
+
 Not ported: the channels-last layout pass (TPU only), per-layer profiler
-scopes (``introspect``, ROADMAP item 5), the RNN parameter hook (item 7)
-and ``segments > 1`` (rematerialised training segments, item 10).
+scopes (``introspect``, ROADMAP item 5) and the RNN parameter hook (item
+7).
 """
 from __future__ import annotations
 
@@ -27,7 +37,9 @@ from typing import Callable, Dict, List, Optional
 
 import numpy as _np
 import torch
+import torch.utils.checkpoint
 
+from .. import random as _random
 from ..base import MXNetError, np_dtype, torch_dtype
 from ..ops import registry as _reg
 from .symbol import Symbol
@@ -174,42 +186,122 @@ class GraphPlan:
         its inputs only in train mode) replace the values of the variables
         that fed them, and later steps read the new values.  Creation ops
         with no ``ctx`` make their result on the device of the first
-        argument."""
-        if segments and segments > 1:
-            raise NotImplementedError(
-                "GraphPlan.run(segments > 1) rematerialises training "
-                "segments (MXNET_BACKWARD_DO_MIRROR), which are not ported "
-                "yet (ROADMAP.md, queue item 10: the rest of the symbolic "
-                "path)")
+        argument.  ``segments`` > 1 runs the steps in that many
+        checkpointed segments (module docstring)."""
         aux_values = dict(aux_values or {})
-        values: List[tuple] = [None] * len(self.steps)
         device = next((v.device for v in arg_values.values()), None)
+        if segments and segments > 1:
+            return self._run_segmented(arg_values, aux_values, is_train,
+                                       int(segments), device)
+        values: List[tuple] = [None] * len(self.steps)
 
         def resolve(ref):
             if ref[0] == "var":
-                nm = ref[1]
-                if nm in arg_values:
-                    return arg_values[nm]
-                if nm in aux_values:
-                    return aux_values[nm]
-                raise MXNetError(f"unbound variable '{nm}'")
+                return self._var(ref[1], arg_values, aux_values)
             si, oi = ref[1]
             return values[si][oi]
 
         for si, step in enumerate(self.steps):
-            ins = [resolve(r) for r in step.in_refs]
-            p = dict(step.params)
-            if step.op.takes_is_train:
-                p["__is_train__"] = is_train
-            if step.fills_ctx and device is not None:
-                p["ctx"] = str(device)
-            out = step.op.fn(p, *ins)
-            out = out if isinstance(out, tuple) else (out,)
-            n_vis = len(out) - len(step.op.aux_inputs)
-            values[si] = out[:n_vis]
-            for pos, nm in step.aux_var_names.items():
-                aux_values[nm] = out[n_vis + pos]
+            values[si] = self._call(step, [resolve(r) for r in step.in_refs],
+                                    is_train, device, aux_values)
         return [resolve(r) for r in self.out_refs], aux_values
+
+    @staticmethod
+    def _var(nm, arg_values, aux_values):
+        if nm in arg_values:
+            return arg_values[nm]
+        if nm in aux_values:
+            return aux_values[nm]
+        raise MXNetError(f"unbound variable '{nm}'")
+
+    @staticmethod
+    def _call(step, ins, is_train, device, aux_values):
+        """One step: its visible outputs; its aux outputs go into
+        ``aux_values`` under the variables that fed them."""
+        p = dict(step.params)
+        if step.op.takes_is_train:
+            p["__is_train__"] = is_train
+        if step.fills_ctx and device is not None:
+            p["ctx"] = str(device)
+        out = step.op.fn(p, *ins)
+        out = out if isinstance(out, tuple) else (out,)
+        n_vis = len(out) - len(step.op.aux_inputs)
+        for pos, nm in step.aux_var_names.items():
+            aux_values[nm] = out[n_vis + pos]
+        return out[:n_vis]
+
+    def _segment_layout(self, k: int):
+        """Contiguous segments [(b0, b1, live_in_keys), ...]: live_in_keys
+        are the (step, output) values made before b0 and read at or after
+        it (a consumer index of len(steps) stands for the graph's
+        outputs).  Cached per k."""
+        cache = self.__dict__.setdefault("_seg_cache", {})
+        if k in cache:
+            return cache[k]
+        n = len(self.steps)
+        k = max(1, min(k, n))
+        bounds = sorted({int(round(i * n / k)) for i in range(k + 1)})
+        consumers: Dict[tuple, list] = {}
+        for si, step in enumerate(self.steps):
+            for ref in step.in_refs:
+                if ref[0] == "val":
+                    consumers.setdefault(ref[1], []).append(si)
+        for ref in self.out_refs:
+            if ref[0] == "val":
+                consumers.setdefault(ref[1], []).append(n)
+        segs = []
+        for b0, b1 in zip(bounds[:-1], bounds[1:]):
+            live_in = sorted(key for key, cs in consumers.items()
+                             if key[0] < b0 and any(c >= b0 for c in cs))
+            segs.append((b0, b1, live_in))
+        cache[k] = segs
+        return segs
+
+    def _run_segmented(self, arg_values, aux_values, is_train, k, device):
+        segs = self._segment_layout(k)
+        gen = _random.generator(device) if device is not None \
+            and device.type != "meta" else None
+
+        def make_seg(b0, b1, live_out_keys):
+            first_state = []
+
+            def seg(live_in, aux_in):
+                if gen is not None and first_state:
+                    # recomputation: the first run's draws again
+                    now = gen.get_state()
+                    gen.set_state(first_state[0])
+                    try:
+                        return body(live_in, aux_in)
+                    finally:
+                        gen.set_state(now)
+                if gen is not None:
+                    first_state.append(gen.get_state())
+                return body(live_in, aux_in)
+
+            def body(live_in, aux_in):
+                local = dict(live_in)
+                aux = dict(aux_in)
+                for si in range(b0, b1):
+                    step = self.steps[si]
+                    ins = [self._var(r[1], arg_values, aux) if r[0] == "var"
+                           else local[r[1]] for r in step.in_refs]
+                    out = self._call(step, ins, is_train, device, aux)
+                    for oi, v in enumerate(out):
+                        local[(si, oi)] = v
+                return {kk: local[kk] for kk in live_out_keys}, aux
+            return seg
+
+        out_keys = sorted({ref[1] for ref in self.out_refs
+                           if ref[0] == "val"})
+        live: Dict[tuple, torch.Tensor] = {}
+        aux = aux_values
+        for i, (b0, b1, _) in enumerate(segs):
+            nxt = segs[i + 1][2] if i + 1 < len(segs) else out_keys
+            live, aux = torch.utils.checkpoint.checkpoint(
+                make_seg(b0, b1, nxt), live, aux, use_reentrant=False,
+                preserve_rng_state=True)
+        return [self._var(r[1], arg_values, aux) if r[0] == "var"
+                else live[r[1]] for r in self.out_refs], aux
 
 
 def _canon_params(op, node, n_inputs):

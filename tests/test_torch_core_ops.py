@@ -19,6 +19,7 @@ PRNG key against torch's generators): each package's mean and variance of
 """
 import gzip
 import hashlib
+import os
 import pickle
 import struct
 
@@ -722,9 +723,27 @@ def test_vision_datasets_match_jax(tmp_path):
             assert g == w
     with pytest.raises(mxt.MXNetError):
         mxt.gluon.data.vision.MNIST(str(tmp_path / "empty"))
-    for cls in ("ImageRecordDataset", "ImageFolderDataset"):
-        with pytest.raises(NotImplementedError, match="queue item 10"):
-            getattr(mxt.gluon.data.vision, cls)(str(tmp_path))
+    # ported since: the record and folder datasets (their values are held
+    # against the JAX package's in test_torch_recordio.py)
+    os.makedirs(tmp_path / "classes" / "a")
+    img = np.arange(2 * 3 * 3, dtype=np.uint8).reshape(2, 3, 3)
+    (tmp_path / "classes" / "a" / "0.png").write_bytes(
+        mxt.recordio._imencode(img, img_fmt=".png"))
+    rec = mxt.recordio.MXIndexedRecordIO(str(tmp_path / "r.idx"),
+                                         str(tmp_path / "r.rec"), "w")
+    rec.write_idx(0, mxt.recordio.pack_img((0, 4.0, 0, 0), img,
+                                           img_fmt=".npy"))
+    rec.close()
+    with mxt.cpu():
+        folder = mxt.gluon.data.vision.ImageFolderDataset(
+            str(tmp_path / "classes"))
+        records = mxt.gluon.data.vision.ImageRecordDataset(
+            str(tmp_path / "r.rec"))
+        items = [folder[0], records[0]]
+    assert folder.synsets == ["a"] and len(records) == 1
+    for (x, y), label in zip(items, (0, 4.0)):
+        assert x.device.type == "cpu" and y == label
+        np.testing.assert_array_equal(mxt.nd.asnumpy(x), img)
 
 
 # -- DCGAN -----------------------------------------------------------------------------

@@ -606,7 +606,6 @@ def test_parts_not_ported_name_their_roadmap_item(monkeypatch, tmp_path):
                                      reference_format=True), "item 6"),
         (lambda: mxt.callback.do_checkpoint("p", reference_format=True),
          "item 6"),
-        (lambda: mxt.io.ImageRecordIter("x.rec", (3, 8, 8), 2), "item 10"),
         (lambda: mxt.io.LibSVMIter("x.libsvm", (4,)), "item 6"),
         (lambda: sym.simple_bind(CPU, group2ctx={"a": CPU},
                                  data=(2, 1, 28, 28)), "item 6"),
@@ -624,7 +623,88 @@ def test_parts_not_ported_name_their_roadmap_item(monkeypatch, tmp_path):
     with pytest.raises(NotImplementedError, match="item 4"):
         mod.init_optimizer(force_init=True)
     monkeypatch.delenv("MXNET_FUSED_STEP")
+    # ported since: the record iterators and the mirror (item 10)
+    imgs = np.random.RandomState(0).randint(0, 256, (2, 8, 8, 3))
+    rec = mxt.recordio.MXRecordIO(str(tmp_path / "x.rec"), "w")
+    for i, img in enumerate(imgs.astype(np.uint8)):
+        rec.write(mxt.recordio.pack_img((0, float(i), i, 0), img,
+                                        img_fmt=".npy"))
+    rec.close()
+    batch = next(iter(mxt.io.ImageRecordIter(str(tmp_path / "x.rec"),
+                                             (3, 8, 8), 2, ctx=CPU)))
+    np.testing.assert_array_equal(_np(batch.data[0]),      # BGR -> RGB
+                                  imgs[..., ::-1].transpose(0, 3, 1, 2))
+    ex = sym.simple_bind(CPU, data=(2, 1, 28, 28))
+    want = _np(ex.forward(is_train=True, data=_X[:2])[0])
     monkeypatch.setenv("MXNET_BACKWARD_DO_MIRROR", "1")
     ex = sym.simple_bind(CPU, data=(2, 1, 28, 28))
-    with pytest.raises(NotImplementedError, match="item 10"):
-        ex.forward(is_train=True)
+    np.testing.assert_array_equal(
+        _np(ex.forward(is_train=True, data=_X[:2])[0]), want)
+    ex.backward()
+
+
+# -- backward mirroring (MXNET_BACKWARD_DO_MIRROR) ----------------------------
+def _mirror_step(mx, ctx, jsym, monkeypatch, mirror):
+    """One Module forward_backward + SGD update of LeNet (BatchNorm) from
+    seeded weights: (parameters, moving statistics) after it."""
+    if mirror:
+        monkeypatch.setenv("MXNET_BACKWARD_DO_MIRROR", "1")
+    else:
+        monkeypatch.delenv("MXNET_BACKWARD_DO_MIRROR", raising=False)
+    sym = jsym if mx is mxj else _port(jsym)
+    mod = mx.mod.Module(sym, context=ctx)
+    mod.bind([("data", (16, 1, 28, 28))], [("softmax_label", (16,))])
+    arg_shapes, _, aux_shapes = jsym.infer_shape(data=(16, 1, 28, 28))
+    rs = np.random.RandomState(4)
+    args = {n: mx.nd.array(rs.normal(0, 0.2, s).astype(np.float32), ctx=ctx)
+            for n, s in zip(jsym.list_arguments(), arg_shapes)
+            if n not in ("data", "softmax_label")}
+    auxs = {n: mx.nd.array(np.full(s, 0.5 if "var" in n else 0.1,
+                                   np.float32), ctx=ctx)
+            for n, s in zip(jsym.list_auxiliary_states(), aux_shapes)}
+    mod.init_params(arg_params=args, aux_params=auxs)
+    mod.init_optimizer(optimizer="sgd", optimizer_params={
+        "learning_rate": 0.1, "momentum": 0.9})
+    batch = mx.io.DataBatch([mx.nd.array(_X[:16], ctx=ctx)],
+                            [mx.nd.array(_Y[:16], ctx=ctx)])
+    mod.forward_backward(batch)
+    mod.update()
+    arg, aux = mod.get_params()
+    return {k: _np(v) for k, v in arg.items()}, \
+        {k: _np(v) for k, v in aux.items()}
+
+
+def test_mirrored_module_step_matches_unmirrored_and_jax(monkeypatch):
+    """A mirrored Module step on LeNet with BatchNorm gives the unmirrored
+    step's parameters and moving statistics bitwise (the statistics moved
+    once, from the first run of their segment), and the JAX package's
+    mirrored step within 1e-5 of each one's largest."""
+    jsym = _lenet(mxj)
+    plain = _mirror_step(mxt, CPU, jsym, monkeypatch, False)
+    mirrored = _mirror_step(mxt, CPU, jsym, monkeypatch, True)
+    want = _mirror_step(mxj, mxj.cpu(), jsym, monkeypatch, True)
+    for got, ref in zip(mirrored, plain):
+        for k in ref:
+            np.testing.assert_array_equal(got[k], ref[k])
+    mean = plain[1]["bn2_moving_mean"]
+    assert not np.allclose(mean, 0.1)
+    for got, ref in zip(mirrored, want):
+        for k in ref:
+            _close(got[k], ref[k], 1e-5)
+
+
+@pytest.mark.parametrize("segments", [None, "3", "5"])
+@pytest.mark.parametrize("net", ["lenet", "small"])
+def test_mirror_segment_count_matches_jax(monkeypatch, segments, net):
+    """The executor's segment count is the JAX executor's:
+    ``MXNET_MIRROR_SEGMENTS``, else max(2, int(sqrt(steps)))."""
+    monkeypatch.setenv("MXNET_BACKWARD_DO_MIRROR", "1")
+    if segments:
+        monkeypatch.setenv("MXNET_MIRROR_SEGMENTS", segments)
+    jsym = _lenet(mxj) if net == "lenet" else _small_net(mxj)
+    shape = (2, 1, 28, 28) if net == "lenet" else (2, 2, 6, 6)
+    jex = jsym.simple_bind(mxj.cpu(), data=shape)
+    tex = _port(jsym).simple_bind(CPU, data=shape)
+    assert tex._segments == jex._mirror_segments
+    monkeypatch.delenv("MXNET_BACKWARD_DO_MIRROR")
+    assert _port(jsym).simple_bind(CPU, data=shape)._segments == 1

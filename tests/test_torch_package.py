@@ -22,6 +22,8 @@ def test_imports_with_jax_and_mxnet_tpu_blocked():
     code = ("import sys; sys.modules['jax'] = None; "
             "sys.modules['mxnet_tpu'] = None; "
             "import mxnet_tpu_torch as mx; "
+            "import mxnet_tpu_torch.recordio, mxnet_tpu_torch.image, "
+            "mxnet_tpu_torch.detection, mxnet_tpu_torch._native; "
             "assert not any(m == 'jax' or m.startswith(('jax.', 'mxnet_tpu.')) "
             "for m in sys.modules if sys.modules[m] is not None); "
             "print(len(mx.nd.__dict__))")

@@ -199,8 +199,9 @@ def test_executor_binding_raises_naming_the_roadmap(pair, monkeypatch):
     backward with a head gradient through the executor reach the flash
     backward (``FlashAttentionFn``: K1b's plain version here, once per
     layer) and give the gradients of the same net under
-    ``autograd.record()``.  Rematerialised segments still raise, naming
-    their queue item."""
+    ``autograd.record()``.  Rematerialised segments (``segments=2``) give
+    the same logits and, under ``MXNET_BACKWARD_DO_MIRROR``, the same
+    gradients, K1's forward running again inside the backward."""
     _, tnet, _, tsym, want = pair
     params = _params(tnet)
     data = _t(TOKENS)
@@ -228,8 +229,51 @@ def test_executor_binding_raises_naming_the_roadmap(pair, monkeypatch):
         got = mxt.nd.asnumpy(ex.grad_dict[p.name])
         ref = mxt.nd.asnumpy(p.grad())
         assert np.abs(got - ref).max() <= 1e-5 * np.abs(ref).max(), p.name
-    with pytest.raises(NotImplementedError, match="item 10"):
-        GraphPlan(tsym).run({"data": _t(TOKENS)}, segments=2)
+    seg_out = GraphPlan(tsym).run({"data": data, **params}, segments=2)[0]
+    np.testing.assert_allclose(mxt.nd.asnumpy(seg_out[0]), want, rtol=1e-5,
+                               atol=1e-5)
+    monkeypatch.setenv("MXNET_BACKWARD_DO_MIRROR", "1")
+    mex = tsym.simple_bind(CPU, data=(2, 64))
+    mex.copy_params_from(params)
+    calls.clear()
+    fwd_calls = []
+    fwd = ofa.flash_attention_fwd
+    monkeypatch.setattr(ofa, "flash_attention_fwd",
+                        lambda *a, **k: fwd_calls.append(1) or fwd(*a, **k))
+    mex.forward(is_train=True, data=data)
+    mex.backward([head])
+    assert len(calls) == KW["num_layers"]
+    assert len(fwd_calls) == 2 * KW["num_layers"]     # K1 again inside
+    for name, g in mex.grad_dict.items():
+        np.testing.assert_array_equal(mxt.nd.asnumpy(g),
+                                      mxt.nd.asnumpy(ex.grad_dict[name]))
+
+
+@pytest.mark.parametrize("k", [2, 3, "sqrt"])
+def test_segmented_run_matches_unsegmented_and_jax_bounds(pair, k):
+    """``GraphPlan.run(segments=k)``: the JAX package's segment bounds and
+    live-in sets, and, in train mode under autograd, the unsegmented run's
+    outputs and gradients bitwise."""
+    _, tnet, jsym, tsym, _ = pair
+    from mxnet_tpu.symbol.graph import GraphPlan as JaxPlan
+    plan = GraphPlan(tsym)
+    n = len(plan.steps)
+    k = max(2, int(n ** 0.5)) if k == "sqrt" else k
+    assert plan._segment_layout(k) == JaxPlan(jsym)._segment_layout(k)
+    params = _params(tnet)
+    res = []
+    for segments in (1, k):
+        leaves = {n_: v.detach().clone().requires_grad_()
+                  for n_, v in params.items()}
+        with torch.enable_grad():
+            outs, _ = plan.run({"data": _t(TOKENS), **leaves},
+                               is_train=True, segments=segments)
+            outs[0].square().sum().backward()
+        res.append((outs[0].detach(), {n_: v.grad for n_, v in
+                                       leaves.items()}))
+    torch.testing.assert_close(res[1][0], res[0][0], rtol=0, atol=0)
+    for name, g in res[0][1].items():
+        torch.testing.assert_close(res[1][1][name], g, rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("hybridized", [False, True],

@@ -5,6 +5,8 @@ into the port by ``convert.params_from_mxnet_tpu``.  Logits agree within
 1e-4 relative / 1e-5 absolute (the JAX package's logit pin; float32 in
 both, summed in another order); greedy tokens must be equal.
 """
+import os
+
 import numpy as np
 import pytest
 
@@ -65,11 +67,63 @@ def test_sample_matches_jax(temperature, top_k, top_p):
     np.testing.assert_array_equal(got, want)
 
 
-def test_unported_paths_raise():
+def test_unported_paths_raise(tmp_path):
+    """The sequence-parallel attention types raise, naming the ROADMAP;
+    ``export_decode_step`` (ported since) writes its two files."""
     tnet = TransformerLM(vocab=8, dim=16, num_layers=1, num_heads=2,
                          max_len=8, attn_type="flash")
-    for call in (lambda: tnet.export_decode_step("x"),
-                 lambda: TransformerLM(vocab=8, dim=16, num_heads=2,
-                                       attn_type="ring")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            call()
+    tnet.initialize(ctx=CPU)
+    tnet(mxt.nd.array(np.zeros((1, 4), np.float32), ctx=CPU))
+    names = tnet.export_decode_step(str(tmp_path / "x"))
+    assert names == ["data0", "data1", "data2", "data3"]
+    assert sorted(os.listdir(tmp_path)) == ["x-0000.params",
+                                            "x-symbol.json"]
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        TransformerLM(vocab=8, dim=16, num_heads=2, attn_type="ring")
+
+
+def test_export_decode_step_matches_jax(tmp_path):
+    """The exported KV cell's symbol JSON is byte-identical to the JAX
+    package's for the same net and its ``.params`` hold the same names and
+    values; the port's ``Predictor`` over it, fed its cache outputs back,
+    decodes the tokens of ``generate(kv_cache=True)`` exactly."""
+    prompt = np.random.RandomState(3).randint(0, 32, (1, 6)).astype(
+        np.float32)
+    with mxj.name.NameManager(), mxt.name.NameManager():
+        jnet, tnet = _pair(16, prompt)
+    names = {}
+    for k, net in (("jax", jnet), ("port", tnet)):
+        # fresh name counters: the cell's node names must not depend on
+        # the tests before
+        with mxj.name.NameManager(), mxt.name.NameManager():
+            names[k] = net.export_decode_step(str(tmp_path / k))
+    assert names["port"] == names["jax"]
+    texts = [(tmp_path / f"{k}-symbol.json").read_text()
+             for k in ("jax", "port")]
+    assert texts[0] == texts[1]
+    want_p = mxj.nd.load(str(tmp_path / "jax-0000.params"))
+    got_p = mxt.nd.load(str(tmp_path / "port-0000.params"), ctx=CPU)
+    assert sorted(got_p) == sorted(want_p)
+    for k in want_p:
+        np.testing.assert_array_equal(mxt.nd.asnumpy(got_p[k]),
+                                      want_p[k].asnumpy())
+    want = mxt.nd.asnumpy(tnet.generate(mxt.nd.array(prompt, ctx=CPU), 5,
+                                        kv_cache=True))
+    blk = tnet.blocks._children[0].attn
+    cache = (1, blk._h, 16, blk._dh)
+    shapes = {"data0": (1, 1), "data1": (1,)}
+    shapes.update({n: cache for n in names["port"][2:]})
+    pred = mxt.predictor.create(str(tmp_path / "port-symbol.json"),
+                                str(tmp_path / "port-0000.params"), shapes,
+                                dev=CPU)
+    toks = list(prompt[0])
+    for t in range(prompt.shape[1] + 5 - 1):
+        pred.set_input("data0", np.array([[toks[t]]], np.float32))
+        pred.set_input("data1", np.array([float(t)], np.float32))
+        pred.forward()
+        outs = pred.outputs
+        for name, c in zip(names["port"][2:], outs[1:]):
+            pred.set_input(name, c)
+        if t + 1 >= prompt.shape[1]:
+            toks.append(float(outs[0].argmax(-1)[0]))
+    np.testing.assert_array_equal(np.array([toks], np.float32), want)
