@@ -233,16 +233,45 @@ its plain version:
    net, loaded by ``predictor.Predictor`` on the card, 8 greedy tokens
    from a 16-token prompt with the cache outputs fed back as inputs,
    equal to ``generate(kv_cache=True)``'s;
-15. a ``kernels`` JSON line (the forward kernels' ``launches`` are phase
+15. the one-program training step, each run a captured CUDA graph after
+   one eager step (``gluon.wholestep.StepGraph``): (a) phase 9's LM (bf16
+   weights, float32 masters, SGD momentum 0.9, lr 0.01) for 6 steps
+   through ``WholeStepCompiler(net, SoftmaxCrossEntropyLoss(), trainer)``
+   with ``MXNET_WHOLE_STEP=1`` against the fused path (the same compiler
+   without it) from the same weights and batches, under deterministic
+   algorithms: losses, weights and optimizer states bitwise (else within
+   ``TOL_CAPTURED``), one capture, 12 sm90 K1 + 12 sm90 K1b counted at
+   the eager step and at the capture and none at a replay, 12 of each
+   flash kernel by name in a profiled replay; the median of steps 2-6
+   beside the fused path and phase 9, the replay call's host time, peak
+   memory; dropout 0.5 under replay (an MLP at lr 0: each replay a new
+   mask), then a new batch size captured again with its reason; (b)
+   ``MXNET_AMP=bf16`` on the LM in float32 with Adam against the f32
+   policy (losses within ``TOL_AMP_BF16``, weights and states float32, the
+   f32 kernels); (c) ``MXNET_AMP=fp16`` on phase 12's
+   ``MultiHeadAttention`` (Adam, ``L2Loss``; scale 1024, window 3): the
+   scale doubles after the window and halves on an inf batch, whose step
+   holds weights, Adam states and the applied-step counter bitwise; (d)
+   2-bit compression on (a)'s configuration against the fused compressed
+   path: weights and residuals bitwise, the buckets; (f)
+   ``SuperStepCompiler`` K=4: 8 steps as 2 supersteps against 8 whole
+   steps bitwise, a replayed superstep's time per step and peak; (e)
+   ``Module`` with ``MXNET_FUSED_STEP=1``: phase 11's ResNet-50 ``fit``
+   (``bench.py``'s loss check, step and images/s beside phase 11's),
+   resnet18_v1 3 fused steps against 3 standard ones bitwise, phase 11's
+   LM leg (12 + 12 sm90 launches at the eager step and the capture,
+   finite falling NLL);
+16. a ``kernels`` JSON line (the forward kernels' ``launches`` are phase
    8's, with phase 9's as ``training_launches``, phase 11's LM leg's as
    ``module_launches``, phase 12's bf16 ``MultiHeadAttention`` runs' as
    ``mha_launches``, its float32 runs' as ``mha_f32_launches`` and phase
    13's LM training steps' as ``resume_launches`` and phase 14's mirrored
-   LM leg's as ``mirror_launches``; the two K1b kernels'
+   LM leg's as ``mirror_launches`` and phase 15's captured steps' as
+   ``onestep_launches``; the two K1b kernels'
    are phase 9's main path, with phase 11's as ``module_launches``, phase
    12's as ``mha_launches`` and ``mha_f32_launches``, phase 13's as
-   ``resume_launches`` and phase 14's as ``mirror_launches``, the f32
-   one's 0 on the main path; the f32
+   ``resume_launches``, phase 14's as ``mirror_launches`` and phase 15's
+   as ``onestep_launches``, the f32 one's 0 on the main path; the f32
    kernels' ``bound_ms`` at 3xTF32's rate, ``fma_bound_ms`` at the CUDA
    cores' float32 FMA rate),
    then the last line ``{"ok": true, "device": {...}}``.
@@ -261,7 +290,8 @@ widths (the JAX package's copy of the example defaults to narrower nets).
 Phase 13's LM runs cut the steps to 5 (3 before the checkpoint, 2 after).
 Phase 14's record set is 2,048 images (one epoch of ``bench.py``'s 8
 batches; ImageNet's is 1.28 M), its mirrored runs take 5 ResNet-50 steps
-and 3 LM steps.  The host has no image decoder (no cv2, no PIL), so the
+and 3 LM steps.  Phase 15's LM runs take 6 steps (4 compressed, 8 and 4
+more as supersteps), its fp16 block 7, its LM ``Module`` leg 4.  The host has no image decoder (no cv2, no PIL), so the
 records carry ``.npy`` and raw payloads.
 
 Times: ``device`` is the CUDA-event time of 20 back-to-back calls queued
@@ -3871,6 +3901,824 @@ def phase_rec_dataset(mx, path, first):
           "images written")
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the one-program training step (CUDA graphs)
+# ---------------------------------------------------------------------------
+WHOLE_STEPS = 6         # (a): phase 9's LM through WholeStepCompiler
+WHOLE_LR = 0.01
+AMP_LR = 3e-4           # (b): f32 weights, Adam, MXNET_AMP=bf16
+TOL_AMP_BF16 = 3e-2     # each step's loss against the f32 policy, relative
+FP16_INIT = 1024        # (c): MXNET_LOSS_SCALE_INIT, MXNET_LOSS_SCALE_WINDOW
+FP16_WINDOW = 3
+FP16_FINITE = 5
+COMP_STEPS = 4          # (d): 2-bit compression, threshold 0.5
+SUPER_K = 4             # (f): 8 steps as 2 supersteps of 4
+SUPER_STEPS = 8
+FUSED_VS_STD_STEPS = 3  # (e): resnet18_v1 fused against standard
+FUSED_LM_STEPS = 4      # (e): the LM leg, eager, captured, two replays
+TOL_CAPTURED = 1e-5     # where not bitwise: of each one's largest change
+
+
+@contextlib.contextmanager
+def env_vars(**kw):
+    """Environment variables set (a value of None unsets) for a block."""
+    old = {k: os.environ.get(k) for k in kw}
+    for k, v in kw.items():
+        if v is None:
+            os.environ.pop(k, None)
+        else:
+            os.environ[k] = str(v)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def lm_start(mx):
+    """Phase 9's LM from seed 0 (Xavier), its float32 weights by name (the
+    parameters named ``lm_*``, as every net built by ``lm_fresh``)."""
+    import numpy as np
+    from mxnet_tpu_torch.gluon.model_zoo.transformer import TransformerLM
+    mx.random.seed(0)
+    net = TransformerLM(**CONFIG, attn_type="flash", prefix="lm_")
+    net.initialize(mx.init.Xavier(), ctx=mx.gpu(0))
+    net(mx.nd.array(np.zeros((1, 8), np.float32), ctx=mx.gpu(0)))
+    return {p.name: p.data().detach().clone()
+            for p in net.collect_params().values()}
+
+
+def lm_fresh(mx, start, dtype):
+    """A new LM holding ``start``'s weights, in ``dtype``, hybridized."""
+    import numpy as np
+    import torch
+    from mxnet_tpu_torch.gluon.model_zoo.transformer import TransformerLM
+    net = TransformerLM(**CONFIG, attn_type="flash", prefix="lm_")
+    net.initialize(mx.init.Zero(), ctx=mx.gpu(0))
+    net(mx.nd.array(np.zeros((1, 8), np.float32), ctx=mx.gpu(0)))
+    with torch.no_grad():
+        for p in net.collect_params().values():
+            p.data().copy_(start[p.name])
+    if dtype != "float32":
+        net.cast(dtype)
+    net.hybridize()
+    return net
+
+
+def token_batches(mx, n, seed=1):
+    """``n`` (tokens, next tokens) batches of B=8, T=1024 on the card."""
+    import numpy as np
+    rs = np.random.RandomState(seed)
+    out = []
+    for _ in range(n):
+        toks = rs.randint(0, CONFIG["vocab"], (TRAIN_BATCH,
+                                               CONFIG["max_len"] + 1))
+        out.append((mx.nd.array(toks[:, :-1].astype(np.float32),
+                                ctx=mx.gpu(0)),
+                    mx.nd.array(toks[:, 1:].astype(np.float32),
+                                ctx=mx.gpu(0))))
+    return out
+
+
+def lm_trainer(mx, net, optimizer="sgd", compression=None):
+    """(a)'s trainer (SGD momentum 0.9, lr 0.01, float32 masters), Adam
+    (lr 3e-4) for (b); with ``compression`` on a ``tpu_sync`` store that
+    only reduces (the store compresses)."""
+    params = {"learning_rate": WHOLE_LR, "momentum": 0.9,
+              "multi_precision": True} if optimizer == "sgd" else \
+        {"learning_rate": AMP_LR}
+    kw = {} if compression is None else dict(
+        kvstore="tpu_sync", update_on_kvstore=False,
+        compression_params=compression)
+    return mx.gluon.Trainer(net.collect_params(), optimizer, params, **kw)
+
+
+def run_steps(fn, batches, rec):
+    """``fn(x, y)`` per batch, synchronized: losses (per-sample means on
+    the host after the run), host times and kernel launches per step into
+    ``rec``."""
+    import torch
+    losses = []
+    for x, y in batches:
+        before = read_counts()
+        t0 = time.perf_counter()
+        losses.append(fn(x, y))
+        torch.cuda.synchronize()
+        rec["walls"].append((time.perf_counter() - t0) * 1e3)
+        after = read_counts()
+        rec["launches"].append({k: after[k] - before[k] for k in after})
+    rec["raw"] += [l.detach() for l in losses]
+    rec["losses"] += [float(l.detach().float().mean()) for l in losses]
+    return rec
+
+
+def new_rec():
+    return {"walls": [], "launches": [], "losses": [], "raw": []}
+
+
+def check_step_launches(what, rec, variant, L, captured_from=1):
+    """Every eager step and the capture launch (and count) ``L`` K1 and
+    ``L`` K1b of ``variant`` and none of the other; a replay counts none
+    (it runs no Python).  ``captured_from``: the step that captured."""
+    other = "f32" if variant == "sm90" else "sm90"
+    for i, c in enumerate(rec["launches"]):
+        want = L if i <= captured_from else 0
+        check(c[f"flash_attention.{variant}"] == want
+              and c[f"flash_attention.bwd.{variant}"] == want
+              and c[f"flash_attention.{other}"] == 0
+              and c[f"flash_attention.bwd.{other}"] == 0,
+              f"{what} step {i}: launches {c}; want {want} {variant} K1 and "
+              f"{want} {variant} K1b (the eager step and the capture count, "
+              "a replay runs no Python), none on " + other)
+
+
+def replay_kernel_counts(fn):
+    """Launches of K1 and of each K1b kernel that torch.profiler records in
+    one call of ``fn`` (a replay); None where it records no device time."""
+    rows = kernel_rows(fn)
+    if not rows:
+        return None
+    names = {"K1": ("flash_attention_fwd",), "K1b dK/dV": ("dkdv_kernel",),
+             "K1b dQ": ("dq_kernel",), "K1b D_i": ("stats_kernel",)}
+    return {g: sum(r[1] for r in rows if any(k in r[2] for k in keys))
+            for g, keys in names.items()}
+
+
+def tensors_diff(want, got):
+    """(bitwise, max |diff| over each tensor's largest |want|)."""
+    import torch
+    bitwise = len(want) == len(got) and all(
+        torch.equal(a, b) for a, b in zip(want, got))
+    rel = 0.0
+    for a, b in zip(want, got):
+        scale = a.float().abs().max().item() or 1.0
+        rel = max(rel, (a.float() - b.float()).abs().max().item() / scale)
+    return bitwise, rel
+
+
+def moved_diff(start, want, got):
+    """Max |got - want| over each parameter's largest change from
+    ``start``."""
+    rel = 0.0
+    for s, a, b in zip(start, want, got):
+        moved = (a.float() - s.float()).abs().max().item()
+        err = (a.float() - b.float()).abs().max().item()
+        rel = max(rel, err / moved if moved else err)
+    return rel
+
+
+def lm_weights(trainer):
+    """The weights, then every optimizer state tensor (the float32 masters
+    and momenta)."""
+    from mxnet_tpu_torch.gluon.wholestep import _leaves
+    out = [p.data().detach().clone() for p in trainer._params]
+    for i in sorted(trainer._updater.states):
+        out += [t.detach().clone()
+                for t in _leaves(trainer._updater.states[i])]
+    return out
+
+
+def phase_wholestep(mx, start, gluon):
+    """(a) phase 9's LM (bf16 weights, float32 masters, SGD momentum) for
+    WHOLE_STEPS steps through WholeStepCompiler with MXNET_WHOLE_STEP=1,
+    against the fused path (the same compiler with it unset) from the same
+    weights and batches, both under deterministic algorithms."""
+    import gc
+    import torch
+    from mxnet_tpu_torch.gluon.wholestep import WholeStepCompiler
+    L = CONFIG["num_layers"]
+    batches = token_batches(mx, WHOLE_STEPS)
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    runs = {}
+    for whole in (False, True):
+        gc.collect()
+        torch.cuda.empty_cache()
+        net = lm_fresh(mx, start, "bfloat16")
+        trainer = lm_trainer(mx, net)
+        stepper = WholeStepCompiler(net, loss_fn, trainer)
+        rec = new_rec()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        with env_vars(MXNET_WHOLE_STEP=1 if whole else 0), deterministic():
+            run_steps(stepper.step, batches, rec)
+        rec["counts"] = read_counts()
+        rec["peak"] = torch.cuda.max_memory_allocated()
+        rec["weights"] = lm_weights(trainer)
+        if whole:
+            check(stepper.active, f"whole step inactive: "
+                  f"{stepper.fallback_reason}")
+            rec["captures"] = stepper.captures
+            rec["replay_ms"] = stepper._graph.replay_host_ms
+            with env_vars(MXNET_WHOLE_STEP=1):
+                x, y = batches[0]
+                rec["profile"] = replay_kernel_counts(
+                    lambda: stepper.step(x, y))
+        runs[whole] = rec
+        del net, trainer, stepper
+    fused, whole = runs[False], runs[True]
+    bitwise_l, _ = tensors_diff(fused["raw"], whole["raw"])
+    bitwise_w, _ = tensors_diff(fused["weights"], whole["weights"])
+    step = statistics.median(whole["walls"][1:])
+    fstep = statistics.median(fused["walls"][1:])
+    print(f"  (a) whole step, policy f32, bf16 weights with f32 masters, "
+          f"SGD momentum 0.9, B={TRAIN_BATCH} T={CONFIG['max_len']}: losses"
+          f" {[round(v, 4) for v in whole['losses']]}; captures "
+          f"{whole['captures']}")
+    print(f"      step times (host clock, synchronized) "
+          f"{[round(w, 1) for w in whole['walls']]} ms: step 1 eager, 2 "
+          f"captures and replays, 3-6 replay; median of steps 2-6 "
+          f"{step:.1f} ms ({TRAIN_BATCH * CONFIG['max_len'] / step * 1e3:.0f}"
+          f" tokens/s) beside the fused path's {fstep:.1f} ms in this run "
+          f"({[round(w, 1) for w in fused['walls']]}) and phase 9's "
+          f"{gluon['step_ms']:.1f} ms; the replay call's host time "
+          f"{whole['replay_ms']:.3f} ms; peak memory "
+          f"{whole['peak'] / 2 ** 30:.2f} GiB (fused path "
+          f"{fused['peak'] / 2 ** 30:.2f}, phase 9 "
+          f"{gluon['peak_gib']:.2f})")
+    prof = whole["profile"]
+    print(f"      against the fused path: losses bitwise {bitwise_l}, "
+          f"{len(whole['weights'])} weights and optimizer states bitwise "
+          f"{bitwise_w};"
+          f" launches counted per step {[c['flash_attention.sm90'] for c in whole['launches']]}"
+          f" sm90 K1, {[c['flash_attention.bwd.sm90'] for c in whole['launches']]}"
+          f" sm90 K1b; one replay's kernels by name: "
+          + (str(prof) if prof is not None else "not measured "
+             "(torch.profiler saw no device time)"))
+    if not (bitwise_l and bitwise_w):
+        lrel = max(abs(a - b) / max(abs(a), 1e-12)
+                   for a, b in zip(fused["losses"], whole["losses"]))
+        _, wrel = tensors_diff(fused["weights"], whole["weights"])
+        print(f"      not bitwise: losses within {lrel:.3e} relative, "
+              f"weights within {wrel:.3e} of each one's largest")
+        check(lrel <= TOL_CAPTURED and wrel <= TOL_CAPTURED,
+              "the whole step and the fused path differ beyond "
+              f"{TOL_CAPTURED}")
+    check(len(whole["captures"]) == 1, f"want one capture in "
+          f"{WHOLE_STEPS} steps, got {whole['captures']}")
+    check_step_launches("(a) whole step", whole, "sm90", L)
+    if prof is not None:
+        check(prof["K1"] == L and prof["K1b dK/dV"] == L
+              and prof["K1b dQ"] == L, f"one replay's flash kernels by "
+              f"name: {prof}; want {L} of each")
+    return whole["counts"], {"step_ms": step, "fused_ms": fstep,
+                             "replay_ms": whole["replay_ms"],
+                             "peak_gib": whole["peak"] / 2 ** 30}
+
+
+def phase_dropout_replay(mx):
+    """Dropout 0.5 under replay: an MLP at the LM's width, SGD with lr 0
+    (the weights stay), one batch for 5 whole steps: each replay draws a
+    new mask from the port's generator, registered with the graph, so
+    the losses of the replayed steps differ; where PyTorch cannot
+    register a generator, the capture raises instead.  Then 2 steps on
+    half the batch: a new data shape, captured again, the reason said."""
+    import torch
+    from mxnet_tpu_torch.base import MXNetError
+    from mxnet_tpu_torch.gluon.wholestep import WholeStepCompiler
+    dev = mx.gpu(0).torch_device()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn((64, 1024), generator=gen, device=dev)
+    y = torch.randn((64, 1024), generator=gen, device=dev)
+    mx.random.seed(0)
+    net = mx.gluon.nn.HybridSequential()
+    with net.name_scope():
+        net.add(mx.gluon.nn.Dense(1024, activation="relu"))
+        net.add(mx.gluon.nn.Dropout(0.5))
+        net.add(mx.gluon.nn.Dense(1024))
+    net.initialize(mx.init.Xavier(), ctx=mx.gpu(0))
+    net.hybridize()
+    net(x)
+    trainer = mx.gluon.Trainer(net.collect_params(), "sgd",
+                               {"learning_rate": 0.0})
+    stepper = WholeStepCompiler(net, mx.gluon.loss.L2Loss(), trainer)
+    can = hasattr(torch.cuda.CUDAGraph, "register_generator_state")
+    losses = []
+    with env_vars(MXNET_WHOLE_STEP=1):
+        try:
+            for _ in range(5):
+                losses.append(float(stepper.step(x, y).mean()))
+        except MXNetError as e:
+            check(not can, f"dropout capture raised: {e}")
+            print(f"  dropout 0.5 under replay: the capture raised, as it "
+                  f"must without a generator registration: {e}")
+            return
+    with env_vars(MXNET_WHOLE_STEP=1):
+        half = [float(stepper.step(x[:32], y[:32]).mean())
+                for _ in range(2)]
+    print(f"  dropout 0.5 under replay (lr 0, one batch): losses "
+          f"{[round(v, 6) for v in losses]}; then B=32: "
+          f"{[round(v, 6) for v in half]}; captures {stepper.captures}")
+    check(can and len(set(losses[1:])) == len(losses) - 1,
+          "the replays did not draw new dropout masks")
+    check(len(stepper.captures) == 2 and "data" in stepper.captures[1],
+          f"a new data shape did not capture again: {stepper.captures}")
+
+
+def phase_amp_bf16(mx, start):
+    """(b) the LM with float32 weights and Adam under MXNET_AMP=bf16,
+    against the f32-policy whole step from the same weights and batches."""
+    import gc
+    import torch
+    from mxnet_tpu_torch.gluon.wholestep import WholeStepCompiler
+    L = CONFIG["num_layers"]
+    batches = token_batches(mx, WHOLE_STEPS)
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    runs = {}
+    for policy in ("f32", "bf16"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        net = lm_fresh(mx, start, "float32")
+        trainer = lm_trainer(mx, net, "adam")
+        stepper = WholeStepCompiler(net, loss_fn, trainer)
+        rec = new_rec()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        with env_vars(MXNET_WHOLE_STEP=1, MXNET_AMP=policy):
+            run_steps(stepper.step, batches, rec)
+        check(stepper.active, f"whole step inactive under {policy}: "
+              f"{stepper.fallback_reason}")
+        rec["counts"] = read_counts()
+        rec["peak"] = torch.cuda.max_memory_allocated()
+        rec["captures"] = stepper.captures
+        rec["dtypes"] = {str(t.dtype)[6:] for t in lm_weights(trainer)}
+        runs[policy] = rec
+        del net, trainer, stepper
+    ref, amp = runs["f32"], runs["bf16"]
+    rel = max(abs(a - b) / abs(a) for a, b in zip(ref["losses"],
+                                                   amp["losses"]))
+    step = statistics.median(amp["walls"][1:])
+    print(f"  (b) MXNET_AMP=bf16, f32 weights, Adam lr {AMP_LR}: losses "
+          f"{[round(v, 4) for v in amp['losses']]} against the f32 policy's"
+          f" {[round(v, 4) for v in ref['losses']]}: within {rel:.3e} "
+          f"relative (limit {TOL_AMP_BF16}); weights and Adam states "
+          f"{sorted(amp['dtypes'])}; step times {[round(w, 1) for w in amp['walls']]}"
+          f" ms, median of 2-6 {step:.1f} ms (f32 policy "
+          f"{statistics.median(ref['walls'][1:]):.1f} ms); peak "
+          f"{amp['peak'] / 2 ** 30:.2f} GiB (f32 policy "
+          f"{ref['peak'] / 2 ** 30:.2f}); captures {amp['captures']}")
+    check(rel <= TOL_AMP_BF16, f"bf16 AMP losses off the f32 policy's by "
+          f"{rel:.3e}")
+    check(amp["dtypes"] == {"float32"}, f"AMP weights or states "
+          f"{amp['dtypes']}, not float32")
+    for what, rec in (("(b) f32 policy", ref), ("(b) bf16 AMP", amp)):
+        check(len(rec["captures"]) == 1, f"{what}: captures "
+              f"{rec['captures']}")
+        check_step_launches(what, rec, "f32", L)
+    return amp["counts"], {"step_ms": step, "peak_gib": amp["peak"] / 2 ** 30}
+
+
+def phase_amp_fp16(mx, mha_times):
+    """(c) phase 12's MultiHeadAttention block (float32 weights, Adam) under
+    an L2Loss against a random target through the whole step with
+    MXNET_AMP=fp16 and the loss scaler: FP16_FINITE finite steps, one batch
+    with an inf, one finite step."""
+    import torch
+    from mxnet_tpu_torch.gluon.wholestep import WholeStepCompiler
+    T, B, E, H = CONFIG["max_len"], MHA_BATCH, MHA_UNITS, MHA_HEADS
+    dev = mx.gpu(0).torch_device()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn((B, T, E), generator=gen, device=dev)
+    target = torch.randn((B, T, E), generator=gen, device=dev)
+    bad = torch.full_like(x, float("inf"))
+    mx.random.seed(0)
+    block = mx.gluon.nn.MultiHeadAttention(E, H, prefix="mha_")
+    block.initialize(ctx=mx.gpu(0))
+    block.hybridize()
+    block(x)                    # resolves any deferred shape
+    trainer = mx.gluon.Trainer(block.collect_params(), "adam",
+                               {"learning_rate": AMP_LR})
+    stepper = WholeStepCompiler(block, mx.gluon.loss.L2Loss(), trainer)
+    rec, scales = new_rec(), []
+    reset_counts()
+    with env_vars(MXNET_WHOLE_STEP=1, MXNET_AMP="fp16",
+                  MXNET_LOSS_SCALE_INIT=FP16_INIT,
+                  MXNET_LOSS_SCALE_WINDOW=FP16_WINDOW):
+        for _ in range(FP16_FINITE):
+            run_steps(stepper.step, [(x, target)], rec)
+            scales.append(trainer.loss_scale)
+        upd = trainer._updater
+        keep = [p.data().clone() for p in trainer._params] + \
+            [t.clone() for s in upd.states.values() for t in s] + \
+            [trainer._applied_ts[1].clone()]
+        run_steps(stepper.step, [(bad, target)], rec)
+        scales.append(trainer.loss_scale)
+        after = [p.data().clone() for p in trainer._params] + \
+            [t.clone() for s in upd.states.values() for t in s] + \
+            [trainer._applied_ts[1].clone()]
+        run_steps(stepper.step, [(x, target)], rec)
+        scales.append(trainer.loss_scale)
+    counts = read_counts()
+    held = all(torch.equal(a, b) for a, b in zip(keep, after))
+    moved = any(not torch.equal(a, p.data()) for a, p in
+                zip(after, trainer._params))
+    step = statistics.median(rec["walls"][1:FP16_FINITE])
+    t12 = mha_times["non-causal float32"]
+    print(f"  (c) MXNET_AMP=fp16, MultiHeadAttention (units {E}, {H} heads, "
+          f"B={B} T={T}), Adam, L2Loss: loss scale per step {scales} "
+          f"(init {FP16_INIT}, window {FP16_WINDOW}; step "
+          f"{FP16_FINITE + 1} has an inf input); on it the "
+          f"{len(trainer._params)} weights, the Adam states and the "
+          f"applied-step counter held bitwise: {held}; the next finite step "
+          f"moved the weights: {moved}; losses "
+          f"{[round(v, 5) for v in rec['losses']]}")
+    print(f"      step times {[round(w, 2) for w in rec['walls']]} ms, median"
+          f" of steps 2-{FP16_FINITE} {step:.3f} ms beside phase 12's float32"
+          f" forward and backward {t12['block_ms']:.3f} ms device, "
+          f"{t12['block_host_ms']:.3f} ms host clock; captures "
+          f"{stepper.captures}")
+    grown = FP16_INIT * 2.0
+    check(scales[FP16_WINDOW - 1] == grown and scales[FP16_FINITE - 1] ==
+          grown, f"the scale did not grow to {grown} after {FP16_WINDOW} "
+          f"finite steps: {scales}")
+    check(scales[FP16_FINITE] == grown / 2, f"the inf step did not halve "
+          f"the scale: {scales}")
+    check(held, "the skipped step changed weights, Adam states or the "
+          "applied-step counter")
+    check(moved, "the finite step after the skip did not train")
+    check(len(stepper.captures) == 1, f"captures {stepper.captures}")
+    check_step_launches("(c) fp16 MultiHeadAttention", rec, "f32", 1)
+    del block, trainer, stepper
+    return counts, {"step_ms": step}
+
+
+def phase_compressed(mx, start):
+    """(d) (a)'s configuration with 2-bit compression (threshold 0.5) on a
+    tpu_sync store that reduces: the whole step against the fused
+    compressed path, COMP_STEPS steps, deterministic algorithms."""
+    import gc
+    import torch
+    from mxnet_tpu_torch.gluon.wholestep import WholeStepCompiler
+    batches = token_batches(mx, COMP_STEPS)
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    runs = {}
+    comp = {"type": "2bit", "threshold": 0.5}
+    for whole in (False, True):
+        gc.collect()
+        torch.cuda.empty_cache()
+        net = lm_fresh(mx, start, "bfloat16")
+        trainer = lm_trainer(mx, net, compression=comp)
+        stepper = WholeStepCompiler(net, loss_fn, trainer)
+        rec = new_rec()
+        reset_counts()
+        with env_vars(MXNET_WHOLE_STEP=1 if whole else 0), deterministic():
+            run_steps(stepper.step, batches, rec)
+        rec["counts"] = read_counts()
+        rec["weights"] = lm_weights(trainer)
+        rec["residuals"] = [r.clone() for r in trainer._residuals]
+        rec["buckets"] = trainer._bucketer
+        if whole:
+            check(stepper.active, f"whole step inactive: "
+                  f"{stepper.fallback_reason}")
+            rec["captures"] = stepper.captures
+        runs[whole] = rec
+        del net, trainer, stepper
+    fused, whole = runs[False], runs[True]
+    bw, wrel = tensors_diff(fused["weights"], whole["weights"])
+    br, rrel = tensors_diff(fused["residuals"], whole["residuals"])
+    bk = whole["buckets"]
+    mib = [round(n * 2 / 2 ** 20, 1) for n in bk.sizes]
+    check(len(whole["captures"]) == 1, f"(d) captures {whole['captures']}")
+    print(f"  (d) 2-bit compression, threshold 0.5: {len(bk.sizes)} buckets"
+          f" of {[len(b) for b in bk.layout]} gradients, {mib} MiB of bf16 "
+          f"gradients each ({bk.cap / 2 ** 20:.0f} MiB cap), float32 "
+          f"residuals of {list(bk.sizes)} elements; whole step against the "
+          f"fused compressed path over {COMP_STEPS} steps: weights and "
+          f"masters bitwise {bw}, residuals bitwise {br}; losses "
+          f"{[round(v, 4) for v in whole['losses']]}; captures "
+          f"{whole['captures']}")
+    if not (bw and br):
+        print(f"      not bitwise: weights within {wrel:.3e}, residuals "
+              f"within {rrel:.3e} of each one's largest")
+        check(wrel <= TOL_CAPTURED and rrel <= TOL_CAPTURED,
+              "compressed whole step and fused path differ")
+    check_step_launches("(d) compressed whole step", whole, "sm90",
+                        CONFIG["num_layers"])
+    return whole["counts"]
+
+
+def phase_superstep(mx, start):
+    """(f) SuperStepCompiler with K=4 on (a)'s configuration: SUPER_STEPS
+    steps as 2 supersteps against as many sequential whole steps,
+    deterministic algorithms."""
+    import gc
+    import torch
+    from mxnet_tpu_torch.autotune import SuperStepCompiler
+    batches = token_batches(mx, SUPER_STEPS)
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    runs = {}
+    for sup in (False, True):
+        gc.collect()
+        torch.cuda.empty_cache()
+        net = lm_fresh(mx, start, "bfloat16")
+        trainer = lm_trainer(mx, net)
+        stepper = SuperStepCompiler(net, loss_fn, trainer, k=SUPER_K)
+        rec = new_rec()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        with env_vars(MXNET_WHOLE_STEP=1), deterministic():
+            if sup:
+                for i in range(0, SUPER_STEPS, SUPER_K):
+                    group = batches[i:i + SUPER_K]
+                    run_steps(lambda _x, _y, g=group: stepper.superstep(
+                        [b[0] for b in g], [b[1] for b in g]),
+                        [(None, None)], rec)
+                rec["raw"] = [l for sup_l in rec["raw"] for l in sup_l]
+            else:
+                run_steps(stepper.step, batches, rec)
+        rec["counts"] = read_counts()
+        rec["peak"] = torch.cuda.max_memory_allocated()
+        rec["weights"] = lm_weights(trainer)
+        rec["captures"] = stepper.super_captures if sup else \
+            stepper.captures
+        rec["k"] = stepper.k
+        if sup:
+            # one more superstep, a replay only, for the time per step
+            with env_vars(MXNET_WHOLE_STEP=1):
+                group = batches[:SUPER_K]
+                rec["replay_walls"] = run_steps(
+                    lambda _x, _y: stepper.superstep(
+                        [b[0] for b in group], [b[1] for b in group]),
+                    [(None, None)], new_rec())["walls"]
+            rec["replay_ms"] = stepper._super_graph.replay_host_ms
+        runs[sup] = rec
+        del net, trainer, stepper
+    return runs
+
+
+def phase_superstep_report(mx, runs):
+    L = CONFIG["num_layers"]
+    seq, sup = runs[False], runs[True]
+    bw, wrel = tensors_diff(seq["weights"], sup["weights"])
+    bl, lrel = tensors_diff(seq["raw"], sup["raw"])
+    per_step = sup["replay_walls"][0] / SUPER_K
+    print(f"  (f) SuperStepCompiler K={sup['k']}: {SUPER_STEPS} steps as 2 "
+          f"supersteps (the first eager, the second captured and replayed): "
+          f"times {[round(w, 1) for w in sup['walls']]} ms; a third "
+          f"(replayed) {sup['replay_walls'][0]:.1f} ms, {per_step:.1f} ms a "
+          f"step (the replay call {sup['replay_ms']:.3f} ms host) beside "
+          f"{statistics.median(seq['walls'][1:]):.1f} ms for a whole step; "
+          f"peak {sup['peak'] / 2 ** 30:.2f} GiB with {SUPER_K} staged "
+          f"batches ({seq['peak'] / 2 ** 30:.2f} sequential); against "
+          f"{SUPER_STEPS} sequential whole steps: losses bitwise {bl}, "
+          f"weights and optimizer states bitwise {bw}; captures "
+          f"{sup['captures']}")
+    if not (bl and bw):
+        print(f"      not bitwise: losses within {lrel:.3e}, weights within"
+              f" {wrel:.3e} of each one's largest")
+    want = 2 * SUPER_K * L      # the eager superstep and the capture
+    c = sup["counts"]
+    check(c["flash_attention.sm90"] == want and
+          c["flash_attention.bwd.sm90"] == want and
+          c["flash_attention.f32"] == 0 and c["flash_attention.bwd.f32"] == 0,
+          f"superstep launches {c}; want {want} sm90 K1 and K1b (the eager "
+          "superstep and the capture), none on f32")
+    return (bw and bl) or max(wrel, lrel) <= TOL_CAPTURED, per_step
+
+
+def phase_module_fused(mx, resident, lm_module):
+    """(e) Module with MXNET_FUSED_STEP=1: bench.py's ResNet-50 through fit
+    (3 epochs of 8 resident batches), resnet18_v1 fused against standard,
+    and phase 11's LM leg."""
+    import gc
+    import numpy as np
+    import torch
+    L = CONFIG["num_layers"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    sym = resnet_symbol(mx, VISION_MODEL)
+    n = VISION_BATCH * MODULE_BATCHES
+    data, labels = module_data(mx, n)
+    it = mx.io.NDArrayIter(data, labels, batch_size=VISION_BATCH)
+    metric = DeviceNLL(mx)
+    marks = []
+
+    def epoch_end(epoch, sym_, arg, aux):
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+
+    with env_vars(MXNET_FUSED_STEP=1):
+        mod = bind_resnet_module(mx, sym)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        marks.append(time.perf_counter())
+        mod.fit(it, num_epoch=MODULE_EPOCHS, eval_metric=metric.metric,
+                epoch_end_callback=epoch_end)
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    losses = metric.materialize()
+    epochs = [(b - a) * 1e3 for a, b in zip(marks, marks[1:])]
+    step = (marks[-1] - marks[1]) * 1e3 / (MODULE_BATCHES *
+                                           (MODULE_EPOCHS - 1))
+    final = float(np.mean(losses[-MODULE_BATCHES:]))
+    graph = mod._fstep_graph
+    fit_replay_ms = graph.replay_host_ms
+    batch = next(iter(it))
+    torch.cuda.synchronize()
+    with env_vars(MXNET_FUSED_STEP=1):
+        mod.forward_backward(batch)     # one more replay, on an idle card
+        mod.update()
+    torch.cuda.synchronize()
+    print(f"  (e) ResNet-50 v1 Module.fit with MXNET_FUSED_STEP=1 (B="
+          f"{VISION_BATCH}, bf16, f32 masters, tpu_sync): epochs "
+          f"{[round(e, 1) for e in epochs]} ms; {step:.1f} ms a step over "
+          f"the timed epochs, {VISION_BATCH / step * 1e3:.1f} images/s, "
+          f"beside phase 11's standard step {resident['step_ms']:.1f} ms, "
+          f"{resident['images_s']:.1f} images/s; peak "
+          f"{peak / 2 ** 30:.2f} GiB (phase 11 {resident['peak_gib']:.2f});"
+          f" the replay call's host time {graph.replay_host_ms:.3f} ms on "
+          f"an idle card, {fit_replay_ms:.3f} ms for the last one in fit "
+          f"(no synchronisation between steps); captures "
+          f"{graph.captures}, {graph.replays - 1} replays in fit")
+    print(f"      NLL per batch {[round(v, 4) for v in losses]}")
+    check(np.isfinite(losses).all(), f"fused Module losses not finite")
+    check(final < max(losses[0] * 1.2, np.log(1000.0) + 0.5),
+          f"bench.py's loss check failed: final {final:.4f}, first "
+          f"{losses[0]:.4f}")
+    check(len(graph.captures) == 1 and graph.replays ==
+          MODULE_EPOCHS * MODULE_BATCHES, f"want 1 capture and "
+          f"{MODULE_EPOCHS * MODULE_BATCHES - 1} replays, got "
+          f"{graph.captures}, {graph.replays}")
+    check(not any(counts.values()), f"the vision path launched a kernel "
+          f"of the repo: {counts}")
+    out = {"step_ms": step, "images_s": VISION_BATCH / step * 1e3,
+           "peak_gib": peak / 2 ** 30}
+    del mod, it, data, labels
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # resnet18_v1 f32: fused against standard from the same weights
+    rs = np.random.RandomState(3)
+    xs = rs.normal(size=GRAD_VISION_SHAPE).astype(np.float32)
+    ys = rs.randint(0, 1000, GRAD_VISION_SHAPE[0]).astype(np.float32)
+    ctx = mx.gpu(0)
+    mx.random.seed(0)
+    net = mx.gluon.model_zoo.vision.resnet18_v1()
+    net.initialize(mx.init.Xavier(rnd_type="gaussian", factor_type="in",
+                                  magnitude=2), ctx=ctx)
+    x, y = mx.nd.array(xs, ctx=ctx), mx.nd.array(ys, ctx=ctx)
+    net(x)
+    startw = {p.name: p.data().detach().clone()
+              for p in net.collect_params().values()}
+    sym18 = mx.sym.SoftmaxOutput(net(mx.sym.var("data")), name="softmax")
+    aux_names = set(sym18.list_auxiliary_states())
+    got = {}
+    for fused in (False, True):
+        mod = mx.mod.Module(sym18, context=ctx)
+        mod.bind([("data", GRAD_VISION_SHAPE)],
+                 [("softmax_label", (GRAD_VISION_SHAPE[0],))])
+        mod.init_params(arg_params={n_: t for n_, t in startw.items()
+                                    if n_ not in aux_names},
+                        aux_params={n_: t for n_, t in startw.items()
+                                    if n_ in aux_names})
+        mod.init_optimizer(optimizer="sgd", optimizer_params={
+            "learning_rate": 0.1, "momentum": 0.9})
+        with env_vars(MXNET_FUSED_STEP=1 if fused else 0), deterministic():
+            for _ in range(FUSED_VS_STD_STEPS):
+                mod.forward_backward(mx.io.DataBatch([x], [y]))
+                mod.update()
+        arg, aux = mod.get_params()
+        got[fused] = {n_: t.detach().clone()
+                      for n_, t in list(arg.items()) + list(aux.items())}
+        if fused:
+            check(len(mod._fstep_graph.captures) == 1, "resnet18 fused "
+                  f"captures {mod._fstep_graph.captures}")
+        del mod
+    names = sorted(startw)
+    pn = [n_ for n_ in names if n_ not in aux_names]
+    an = [n_ for n_ in names if n_ in aux_names]
+    bp, _ = tensors_diff([got[False][n_] for n_ in pn],
+                         [got[True][n_] for n_ in pn])
+    ba, arel = tensors_diff([got[False][n_] for n_ in an],
+                            [got[True][n_] for n_ in an])
+    prel = moved_diff([startw[n_] for n_ in pn], [got[False][n_] for n_ in pn],
+                      [got[True][n_] for n_ in pn])
+    print(f"      resnet18_v1 f32 B={GRAD_VISION_SHAPE[0]}: "
+          f"{FUSED_VS_STD_STEPS} fused steps (eager, captured, replayed) "
+          f"against as many standard steps from the same weights: "
+          f"{len(pn)} parameters bitwise {bp}, {len(an)} moving statistics "
+          f"bitwise {ba}" + ("" if bp and ba else
+                             f"; within {prel:.3e} of each parameter's "
+                             f"largest change, statistics {arel:.3e}"))
+    check((bp or prel <= TOL_CAPTURED) and (ba or arel <= TOL_CAPTURED),
+          "fused and standard Module steps differ")
+    del net
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # phase 11's LM leg with MXNET_FUSED_STEP=1
+    from mxnet_tpu_torch.gluon.model_zoo.transformer import TransformerLM
+    B, T = TRAIN_BATCH, CONFIG["max_len"]
+    mx.random.seed(0)
+    lm = TransformerLM(**CONFIG, attn_type="flash")
+    lm.initialize(mx.init.Xavier(), ctx=mx.gpu(0))
+    lm(mx.nd.array(np.zeros((1, 8), np.float32), ctx=mx.gpu(0)))
+    lm.cast("bfloat16")
+    lsym = mx.sym.SoftmaxOutput(lm(mx.sym.var("data")), preserve_shape=True,
+                                normalization="valid", name="softmax")
+    weights = {p.name: p.data() for p in lm.collect_params().values()}
+    mod = mx.mod.Module(lsym, context=mx.gpu(0))
+    mod.bind([mx.io.DataDesc("data", (B, T), np.float32)],
+             [mx.io.DataDesc("softmax_label", (B, T), np.float32)])
+    mod.init_params(arg_params=weights)
+    del lm, weights
+    mod.init_optimizer(optimizer="sgd", optimizer_params={
+        "learning_rate": LM_MODULE_LR, "momentum": 0.9,
+        "multi_precision": True})
+    toks = np.random.RandomState(0).randint(0, CONFIG["vocab"], (B, T + 1))
+    batch = mx.io.DataBatch(
+        [mx.nd.array(toks[:, :-1].astype(np.float32), ctx=mx.gpu(0))],
+        [mx.nd.array(toks[:, 1:].astype(np.float32), ctx=mx.gpu(0))])
+    nll = DeviceNLL(mx)
+    rec = new_rec()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+
+    def lm_step(_x, _y):
+        mod.forward_backward(batch)
+        mod.update()
+        mod.update_metric(nll.metric, batch.label)
+        return torch.zeros(())
+
+    with env_vars(MXNET_FUSED_STEP=1):
+        run_steps(lm_step, [(None, None)] * FUSED_LM_STEPS, rec)
+    lcounts = read_counts()
+    mod.forward(batch, is_train=False)
+    mod.update_metric(nll.metric, batch.label)
+    nlls = nll.materialize()
+    lpeak = torch.cuda.max_memory_allocated()
+    lstep = statistics.median(rec["walls"][2:])
+    print(f"      LM Module leg with MXNET_FUSED_STEP=1, bf16 B={B} T={T}: "
+          f"NLL {nlls} (the last after {FUSED_LM_STEPS} updates; phase "
+          f"11's {[round(v, 6) for v in lm_module['losses']]} after "
+          f"{LM_MODULE_STEPS}); step times "
+          f"{[round(w, 1) for w in rec['walls']]} ms (eager, captured, "
+          f"replays), the replays' median {lstep:.1f} ms beside phase 11's "
+          f"{lm_module['step_ms']:.1f} ms; "
+          f"peak {lpeak / 2 ** 30:.2f} GiB (phase 11 "
+          f"{lm_module['peak_gib']:.2f}); captures "
+          f"{mod._fstep_graph.captures}")
+    check(np.isfinite(nlls).all() and nlls[-1] < nlls[0],
+          f"fused Module LM NLL not finite and falling: {nlls}")
+    check_step_launches("(e) fused Module LM", rec, "sm90", L)
+    del mod, batch
+    out.update(lm_step_ms=lstep, lm_peak_gib=lpeak / 2 ** 30)
+    return lcounts, out
+
+
+def phase_onestep(mx, gluon, resident, lm_module, mha_times):
+    """Phase 15: (a)-(f); returns the flash launches of its runs, summed by
+    kernel, and the times."""
+    import torch
+    t0 = time.perf_counter()
+    start = lm_start(mx)
+    print(f"  LM start weights (seed 0, Xavier) in "
+          f"{time.perf_counter() - t0:.1f} s; PyTorch {torch.__version__}, "
+          "CUDAGraph.register_generator_state "
+          f"{hasattr(torch.cuda.CUDAGraph, 'register_generator_state')}")
+    totals = {}
+
+    def add(c):
+        for k, v in c.items():
+            totals[k] = totals.get(k, 0) + v
+
+    ca, whole = phase_wholestep(mx, start, gluon)
+    add(ca)
+    phase_dropout_replay(mx)
+    cb, amp = phase_amp_bf16(mx, start)
+    add(cb)
+    cc, fp16 = phase_amp_fp16(mx, mha_times)
+    add(cc)
+    add(phase_compressed(mx, start))
+    runs = phase_superstep(mx, start)
+    del start
+    same, per_step = phase_superstep_report(mx, runs)
+    add(runs[True]["counts"])
+    check(same, "the superstep differs from the sequential steps")
+    check(len(runs[True]["captures"]) == 1, f"superstep captures "
+          f"{runs[True]['captures']}")
+    del runs
+    ce, module = phase_module_fused(mx, resident, lm_module)
+    add(ce)
+    print(f"  one-program step times: LM whole step {whole['step_ms']:.1f} "
+          f"ms (fused path {whole['fused_ms']:.1f}, phase 9 "
+          f"{gluon['step_ms']:.1f}); superstep {per_step:.1f} ms a step; "
+          f"ResNet-50 fused Module step {module['step_ms']:.1f} ms (phase "
+          f"11 {resident['step_ms']:.1f}); LM fused Module step "
+          f"{module['lm_step_ms']:.1f} ms (phase 11 "
+          f"{lm_module['step_ms']:.1f}); MXNET_AMP=bf16 LM "
+          f"{amp['step_ms']:.1f} ms; fp16 MultiHeadAttention "
+          f"{fp16['step_ms']:.3f} ms")
+    return totals
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3937,7 +4785,7 @@ def main():
         t_core = time.perf_counter()
         phase_ops(mx)
         phase_random(mx)
-        mha_counts, mha_f32_counts, _ = phase_mha(mx)
+        mha_counts, mha_f32_counts, mha_times = phase_mha(mx)
         phase_dcgan(mx)
         print(f"phase 12: {time.perf_counter() - t_core:.1f} s")
         print("== phase 13: training state (optimizers, checkpoints, "
@@ -3962,6 +4810,11 @@ def main():
             mirror_counts, _ = phase_mirror(mx, lm_gluon, lm_module)
             phase_export(mx, root)
         print(f"phase 14: {time.perf_counter() - t_rec:.1f} s")
+        print("== phase 15: the one-program training step (CUDA graphs)")
+        t_one = time.perf_counter()
+        onestep_counts = phase_onestep(mx, lm_gluon, resident, lm_module,
+                                       mha_times)
+        print(f"phase 15: {time.perf_counter() - t_one:.1f} s")
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -4084,6 +4937,8 @@ def main():
         entry["mha_f32_launches"] = mha_f32_counts[variant]
         entry["resume_launches"] = state_counts[f"flash_attention.{variant}"]
         entry["mirror_launches"] = mirror_counts[f"flash_attention.{variant}"]
+        entry["onestep_launches"] = onestep_counts.get(
+            f"flash_attention.{variant}", 0)
     for entry, variant in zip(kernels_line["kernels"][3:5], ("sm90", "f32")):
         entry["module_launches"] = module_counts[
             f"flash_attention.bwd.{variant}"]
@@ -4093,6 +4948,8 @@ def main():
             f"flash_attention.bwd.{variant}"]
         entry["mirror_launches"] = mirror_counts[
             f"flash_attention.bwd.{variant}"]
+        entry["onestep_launches"] = onestep_counts.get(
+            f"flash_attention.bwd.{variant}", 0)
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(kernels_line))
     print(json.dumps({"ok": True, "device": {

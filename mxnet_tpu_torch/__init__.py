@@ -69,3 +69,4 @@ from . import module as mod
 from . import callback
 from . import monitor
 from . import checkpoint
+from . import autotune

@@ -25,8 +25,10 @@ through ``fault_hook``.  A failed write is never silent: it raises from
 The JAX package's calls into ``analysis.sanitizer`` (its locks are plain
 ``threading`` ones here), ``faultinject`` and ``observability``
 ``flight``/``journal``/``memory``/``metrics`` wait for ROADMAP.md item 5;
-the mesh signature is the one-device one (``"replicated"``) until item 6,
-and the AMP stamp is ``"f32"`` until the whole-step program is ported.
+the mesh signature is the one-device one (``"replicated"``) until item 6.
+A trainer's checkpoint is stamped with the AMP policy its last step ran
+under (the updater's ``dtype_policy``: the whole step's, or "f32" after a
+fused step), and a restore under another configured policy warns.
 """
 from __future__ import annotations
 
@@ -45,9 +47,20 @@ from .layout import CheckpointInvalidError
 
 log = logging.getLogger(__name__)
 
-# the signatures a one-device port writes and accepts
+# the mesh signature a one-device port writes and accepts
 _MESH_SIGNATURE = "replicated"
-_AMP_POLICY = "f32"
+
+
+def _configured_amp() -> str:
+    """The policy this process would train under: ``MXNET_AMP`` applies
+    only inside the whole step."""
+    if not getenv("MXNET_WHOLE_STEP", False):
+        return "f32"
+    from ..gluon.wholestep import amp_policy
+    try:
+        return amp_policy()
+    except MXNetError:
+        return "f32"
 
 
 class CheckpointError(MXNetError):
@@ -431,7 +444,10 @@ def save_trainer(manager: CheckpointManager, step: int, params,
     signatures = {"mesh_signature": _MESH_SIGNATURE}
     if trainer is not None:
         state[TRAINER_STATES_KEY] = trainer.get_states_bytes()
-        signatures["amp_policy"] = _AMP_POLICY
+        if trainer._bucket_sig is not None:
+            signatures["trainer_bucket_sig"] = repr(trainer._bucket_sig)
+        signatures["amp_policy"] = getattr(trainer._updater,
+                                           "dtype_policy", "f32")
     if extra_state:
         overlap = set(extra_state) & set(state)
         if overlap:
@@ -454,11 +470,13 @@ def restore_trainer(manager: CheckpointManager, params, trainer=None,
     got_step, state, manifest = res
     sigs = manifest.get("signatures") or {}
     saved_amp = sigs.get("amp_policy")
-    if saved_amp is not None and saved_amp != _AMP_POLICY:
+    cur_amp = _configured_amp() if saved_amp is not None else None
+    if saved_amp is not None and saved_amp != cur_amp:
         log.warning("checkpoint step %s was written under effective "
-                    "MXNET_AMP=%s; this process runs %s — resuming changes "
-                    "the numeric trajectory", got_step, saved_amp,
-                    _AMP_POLICY)
+                    "MXNET_AMP=%s but this process is configured for %s — "
+                    "resuming changes the numeric trajectory (the loss "
+                    "scaler restores regardless)", got_step, saved_amp,
+                    cur_amp)
     saved_mesh = sigs.get("mesh_signature")
     if saved_mesh is not None and saved_mesh != _MESH_SIGNATURE:
         raise CheckpointError(

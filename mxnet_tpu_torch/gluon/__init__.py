@@ -8,3 +8,5 @@ from . import data
 from . import utils
 from . import model_zoo
 from .trainer import Trainer
+from . import wholestep
+from .wholestep import WholeStepCompiler

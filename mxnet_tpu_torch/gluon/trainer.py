@@ -19,24 +19,52 @@ A gradient that no backward has rewritten since the last step raises
 ``ignore_stale_grad=True`` leaves its parameter out of the update (the
 kvstore route masks nothing, as in the reference).
 
+With a store that only reduces, the fused path reduces flat gradient
+buckets (parity: ``mxnet_tpu/gluon/trainer.py:288-480``): the dense
+gradients are concatenated into buckets of at most
+``MXNET_BUCKET_SIZE_MB`` (32 by default; with it unset and
+``MXNET_AUTOTUNE`` on, a persisted ``autotune.decisions`` value), reduced
+by one ``KVStore.allreduce``, and the update reads each gradient as a view
+into them.  ``compression_params={"type": "2bit", "threshold": t}`` sets
+the store's 2-bit compression: the buckets are quantized against one flat
+float32 residual per bucket (each parameter's residual is its slice, so
+the error feedback is the per-key quantizer's), updated in place.  The
+whole-step program (``gluon.wholestep``) shares the bucketer and the
+residuals, and keeps the fp16 loss scaler here (``loss_scale``, device
+scalars ``MXNET_LOSS_SCALE_INIT`` 65536 and a growth window
+``MXNET_LOSS_SCALE_WINDOW`` 200) with the applied-step counter.
+
 ``save_states`` / ``load_states`` (and their bytes forms, the checkpoint
 module's surface) write and read the JAX package's files: without
 gradient compression or a loss scaler, the raw updater pickle with the
-optimizer.  After a load the optimizer's ``param_dict`` points back at
-this trainer's parameters.
+optimizer; with them, the ``__mxt_trainer_states__`` wrapper that also
+carries the bucket residuals (``bucket``), the store's per-key residuals
+(``kv_residuals``) and the scaler with the applied-step counts
+(``scaler``).  After a load the optimizer's ``param_dict`` points back at
+this trainer's parameters; residuals saved for another bucket layout
+raise ``MXNetError`` when the bucketer is built.
 
 Not ported yet, and raising ``NotImplementedError`` that names the item:
-a distributed kvstore (ROADMAP.md, queue item 6), parameters on several
-devices (item 6), gradient compression and the fp16 loss scaler (queue
-item 4), also where a state file carries their state.
+a distributed kvstore (ROADMAP.md, queue item 6) and parameters on
+several devices (item 6).
 """
 from __future__ import annotations
+
+import os
+
+import numpy as _np
+import torch
 
 from .. import optimizer as opt
 from ..base import MXNetError, getenv
 from ..model import _create_kvstore
 from ..ndarray import ndarray as _nd
 from .parameter import Parameter, ParameterDict
+
+
+def dtype_name(dtype) -> str:
+    """A torch dtype as the JAX package's signatures name it ("float32")."""
+    return str(dtype).replace("torch.", "")
 
 
 class Trainer:
@@ -60,10 +88,7 @@ class Trainer:
             raise NotImplementedError(
                 f"Trainer(kvstore={kvstore!r}): distributed kvstores are not "
                 "ported yet (ROADMAP.md, queue item 6: scale-out)")
-        if compression_params:
-            raise NotImplementedError(
-                "Trainer(compression_params=...): gradient compression is "
-                "not ported yet (ROADMAP.md, queue item 4: the fused step)")
+        self._compression_params = compression_params
         optimizer_params = optimizer_params or {}
         self._scale = float(optimizer_params.get("rescale_grad", 1.0))
         self._init_optimizer(optimizer, optimizer_params)
@@ -71,6 +96,20 @@ class Trainer:
         self._update_on_kvstore_arg = update_on_kvstore
         self._kv_initialized = False
         self._fused = bool(getenv("MXNET_FUSED_TRAINER", True))
+        self._bucketer = None
+        self._bucket_sig = None
+        # per-parameter views into the reduced buckets, staged by a step's
+        # allreduce for its update: (views, indices)
+        self._reduced = None
+        # one flat float32 residual per bucket, and residuals a state file
+        # brought before the bucketer existed: (bucket signature, arrays)
+        self._residuals = None
+        self._pending_residuals = None
+        # the fp16 loss scaler (device scalars) and the applied-step
+        # counter the whole-step program keeps beside it: (indices, t)
+        self._scaler = None
+        self._applied_ts = None
+        self._applied_ts_pending = None
 
     def _param_dict(self):
         return {i: param for i, param in enumerate(self._params)}
@@ -102,6 +141,8 @@ class Trainer:
                     f"kvstore={self._kvstore!r} resolves to none on one "
                     "device — set update_on_kvstore=False or pass a kvstore")
         if kvstore is not None:
+            if self._compression_params:
+                kvstore.set_gradient_compression(self._compression_params)
             for i, param in enumerate(self._params):
                 kvstore.init(i, param.data())
             if update_on_kvstore:
@@ -133,20 +174,141 @@ class Trainer:
             for _, p in live:
                 p.fresh_grad = False
             return
-        self.allreduce_grads()
+        self._allreduce_grads(for_step=True)
         self.update(batch_size, ignore_stale_grad)
 
     def allreduce_grads(self):
         """Reduce each gradient through the kvstore, if there is one (over
-        one device: the gradient itself)."""
+        one device: the gradient itself, through the compression when it
+        is set)."""
         if not self._kv_initialized:
             self._init_kvstore()
+        self._allreduce_grads()
+
+    def _allreduce_grads(self, for_step=False):
+        """The fused path reduces the gradients as flat buckets; for a
+        step, the update then reads views into them (``_reduced``),
+        otherwise they are written back into the gradient buffers.
+        ``MXNET_FUSED_TRAINER=0`` and a store that updates push key by
+        key."""
+        self._reduced = None
         if self._kv is None:
             return
         live = [(i, p) for i, p in enumerate(self._params)
                 if p.grad_req != "null"]
-        grads = [p.list_grad() for _, p in live]
-        self._kv.pushpull([i for i, _ in live], grads, out=grads)
+        if not live:
+            return
+        if not self._fused or self._update_on_kvstore:
+            grads = [p.list_grad() for _, p in live]
+            self._kv.pushpull([i for i, _ in live], grads, out=grads)
+            return
+        views, idx = self._bucketed_pushpull(live)
+        if for_step:
+            self._reduced = (views, idx)
+            return
+        with torch.no_grad():
+            for (_, p), g in zip(live, views):
+                if g is not p.grad():
+                    p.grad().copy_(g)
+
+    def _bucketed_pushpull(self, dense):
+        """Flatten the gradients into buckets, reduce them in one
+        ``KVStore.allreduce`` (2-bit compressed against the residuals when
+        the store compresses) and return (per-parameter views into the
+        reduced buckets, indices)."""
+        grads = [p.grad() for _, p in dense]
+        sig = tuple((tuple(g.shape), dtype_name(g.dtype)) for g in grads)
+        idx = tuple(i for i, _ in dense)
+        bk = self._ensure_bucketer(sig, idx)
+        gc = self._kv._gc
+        with torch.no_grad():
+            flats = bk.flatten(grads)
+            if gc is not None:
+                if self._residuals is None:
+                    self._residuals = self._init_residuals(bk)
+                reduced, new_res = self._kv.allreduce(
+                    flats, compression=gc, residuals=self._residuals)
+                # in place: a captured whole-step reads these addresses
+                torch._foreach_copy_(self._residuals, new_res)
+            else:
+                reduced = self._kv.allreduce(flats)
+        return bk.unflatten(reduced), idx
+
+    def _ensure_bucketer(self, sig, idx):
+        """The ``GradBucketer`` for this dense-gradient signature, built
+        anew (and the residuals restarted) when it changes; shared with
+        the whole-step program, so a state file written under one path
+        restores under the other."""
+        from ..kvstore import GradBucketer
+        if self._bucketer is None or self._bucket_sig != (sig, idx):
+            mb = None
+            if "MXNET_BUCKET_SIZE_MB" not in os.environ:
+                from ..autotune import decisions as _decisions
+                if _decisions.ENABLED:
+                    mb = _decisions.knob(_decisions.model_signature(sig),
+                                         "bucket_size_mb", None)
+            cap = int(float(getenv("MXNET_BUCKET_SIZE_MB", 32.0)
+                            if mb is None else mb) * 1024 * 1024)
+            self._bucketer = GradBucketer(sig, cap)
+            self._bucket_sig = (sig, idx)
+            self._residuals = None
+        return self._bucketer
+
+    def _device(self):
+        return next(p.data().device for p in self._params
+                    if p.grad_req != "null")
+
+    def _ensure_scaler(self):
+        """The fp16 loss scaler: the scale and the count of consecutive
+        finite steps as device scalars, which the whole-step program reads
+        and updates in place (x2 after ``window`` finite steps, x0.5, at
+        least 1, on a nonfinite gradient, whose step is skipped)."""
+        if self._scaler is None:
+            self._scaler = self._make_scaler(
+                getenv("MXNET_LOSS_SCALE_INIT", 65536.0), 0,
+                getenv("MXNET_LOSS_SCALE_WINDOW", 200), self._device())
+        return self._scaler
+
+    @staticmethod
+    def _make_scaler(scale, good, window, device):
+        return {"scale": torch.tensor(float(scale), dtype=torch.float32,
+                                      device=device),
+                "good": torch.tensor(int(good), dtype=torch.int32,
+                                     device=device),
+                "window": int(window)}
+
+    @property
+    def loss_scale(self) -> float:
+        """The dynamic loss scale (1.0 without fp16 loss scaling); reading
+        it waits for the device."""
+        if self._scaler is None:
+            return 1.0
+        return float(self._scaler["scale"].item())
+
+    def _init_residuals(self, bk):
+        """Zero residuals sized to the bucket layout, or the ones a state
+        file brought, which must have been saved for this layout."""
+        device = self._device()
+        if self._pending_residuals is not None:
+            saved_sig, arrays = self._pending_residuals
+            if saved_sig != self._bucket_sig or \
+                    tuple(int(a.shape[0]) for a in arrays) != bk.sizes:
+                raise MXNetError(
+                    "Trainer.load_states: checkpointed compression "
+                    "residuals were saved for a different parameter/"
+                    f"bucket signature ({len(arrays)} buckets over "
+                    f"{len(saved_sig[0])} dense params; current layout "
+                    f"has {len(bk.sizes)} buckets over "
+                    f"{len(self._bucket_sig[0])} dense params with "
+                    "different shapes/dtypes/order). Resuming would "
+                    "silently reset 2-bit error feedback — load states "
+                    "saved from the same model and bucket layout "
+                    "(MXNET_BUCKET_SIZE_MB included).")
+            self._pending_residuals = None
+            return [torch.as_tensor(_np.asarray(a, dtype=_np.float32))
+                    .to(device) for a in arrays]
+        return [torch.zeros(n, dtype=torch.float32, device=device)
+                for n in bk.sizes]
 
     def _live(self, ignore_stale_grad, mask=True):
         """The (index, parameter) pairs to update.  A stale gradient raises
@@ -182,10 +344,16 @@ class Trainer:
             raise ValueError("update() when the optimizer runs on the "
                              "kvstore: call step() instead")
         self._optimizer.rescale_grad = self._scale / batch_size
+        reduced, self._reduced = self._reduced, None
         live = self._live(ignore_stale_grad)
         if self._fused:
-            self._updater.update_all([i for i, _ in live],
-                                     [p.grad() for _, p in live],
+            self._updater.dtype_policy = "f32"
+            grads = [p.grad() for _, p in live]
+            if reduced is not None:
+                views, idx = reduced
+                pos = {i: j for j, i in enumerate(idx)}
+                grads = [views[pos[i]] for i, _ in live]
+            self._updater.update_all([i for i, _ in live], grads,
                                      [p.data() for _, p in live])
         else:
             for i, p in live:
@@ -205,24 +373,53 @@ class Trainer:
 
     def get_states_bytes(self) -> bytes:
         """The updater's states with the optimizer, as ``save_states``
-        writes them (the checkpoint module's trainer surface)."""
-        return self._state_updater().get_states(dump_optimizer=True)
+        writes them (the checkpoint module's trainer surface), in the
+        wrapper when residuals or a scaler ride along."""
+        return self._wrap_states(
+            self._state_updater().get_states(dump_optimizer=True))
+
+    def _wrap_states(self, states: bytes) -> bytes:
+        """The raw updater pickle, or, with compression residuals or a
+        loss scaler to keep, the JAX package's ``__mxt_trainer_states__``
+        wrapper around it (parity: ``mxnet_tpu/gluon/trainer.py:
+        _wrap_states``)."""
+        bucket = None
+        if self._residuals is not None:
+            bucket = {"sig": self._bucket_sig,
+                      "residuals": [r.cpu().numpy() for r in self._residuals]}
+        elif self._pending_residuals is not None:
+            saved_sig, arrays = self._pending_residuals
+            bucket = {"sig": saved_sig,
+                      "residuals": [_np.asarray(a) for a in arrays]}
+        kv_res = {}
+        if self._kv is not None and self._kv._residuals:
+            kv_res = {k: v.cpu().numpy()
+                      for k, v in self._kv._residuals.items()}
+        scaler = None
+        if self._scaler is not None:
+            scaler = {"scale": float(self._scaler["scale"].item()),
+                      "good": int(self._scaler["good"].item()),
+                      "window": int(self._scaler["window"])}
+            if self._applied_ts is not None:
+                scaler["ts_idx"] = list(self._applied_ts[0])
+                scaler["ts"] = [int(t) for t in self._applied_ts[1].tolist()]
+        if bucket is None and not kv_res and scaler is None:
+            return states
+        return _nd.dumps({"__mxt_trainer_states__": 1, "updater": states,
+                          "bucket": bucket, "kv_residuals": kv_res,
+                          "scaler": scaler})
 
     def set_states_bytes(self, payload: bytes) -> None:
         """Inverse of ``get_states_bytes``; also reads the JAX package's
-        files, raw or in its ``__mxt_trainer_states__`` wrapper.  A
-        wrapper carrying compression residuals or a loss scaler raises
-        ``NotImplementedError`` before anything is loaded."""
+        files, raw or in its ``__mxt_trainer_states__`` wrapper, whose
+        scaler, applied-step counts and residuals it takes over (replacing
+        this trainer's; bucket residuals are checked against the layout
+        when the bucketer is built)."""
         updater = self._state_updater()
         obj = _nd.loads(payload)
+        extra = None
         if isinstance(obj, dict) and obj.get("__mxt_trainer_states__") == 1:
-            extras = [k for k in ("bucket", "kv_residuals", "scaler")
-                      if obj.get(k)]
-            if extras:
-                raise NotImplementedError(
-                    f"Trainer.set_states_bytes: the file carries {extras}: "
-                    "gradient compression and the fp16 loss scaler are not "
-                    "ported yet (ROADMAP.md, queue item 4)")
+            extra = obj
             payload = obj["updater"]
         updater.set_states(payload)
         self._optimizer = updater.optimizer
@@ -231,6 +428,31 @@ class Trainer:
             self._kv._optimizer = self._optimizer
         else:
             self._updater = updater
+        self._scaler = None
+        self._applied_ts = None
+        self._applied_ts_pending = None
+        if extra is None:
+            return
+        scaler = extra.get("scaler")
+        if scaler is not None:
+            self._scaler = self._make_scaler(
+                scaler["scale"], scaler["good"], scaler["window"],
+                self._device())
+            if scaler.get("ts") is not None:
+                self._applied_ts_pending = (
+                    tuple(scaler["ts_idx"]), [int(t) for t in scaler["ts"]])
+        kv_res = extra.get("kv_residuals") or {}
+        if kv_res and self._kv is not None:
+            self._kv._residuals = {
+                k: torch.as_tensor(_np.asarray(v, dtype=_np.float32))
+                .to(self._device()) for k, v in kv_res.items()}
+        bucket = extra.get("bucket")
+        if bucket is None:
+            return
+        self._pending_residuals = (bucket["sig"], bucket["residuals"])
+        self._residuals = None
+        if self._bucket_sig is not None:
+            self._residuals = self._init_residuals(self._bucketer)
 
     def save_states(self, fname):
         """Write the states to ``fname`` atomically (``nd.write_atomic``)."""

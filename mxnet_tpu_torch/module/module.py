@@ -16,9 +16,23 @@ goes through the kvstore (``pushpull``, update on the store) or the
 load_optimizer_states=True)``) write and read the JAX package's
 ``.states`` files.
 
+``MXNET_FUSED_STEP=1`` makes ``forward_backward`` the whole training
+step (parity: ``mxnet_tpu/module/module.py:464-610``): forward, backward
+and the update through the store's updater when the store updates (else
+the module's), with the hyper-parameters on the device
+(``optimizer.HyperDeviceCache``), and ``update`` then does nothing.  On a
+card the step is one CUDA graph (``gluon.wholestep.StepGraph``): eager the
+first time, captured the second, replayed after; weights, optimizer
+states, the store's copies and the aux states are written in place, the
+bound inputs are its static buffers.  ``grad_dict`` is not written, and
+the outputs are the graph's, rewritten by the next step.  A module it
+cannot take (an optimizer without ``fused_step``, gradient compression,
+a monitor, mirroring, ``inputs_need_grad``, a ``grad_req`` other than
+"write") runs the standard step, with one warning.
+
 Not ported, and raising ``NotImplementedError`` that names the queue item
 (ROADMAP.md): more than one context, ``group2ctxs`` and sparse gradients
-(item 6); the ``MXNET_FUSED_STEP`` single-program step (item 4).
+(item 6).
 """
 from __future__ import annotations
 
@@ -307,10 +321,6 @@ class Module(BaseModule):
         if self.optimizer_initialized and not force_init:
             self.logger.debug("optimizer already initialized, adopting")
             return
-        if getenv("MXNET_FUSED_STEP", 0):
-            raise NotImplementedError(
-                "MXNET_FUSED_STEP=1: the single-program training step is "
-                "not ported yet (ROADMAP.md, queue item 4: the fused step)")
         if self._params_dirty:
             self._sync_params_from_devices()
         kvstore, update_on_kvstore = _create_kvstore(
@@ -381,16 +391,151 @@ class Module(BaseModule):
         self._exec.backward(out_grads=out_grads)
 
     def forward_backward(self, data_batch):
-        """One training step's forward and backward on ``data_batch``."""
+        """One training step's forward and backward on ``data_batch``; with
+        ``MXNET_FUSED_STEP=1`` the whole step, update included."""
         assert self.binded and self.params_initialized
+        # a flag left by a fused step whose update() was skipped must not
+        # swallow the next standard update
+        self.__dict__.pop("_fused_stepped", None)
+        if self._maybe_fused_train_step(data_batch):
+            return
         self._set_batch(data_batch, True)
         self._exec.forward_backward()
 
+    # -- the one-program training step (MXNET_FUSED_STEP=1) -----------------
+    def _fused_step_updater(self):
+        if self._update_on_kvstore and self._kvstore is not None:
+            return self._kvstore._updater
+        return self._updater
+
+    def _fused_step_eligible(self) -> bool:
+        if not getenv("MXNET_FUSED_STEP", 0) or \
+                not self.optimizer_initialized:
+            return False
+        ex = self._exec
+        upd = self._fused_step_updater()
+        ok = (isinstance(upd, opt.FusedUpdater)
+              and getattr(upd.optimizer, "fused", False)
+              and ex._monitor is None and ex._segments <= 1
+              and not self.inputs_need_grad
+              and getattr(self._kvstore, "_gc", None) is None
+              and all(ex.grad_req.get(n, "null") in ("null", "write")
+                      for n in ex.arg_dict))
+        if not ok and not self.__dict__.get("_fstep_warned"):
+            self.logger.warning(
+                "MXNET_FUSED_STEP=1 requested but this module is not "
+                "eligible (needs: fused optimizer, single device, dense "
+                "write grads, no compression/monitor) — using the "
+                "standard 2-program step")
+            self._fstep_warned = True
+        return ok
+
+    def _maybe_fused_train_step(self, data_batch) -> bool:
+        if not self._fused_step_eligible():
+            return False
+        from ..gluon.wholestep import StepGraph, _leaves, count_snapshot, \
+            step_generators, update_groups
+        from ..kvstore import _updater_key
+        ex = self._exec
+        upd = self._fused_step_updater()
+        opt_ = upd.optimizer
+        self._set_batch(data_batch, True)
+        kv_key = bool(self._update_on_kvstore and self._kvstore is not None)
+        live = [(i, n) for i, n in enumerate(self._param_names)
+                if n in ex.grad_dict]
+        names = [n for _, n in live]
+        ukeys = [_updater_key(n) if kv_key else i for i, n in live]
+        weights = [ex.arg_dict[n] for n in names]
+        for k, w in zip(ukeys, weights):
+            upd._ensure_state(k, w)
+        states = [upd.states[k] for k in ukeys]
+        device = weights[0].device
+        store = [self._kvstore._store[n] for n in names] if kv_key else []
+        graph = self.__dict__.get("_fstep_graph")
+        if graph is None:
+            graph = self._fstep_graph = StepGraph("MXNET_FUSED_STEP",
+                                                  self._fused_where)
+        groups = update_groups(opt_, weights, device,
+                               self.__dict__.setdefault("_fstep_groups", {}))
+        rollback = count_snapshot(opt_, ukeys)
+        for k in ukeys:
+            opt_._update_count(k)
+        try:
+            hyper, counts_t = upd.hyper_cache.arrays(opt_, ukeys, device)
+            tensors = list(ex.arg_dict.values()) + \
+                list(ex.aux_dict.values()) + store + list(hyper) + \
+                [g[2] for g in groups if g[2] is not None]
+            for st in states:
+                tensors += _leaves(st)
+            gens = step_generators(ex._plan, device)
+            key = (("inputs", tuple((n, tuple(t.shape), str(t.dtype))
+                                    for n, t in ex.arg_dict.items())),
+                   ("optimizer", opt_.fused_hyper_key()),
+                   ("storage", tuple(t.data_ptr() for t in tensors)),
+                   ("generator", tuple(id(g) for g in gens)))
+            outs = graph.run(key, lambda: self._fused_body(
+                names, ukeys, weights, states, store, groups, hyper),
+                device, gens)
+        except Exception:
+            rollback()
+            raise
+        upd.hyper_cache.commit(ukeys, device, counts_t)
+        ex._outputs = list(outs)
+        ex._graph = None
+        self._params_dirty = True
+        self._fused_stepped = True
+        return True
+
+    def _fused_where(self):
+        plan = self._exec._plan
+        stage = self.__dict__.get("_fstep_stage")
+        if stage == "forward" and plan.running is not None:
+            s = plan.steps[plan.running]
+            return f"the forward, node {s.node.name!r} (op {s.op.name})"
+        return stage or "the step"
+
+    def _fused_body(self, names, ukeys, weights, states, store, groups,
+                    hyper):
+        """Forward, backward with ones as the head gradients, the aux
+        write-back and the update, in place; returns the outputs."""
+        from ..gluon.wholestep import fused_update
+        from ..ndarray.register import write_back
+        ex = self._exec
+        opt_ = self._fused_step_updater().optimizer
+        self._fstep_stage = "forward"
+        leaves = [w.detach().requires_grad_() for w in weights]
+        with torch.enable_grad():
+            outs, new_aux = ex._plan.run(
+                {**ex.arg_dict, **dict(zip(names, leaves))}, ex.aux_dict,
+                is_train=True)
+        self._fstep_stage = "the backward"
+        heads = [o for o in outs if o.requires_grad]
+        grads = torch.autograd.grad(heads, leaves,
+                                    [torch.ones_like(o) for o in heads],
+                                    allow_unused=True) \
+            if heads else [None] * len(leaves)
+        with torch.no_grad():
+            grads = [torch.zeros_like(w) if g is None else g
+                     for g, w in zip(grads, weights)]
+            self._fstep_stage = "the aux write-back"
+            write_back((tgt, new_aux[n]) for n, tgt in ex.aux_dict.items()
+                       if n in new_aux)
+            self._fstep_stage = "the fused update"
+            fused_update(opt_, ukeys, weights, grads, states, groups, hyper)
+            hyper.t.add_(1)
+            for s, w in zip(store, weights):
+                s.copy_(w)
+        self._fstep_stage = None
+        return [o.detach() for o in outs]
+
     def update(self):
         """Apply the optimizer to every parameter with a gradient (parity:
-        _update_params_on_kvstore / _update_params, model.py:97-138)."""
+        _update_params_on_kvstore / _update_params, model.py:97-138); after
+        a fused step, nothing."""
         assert self.binded and self.params_initialized and \
             self.optimizer_initialized
+        if self.__dict__.pop("_fused_stepped", False):
+            return
         self._params_dirty = True
         live = [(i, n) for i, n in enumerate(self._param_names)
                 if n in self._exec.grad_dict]

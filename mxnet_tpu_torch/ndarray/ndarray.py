@@ -366,6 +366,16 @@ _BUILTINS = {("builtins", n) for n in (
     ("collections", "OrderedDict"), ("copyreg", "_reconstructor")}
 
 
+class _Dropped:
+    """A graph node a state file carries that the port drops on load: the
+    JAX package's ``Parameter`` pickles its symbol variable once the net
+    was traced (a whole step traces it), and the port's ``Parameter``
+    rebuilds its own."""
+
+    def __setstate__(self, state):
+        pass
+
+
 class _StateUnpickler(pickle.Unpickler):
     def find_class(self, module, name):
         if module.startswith("ml_dtypes"):
@@ -379,6 +389,8 @@ class _StateUnpickler(pickle.Unpickler):
             module = f"mxnet_tpu_torch.{rel}"
             if (rel, name) == ("ndarray.ndarray", "_rebuild_ndarray"):
                 return _rebuild_ndarray
+            if rel == "symbol.symbol" and name in ("Symbol", "_Node"):
+                return _Dropped
             if rel in _PORT_MODULES:
                 import importlib
                 obj = getattr(importlib.import_module(module), name, None)

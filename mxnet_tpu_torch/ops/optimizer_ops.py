@@ -12,8 +12,12 @@ carries gradients), and returns the weight.
 
 Each update is written once, as a pass over lists of tensors
 (``multi_*``: ``torch._foreach_*`` ops, per-tensor learning rates and
-weight decays as lists of Python floats).  The registered ops call it on
-lists of one, and so do the optimizers' per-parameter updates, while
+weight decays as lists of Python floats, or as float64 tensors on the
+weights' device, one value per weight, and ``rescale_grad`` as a 0-dim
+float64 tensor: what a step captured into a CUDA graph reads, since a
+Python float is frozen into the graph when it is captured).  The
+registered ops call it on lists of one, and so do the optimizers'
+per-parameter updates, while
 ``optimizer.FusedUpdater`` calls it on every parameter of one device and
 dtype at once: the per-key and the fused step are the same arithmetic by
 construction.  The lists of one pass must hold tensors of one device and
@@ -31,6 +35,14 @@ from .registry import register
 
 _COMMON = [Arg("lr", float, required=True), Arg("wd", float, 0.0),
            Arg("rescale_grad", float, 1.0), Arg("clip_gradient", float, -1.0)]
+
+
+def _seq(values):
+    """Per-tensor hyper-parameters as a list: a 1-D tensor becomes its
+    0-dim elements (views, so a captured step reads the values its cache
+    writes in place)."""
+    return list(values.unbind(0)) if isinstance(values, torch.Tensor) \
+        else values
 
 
 def prep_grads(grads, rescale_grad, clip_gradient, dtype=None):
@@ -62,6 +74,7 @@ def _clip_weights(weights, clip_weights):
 def multi_sgd_update(weights, grads, lrs, wds, rescale_grad=1.0,
                      clip_gradient=-1.0):
     """``w -= lr * (g + wd * w)``."""
+    lrs, wds = _seq(lrs), _seq(wds)
     gs = prep_grads(grads, rescale_grad, clip_gradient, weights[0].dtype)
     _decayed(gs, weights, wds)
     torch._foreach_mul_(gs, lrs)
@@ -72,6 +85,7 @@ def multi_sgd_update(weights, grads, lrs, wds, rescale_grad=1.0,
 def multi_sgd_mom_update(weights, grads, moms, lrs, wds, momentum=0.0,
                          rescale_grad=1.0, clip_gradient=-1.0):
     """``mom = momentum * mom - lr * (g + wd * w)``; ``w += mom``."""
+    lrs, wds = _seq(lrs), _seq(wds)
     gs = prep_grads(grads, rescale_grad, clip_gradient, weights[0].dtype)
     _decayed(gs, weights, wds)
     torch._foreach_mul_(gs, lrs)
@@ -87,6 +101,7 @@ def multi_nag_update(weights, grads, moms, lrs, wds, momentum=0.0,
     ``g = clip(grad * rescale) + wd * w``, ``mom = momentum * mom + g``,
     ``w -= lr * (g + momentum * mom)``; ``moms`` is None without
     momentum."""
+    lrs, wds = _seq(lrs), _seq(wds)
     gs = _decayed(prep_grads(grads, rescale_grad, clip_gradient,
                              weights[0].dtype), weights, wds)
     if moms is not None:
@@ -103,6 +118,7 @@ def multi_adam_update(weights, grads, means, variances, lrs, wds, beta1=0.9,
                       clip_gradient=-1.0):
     """``lrs`` arrive bias-corrected (``optimizer.Adam`` folds the
     correction into them, as the reference does)."""
+    lrs, wds = _seq(lrs), _seq(wds)
     gs = _decayed(prep_grads(grads, rescale_grad, clip_gradient,
                              weights[0].dtype), weights, wds)
     torch._foreach_mul_(means, beta1)
@@ -124,6 +140,7 @@ def multi_rmsprop_update(weights, grads, ns, lrs, wds, gamma1=0.95,
                          clip_gradient=-1.0):
     """``n = (1 - gamma1) * g^2 + gamma1 * n``;
     ``w -= lr * g / sqrt(n + eps)``, clipped to ``clip_weights``."""
+    lrs, wds = _seq(lrs), _seq(wds)
     gs = _decayed(prep_grads(grads, rescale_grad, clip_gradient,
                              weights[0].dtype), weights, wds)
     sq = torch._foreach_mul(gs, gs)
@@ -146,6 +163,7 @@ def multi_rmspropalex_update(weights, grads, ns, gbars, deltas, lrs, wds,
     """Graves' centered RMSProp: ``n`` and ``gbar`` the running second and
     first moments, ``delta = gamma2 * delta - lr * g / sqrt(n - gbar^2 +
     eps)``, ``w += delta``."""
+    lrs, wds = _seq(lrs), _seq(wds)
     gs = _decayed(prep_grads(grads, rescale_grad, clip_gradient,
                              weights[0].dtype), weights, wds)
     sq = torch._foreach_mul(gs, gs)
@@ -171,6 +189,7 @@ def multi_ftrl_update(weights, grads, zs, ns, lrs, wds, lamda1=0.01,
     """FTRL-proximal: ``z += g - (sqrt(n + g^2) - sqrt(n)) / lr * w``,
     ``n += g^2``, ``w = (sign(z) * lamda1 - z) / ((beta + sqrt(n)) / lr +
     wd)`` where ``|z| > lamda1``, else 0."""
+    lrs, wds = _seq(lrs), _seq(wds)
     gs = prep_grads(grads, rescale_grad, clip_gradient, weights[0].dtype)
     old_sqrt = torch._foreach_sqrt(ns)
     torch._foreach_add_(ns, torch._foreach_mul(gs, gs))
@@ -194,6 +213,7 @@ def multi_adagrad_update(weights, grads, histories, lrs, wds, eps=1e-7,
                          rescale_grad=1.0, clip_gradient=-1.0):
     """``hist += g^2``; ``w -= lr * (g / sqrt(hist + eps) + wd * w)``
     (parity: optimizer.py AdaGrad.fused_step)."""
+    lrs, wds = _seq(lrs), _seq(wds)
     gs = prep_grads(grads, rescale_grad, clip_gradient)
     torch._foreach_add_(histories, torch._foreach_mul(gs, gs))
     denom = torch._foreach_add(histories, eps)
@@ -211,6 +231,7 @@ def multi_adadelta_update(weights, grads, acc_gs, acc_deltas, wds, rho=0.9,
     eps) / sqrt(acc_g + eps) * g``, ``acc_delta = rho * acc_delta + (1 -
     rho) * d^2``, ``w -= d + wd * w`` (parity: optimizer.py
     AdaDelta.fused_step; no learning rate)."""
+    wds = _seq(wds)
     gs = prep_grads(grads, rescale_grad, clip_gradient)
     torch._foreach_mul_(acc_gs, rho)
     torch._foreach_add_(acc_gs, torch._foreach_mul(
@@ -235,6 +256,7 @@ def multi_adamax_update(weights, grads, ms, us, lrs, wds, beta1=0.9,
     """``g = clip(grad * rescale + wd * w)``, ``m = beta1 * m + (1 - beta1)
     * g``, ``u = max(beta2 * u, |g|)``, ``w -= lr * m / u``; ``lrs`` arrive
     divided by ``1 - beta1^t`` (parity: optimizer.py Adamax.fused_step)."""
+    lrs, wds = _seq(lrs), _seq(wds)
     gs = _decayed(torch._foreach_mul(list(grads), rescale_grad), weights,
                   wds)
     if clip_gradient is not None and clip_gradient > 0:

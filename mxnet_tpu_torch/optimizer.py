@@ -24,15 +24,29 @@ as in the JAX package.
 ``get_updater`` returns a ``FusedUpdater``: ``update_all(indices, grads,
 weights)`` advances every index's count, then makes one ``fused_step`` per
 (device, dtype, multi-precision) group; an optimizer that is not fused
-takes the per-key loop.  ``Updater.get_states`` / ``set_states`` pickle
-the states (and with ``dump_optimizer`` the optimizer) in the JAX
-package's format (``ndarray.dumps`` / ``ndarray.loads``); loaded states
-move onto their weight's device when it is first updated.
+takes the per-key loop.
+
+A step captured into a CUDA graph (``gluon.wholestep``, ``Module``'s
+``MXNET_FUSED_STEP``) passes ``fused_step`` its hyper-parameters as device
+tensors (``hyper=``): the learning rates and weight decays as float64
+vectors and ``rescale_grad`` as a float64 scalar, which
+``HyperDeviceCache`` writes in place only when a schedule moves them, and
+the applied-step counter ``t`` as an int64 vector that the step itself
+advances.  Adam's and Adamax's bias corrections are then computed on the
+device in float64 from that counter, the expression the eager step
+computes on the host, so the two give the same learning rates (CUDA's
+float64 ``pow`` may differ from the host's in the last bit, which the
+cast to float32 almost always absorbs).
+
+``Updater.get_states`` / ``set_states`` pickle the states (and with
+``dump_optimizer`` the optimizer) in the JAX package's format
+(``ndarray.dumps`` / ``ndarray.loads``); loaded states move onto their
+weight's device when it is first updated.
 """
 from __future__ import annotations
 
 import math
-from typing import Any, Dict
+from typing import Any, Dict, NamedTuple
 
 import torch
 
@@ -44,6 +58,36 @@ from .ops import optimizer_ops as _ops
 _REG = Registry("optimizer")
 
 
+class DeviceHypers(NamedTuple):
+    """A captured step's hyper-parameters on the device: float64 ``lr`` and
+    ``wd`` and int64 ``t``, one value per index, and the float64 scalar
+    ``rescale``."""
+    lr: torch.Tensor
+    wd: torch.Tensor
+    t: torch.Tensor
+    rescale: torch.Tensor
+
+    def select(self, positions):
+        """The values at ``positions``, an index tensor on the device made
+        before any capture (all of them when None)."""
+        if positions is None:
+            return self
+        return DeviceHypers(self.lr.index_select(0, positions),
+                            self.wd.index_select(0, positions),
+                            self.t.index_select(0, positions), self.rescale)
+
+
+def _pow_each(base: float, ts: torch.Tensor) -> torch.Tensor:
+    """``base ** t`` for each element of the float64 vector ``ts``.  On the
+    CPU one 0-dim ``pow`` per element: that is libm's, as Python's ``**``
+    is, where the vectorized CPU kernel rounds some values differently in
+    the last bit.  On a card, one kernel."""
+    if ts.device.type == "cpu":
+        return torch.stack([torch.pow(base, t) for t in ts.unbind(0)]) \
+            if ts.numel() else ts.clone()
+    return torch.pow(base, ts)
+
+
 def _is_low_prec(dtype) -> bool:
     """float16/bfloat16 weights get float32 master copies under
     multi_precision (parity: optimizer_op.cc mp_sgd_*)."""
@@ -53,6 +97,9 @@ def _is_low_prec(dtype) -> bool:
 class Optimizer:
     #: True when the optimizer steps lists of parameters (``fused_step``)
     fused = False
+    #: the hyper-parameters, besides ``clip_gradient`` and
+    #: ``multi_precision``, that a captured step bakes in
+    _hyper_attrs = ()
 
     def __init__(self, rescale_grad=1.0, param_idx2name=None, wd=0.0,
                  clip_gradient=None, learning_rate=0.01, lr_scheduler=None,
@@ -121,24 +168,42 @@ class Optimizer:
         else:
             self.update(index, weight, grad, state)
 
-    def fused_step(self, indices, weights, grads, states, multi_precision):
+    def fused_hyper_key(self):
+        """The hyper-parameters a captured step bakes in: a step captured
+        under other values is captured again (``rescale_grad``, the
+        learning rates and weight decays ride device tensors)."""
+        return (type(self).__name__, self.clip_gradient,
+                self.multi_precision) + tuple(getattr(self, a)
+                                              for a in self._hyper_attrs)
+
+    def fused_step(self, indices, weights, grads, states, multi_precision,
+                   hyper: DeviceHypers = None):
         """Step the parameters ``indices`` (one device, one dtype) whose
         counts have advanced: low-precision weights under
         ``multi_precision`` step their float32 masters and take their
-        casts."""
-        lrs = [self._get_lr(i) for i in indices]
-        wds = [self._get_wd(i) for i in indices]
-        ts = [self._index_update_count[i] for i in indices]
-        if multi_precision:
-            inner = [s[0] for s in states]
-            masters = [s[1] for s in states]
-            self._multi_update(masters, _like(grads, masters, torch.float32),
-                               inner, lrs, wds, ts)
-            with torch.no_grad():
-                torch._foreach_copy_(weights, masters)
+        casts.  ``hyper`` gives the hyper-parameters as device tensors;
+        without it they are read on the host."""
+        if hyper is None:
+            lrs = [self._get_lr(i) for i in indices]
+            wds = [self._get_wd(i) for i in indices]
+            ts = [self._index_update_count[i] for i in indices]
         else:
-            self._multi_update(weights, _like(grads, weights), states, lrs,
-                               wds, ts)
+            lrs, wds, ts = hyper.lr, hyper.wd, hyper.t
+            self._dev_rescale = hyper.rescale
+        try:
+            if multi_precision:
+                inner = [s[0] for s in states]
+                masters = [s[1] for s in states]
+                self._multi_update(masters,
+                                   _like(grads, masters, torch.float32),
+                                   inner, lrs, wds, ts)
+                with torch.no_grad():
+                    torch._foreach_copy_(weights, masters)
+            else:
+                self._multi_update(weights, _like(grads, weights), states,
+                                   lrs, wds, ts)
+        finally:
+            self._dev_rescale = None
 
     def _multi_update(self, weights, grads, states, lrs, wds, ts):
         raise NotImplementedError
@@ -200,7 +265,8 @@ class Optimizer:
         return wd
 
     def _common_kwargs(self):
-        return dict(rescale_grad=self.rescale_grad,
+        dev = getattr(self, "_dev_rescale", None)
+        return dict(rescale_grad=self.rescale_grad if dev is None else dev,
                     clip_gradient=-1.0 if self.clip_gradient is None
                     else self.clip_gradient)
 
@@ -231,6 +297,7 @@ class SGD(Optimizer):
     """SGD with momentum and multi-precision (parity: optimizer.py:245)."""
 
     fused = True
+    _hyper_attrs = ("momentum",)
 
     def __init__(self, momentum=0.0, **kwargs):
         super().__init__(**kwargs)
@@ -265,6 +332,7 @@ class NAG(Optimizer):
     grad)."""
 
     fused = True
+    _hyper_attrs = ("momentum",)
 
     def __init__(self, momentum=0.0, **kwargs):
         super().__init__(**kwargs)
@@ -286,6 +354,7 @@ class Adam(Optimizer):
     (parity: optimizer.py:428)."""
 
     fused = True
+    _hyper_attrs = ("beta1", "beta2", "epsilon")
 
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
                  epsilon=1e-8, **kwargs):
@@ -296,8 +365,13 @@ class Adam(Optimizer):
         return (torch.zeros_like(weight), torch.zeros_like(weight))
 
     def _multi_update(self, weights, grads, states, lrs, wds, ts):
-        lrs = [lr * math.sqrt(1.0 - self.beta2 ** t) / (1.0 - self.beta1 ** t)
-               for lr, t in zip(lrs, ts)]
+        if isinstance(ts, torch.Tensor):
+            t = ts.double()
+            lrs = lrs * torch.sqrt(1.0 - _pow_each(self.beta2, t)) \
+                / (1.0 - _pow_each(self.beta1, t))
+        else:
+            lrs = [lr * math.sqrt(1.0 - self.beta2 ** t)
+                   / (1.0 - self.beta1 ** t) for lr, t in zip(lrs, ts)]
         _ops.multi_adam_update(weights, grads, [s[0] for s in states],
                                [s[1] for s in states], lrs, wds,
                                beta1=self.beta1, beta2=self.beta2,
@@ -310,6 +384,8 @@ class RMSProp(Optimizer):
     optimizer.py:488)."""
 
     fused = True
+    _hyper_attrs = ("gamma1", "gamma2", "epsilon", "centered",
+                    "clip_weights")
 
     def __init__(self, learning_rate=0.001, gamma1=0.9, gamma2=0.9,
                  epsilon=1e-8, centered=False, clip_weights=None, **kwargs):
@@ -343,6 +419,7 @@ class AdaGrad(Optimizer):
     """AdaGrad (parity: optimizer.py:542)."""
 
     fused = True
+    _hyper_attrs = ("float_stable_eps",)
 
     def __init__(self, eps=1e-7, **kwargs):
         super().__init__(**kwargs)
@@ -363,6 +440,7 @@ class AdaDelta(Optimizer):
     its accumulators are float32 whatever the weight's dtype, as there."""
 
     fused = True
+    _hyper_attrs = ("rho", "epsilon")
 
     def __init__(self, rho=0.90, epsilon=1e-5, **kwargs):
         super().__init__(**kwargs)
@@ -384,6 +462,7 @@ class Ftrl(Optimizer):
     float32, as there."""
 
     fused = True
+    _hyper_attrs = ("lamda1", "beta")
 
     def __init__(self, lamda1=0.01, learning_rate=0.1, beta=1, **kwargs):
         super().__init__(learning_rate=learning_rate, **kwargs)
@@ -405,6 +484,7 @@ class Adamax(Optimizer):
     moments are float32, as there."""
 
     fused = True
+    _hyper_attrs = ("beta1", "beta2")
 
     def __init__(self, learning_rate=0.002, beta1=0.9, beta2=0.999, **kwargs):
         super().__init__(learning_rate=learning_rate, **kwargs)
@@ -414,7 +494,10 @@ class Adamax(Optimizer):
         return (torch.zeros_like(weight, dtype=torch.float32), torch.zeros_like(weight, dtype=torch.float32))
 
     def _multi_update(self, weights, grads, states, lrs, wds, ts):
-        lrs = [lr / (1.0 - self.beta1 ** t) for lr, t in zip(lrs, ts)]
+        if isinstance(ts, torch.Tensor):
+            lrs = lrs / (1.0 - _pow_each(self.beta1, ts.double()))
+        else:
+            lrs = [lr / (1.0 - self.beta1 ** t) for lr, t in zip(lrs, ts)]
         _ops.multi_adamax_update(weights, grads, [s[0] for s in states],
                                  [s[1] for s in states], lrs, wds,
                                  beta1=self.beta1, beta2=self.beta2,
@@ -577,6 +660,68 @@ class Updater:
         return _nd.dumps(self.states)
 
 
+class HyperDeviceCache:
+    """A captured step's hyper-parameters on the device (parity:
+    ``mxnet_tpu/optimizer.py:HyperDeviceCache``): per key tuple, float64
+    vectors of the learning rates and weight decays and the float64
+    ``rescale_grad``, written in place (so their addresses, which a CUDA
+    graph holds, never change) only when a schedule moves them: a
+    last-value cache; and the applied-step counter ``t``, an int64 vector
+    that the step advances on the device itself.  ``commit`` after each
+    step records the counts the counter then stands for.  When the host's
+    counts differ from them (a per-key update between two steps,
+    ``load_states``) the counter is written again from the counts, or
+    from ``pending_ts``, a checkpoint's applied-step vector (fp16's
+    skipped steps make ``t`` lag the counts)."""
+
+    def __init__(self):
+        self._hc: Dict[tuple, dict] = {}
+        self._ts: Dict[tuple, tuple] = {}  # (idx, device) -> (t, counts)
+
+    def arrays(self, opt_, indices, device, pending_ts=None):
+        """``(DeviceHypers, counts_t)`` for ``indices`` on ``device``.
+        ``pending_ts``: a callable giving the int tuple to seed ``t`` from
+        (called only when a seed happens), or None."""
+        idx = tuple(indices)
+        device = torch.device(device)
+        key = (idx, device)
+        ent = self._hc.get(key)
+        if ent is None:
+            n = len(idx)
+            ent = self._hc[key] = {
+                "lr": torch.empty(n, dtype=torch.float64, device=device),
+                "wd": torch.empty(n, dtype=torch.float64, device=device),
+                "rescale": torch.empty((), dtype=torch.float64,
+                                       device=device),
+                "lr_key": None, "wd_key": None, "rescale_key": None}
+        for name, vals in (("lr", tuple(opt_._get_lr(i) for i in idx)),
+                           ("wd", tuple(opt_._get_wd(i) for i in idx)),
+                           ("rescale", float(opt_.rescale_grad))):
+            if ent[name + "_key"] != vals:
+                ent[name].copy_(torch.tensor(vals, dtype=torch.float64))
+                ent[name + "_key"] = vals
+        counts_t = tuple(opt_._index_update_count[i] for i in idx)
+        tent = self._ts.get(key)
+        if tent is None:
+            tent = (torch.empty(len(idx), dtype=torch.int64, device=device),
+                    None)
+        ts = tent[0]
+        if tent[1] != counts_t:
+            seed = pending_ts() if pending_ts is not None else None
+            ts.copy_(torch.tensor(counts_t if seed is None else seed,
+                                  dtype=torch.int64))
+        self._ts[key] = (ts, counts_t)
+        return DeviceHypers(ent["lr"], ent["wd"], ts,
+                            ent["rescale"]), counts_t
+
+    def commit(self, indices, device, counts_t, steps: int = 1) -> None:
+        """The step ran ``steps`` times: the counter now stands for the
+        counts ``counts_t`` + ``steps``."""
+        key = (tuple(indices), torch.device(device))
+        ts, _ = self._ts[key]
+        self._ts[key] = (ts, tuple(c + steps for c in counts_t))
+
+
 class FusedUpdater(Updater):
     """Multi-tensor updater (parity: optimizer.py:954): ``update_all``
     steps every parameter of one device and dtype with one pass of
@@ -584,6 +729,13 @@ class FusedUpdater(Updater):
     program; here it is a few kernels per group, whatever the number of
     parameters.  Per-key ``__call__`` stays available and runs the same
     arithmetic on a list of one."""
+
+    def __init__(self, optimizer: Optimizer):
+        super().__init__(optimizer)
+        self.hyper_cache = HyperDeviceCache()
+        #: the AMP policy of the last step through this updater ("f32"
+        #: unless a whole step ran under MXNET_AMP); checkpoints stamp it
+        self.dtype_policy = "f32"
 
     def update_all(self, indices, grads, weights) -> None:
         opt_ = self.optimizer

@@ -25,6 +25,12 @@ ones returned (the recomputation's are dropped), and the port's own
 generator (dropout) is put back to its state of the first run before a
 segment is recomputed, so the same masks are drawn.
 
+``run(step_overrides={step index: fn(params, inputs)})`` calls ``fn`` in
+place of that step's op (the whole-step program's mixed-precision casts
+around the matrix products ride it); as in the JAX package, a run with
+overrides is not segmented.  ``running`` holds the index of the step
+being run, so a failure inside a captured step can name its op.
+
 Not ported: the channels-last layout pass (TPU only), per-layer profiler
 scopes (``introspect``, ROADMAP item 5) and the RNN parameter hook (item
 7).
@@ -177,9 +183,12 @@ class GraphPlan:
             self.out_refs.append(("var", node.name) if ref[0] == "var"
                                  else ("val", (ref[1], oi)))
 
+    running: Optional[int] = None
+
     def run(self, arg_values: Dict[str, torch.Tensor],
             aux_values: Optional[Dict[str, torch.Tensor]] = None,
-            is_train: bool = False, segments: int = 1):
+            is_train: bool = False, segments: int = 1,
+            step_overrides: Optional[Dict[int, Callable]] = None):
         """Execute the graph on ``arg_values`` and ``aux_values`` ({name:
         tensor}).  Returns (outputs, aux values): a step's trailing aux
         outputs (BatchNorm's updated moving statistics, which differ from
@@ -187,10 +196,11 @@ class GraphPlan:
         that fed them, and later steps read the new values.  Creation ops
         with no ``ctx`` make their result on the device of the first
         argument.  ``segments`` > 1 runs the steps in that many
-        checkpointed segments (module docstring)."""
+        checkpointed segments (module docstring), unless
+        ``step_overrides`` replace some steps' ops."""
         aux_values = dict(aux_values or {})
         device = next((v.device for v in arg_values.values()), None)
-        if segments and segments > 1:
+        if segments and segments > 1 and not step_overrides:
             return self._run_segmented(arg_values, aux_values, is_train,
                                        int(segments), device)
         values: List[tuple] = [None] * len(self.steps)
@@ -202,8 +212,12 @@ class GraphPlan:
             return values[si][oi]
 
         for si, step in enumerate(self.steps):
-            values[si] = self._call(step, [resolve(r) for r in step.in_refs],
-                                    is_train, device, aux_values)
+            self.running = si
+            values[si] = self._call(
+                step, [resolve(r) for r in step.in_refs], is_train, device,
+                aux_values, step_overrides.get(si) if step_overrides
+                else None)
+        self.running = None
         return [resolve(r) for r in self.out_refs], aux_values
 
     @staticmethod
@@ -215,7 +229,7 @@ class GraphPlan:
         raise MXNetError(f"unbound variable '{nm}'")
 
     @staticmethod
-    def _call(step, ins, is_train, device, aux_values):
+    def _call(step, ins, is_train, device, aux_values, override=None):
         """One step: its visible outputs; its aux outputs go into
         ``aux_values`` under the variables that fed them."""
         p = dict(step.params)
@@ -223,7 +237,8 @@ class GraphPlan:
             p["__is_train__"] = is_train
         if step.fills_ctx and device is not None:
             p["ctx"] = str(device)
-        out = step.op.fn(p, *ins)
+        out = override(p, ins) if override is not None \
+            else step.op.fn(p, *ins)
         out = out if isinstance(out, tuple) else (out,)
         n_vis = len(out) - len(step.op.aux_inputs)
         for pos, nm in step.aux_var_names.items():

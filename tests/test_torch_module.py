@@ -600,8 +600,6 @@ def test_parts_not_ported_name_their_roadmap_item(monkeypatch, tmp_path):
     calls = [
         (lambda: mxt.mod.Module(sym, context=[CPU, mxt.cpu(1)]), "item 6"),
         (lambda: mxt.kv.create("dist_sync"), "item 6"),
-        (lambda: mxt.kv.create("device").set_gradient_compression(
-            {"type": "2bit"}), "item 4"),
         (lambda: mod.save_checkpoint(str(tmp_path / "c"), 1,
                                      reference_format=True), "item 6"),
         (lambda: mxt.callback.do_checkpoint("p", reference_format=True),
@@ -619,9 +617,22 @@ def test_parts_not_ported_name_their_roadmap_item(monkeypatch, tmp_path):
     it = mxt.io.NDArrayIter(_X[:16], _Y[:16], batch_size=16)
     mod.fit(it, num_epoch=1, checkpoint_dir=str(tmp_path / "d"))
     assert mxt.checkpoint.all_steps(str(tmp_path / "d")) == [1]
+    # ported since: gradient compression and MXNET_FUSED_STEP (item 4)
+    kv = mxt.kv.create("device")
+    kv.set_gradient_compression({"type": "2bit"})
+    kv.init(0, mxt.nd.zeros((4,), ctx=CPU))
+    kv.push(0, mxt.nd.array([0.7, -0.2, -0.9, 0.1], ctx=CPU))
+    got = mxt.nd.zeros((4,), ctx=CPU)
+    kv.pull(0, out=got)
+    np.testing.assert_array_equal(_np(got), [0.5, 0.0, -0.5, 0.0])
     monkeypatch.setenv("MXNET_FUSED_STEP", "1")
-    with pytest.raises(NotImplementedError, match="item 4"):
-        mod.init_optimizer(force_init=True)
+    mod.init_optimizer(force_init=True)
+    before = _np(mod._exec.arg_dict["fc2_weight"]).copy()
+    mod.forward_backward(mxt.io.DataBatch([mxt.nd.array(_X[:16], ctx=CPU)],
+                                          [mxt.nd.array(_Y[:16], ctx=CPU)]))
+    mod.update()
+    assert mod._fused_step_eligible() and mod._fstep_graph is not None
+    assert not np.array_equal(_np(mod._exec.arg_dict["fc2_weight"]), before)
     monkeypatch.delenv("MXNET_FUSED_STEP")
     # ported since: the record iterators and the mirror (item 10)
     imgs = np.random.RandomState(0).randint(0, 256, (2, 8, 8, 3))

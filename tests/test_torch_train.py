@@ -409,8 +409,6 @@ def test_trainer_parts_not_ported_name_their_roadmap_item(pair, tmp_path):
     two_devices = dense.collect_params()
     for call in (lambda: mxt.gluon.Trainer(params, "sgd",
                                            kvstore="dist_sync"),
-                 lambda: mxt.gluon.Trainer(params, "sgd",
-                                           compression_params={"type": "2bit"}),
                  lambda: mxt.gluon.Trainer(two_devices, "sgd").step(1)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             call()
@@ -420,6 +418,20 @@ def test_trainer_parts_not_ported_name_their_roadmap_item(pair, tmp_path):
     loaded = mxt.gluon.Trainer(params, "sgd", {"learning_rate": 0.5})
     loaded.load_states(fname)
     assert loaded.learning_rate == 0.01      # the saved optimizer's
+    # ported since: compression (item 4); a state file with its residuals
+    dense = mxt.gluon.nn.Dense(2, in_units=3)
+    dense.initialize(ctx=mxt.cpu())
+    comp = mxt.gluon.Trainer(dense.collect_params(), "sgd",
+                             kvstore="tpu_sync", update_on_kvstore=False,
+                             compression_params={"type": "2bit"})
+    with mxt.autograd.record():
+        y = dense(mxt.nd.ones((4, 3), ctx=mxt.cpu()))
+    y.backward()
+    comp.step(4)
+    assert comp._residuals is not None and comp._kv._gc is not None
+    comp.save_states(fname)
+    comp.load_states(fname)
+    assert comp._pending_residuals is None and comp._residuals is not None
 
 
 @pytest.mark.parametrize("update_on_kvstore", [None, False],
