@@ -261,7 +261,43 @@ its plain version:
    resnet18_v1 3 fused steps against 3 standard ones bitwise, phase 11's
    LM leg (12 + 12 sm90 launches at the eager step and the capture,
    finite falling NLL);
-16. a ``kernels`` JSON line (the forward kernels' ``launches`` are phase
+16. observability and training resilience, with the flight recorder, the
+   memory ledger, goodput and the run journal on (files in a temporary
+   directory under ``build/``): (a) phase 9's LM (bf16, float32 masters,
+   SGD momentum 0.9, ``WholeStepCompiler``) for ``SUP_STEPS`` steps through
+   ``gluon.TrainingSupervisor`` (snapshots every ``SUP_SNAPSHOT_STEPS``
+   into pinned host buffers) with a ``trainer.step`` raise at step
+   ``SUP_FAULT_AT``, against as many uninterrupted steps, under
+   deterministic algorithms: losses, weights and optimizer states
+   bitwise, the restore in place, one capture in the run, 12 + 12 sm90
+   launches at the eager step and the capture; (b) what the instruments
+   cost a replayed step (per-step paired interleave, ``COST_PAIRS``
+   pairs): the supervisor, a snapshot and its share amortized over 50
+   steps, the flight recorder, the ledger and goodput each on against
+   off; (c) on a float32 MLP, divergence (``raise``: ``DivergenceError``
+   with a post-mortem; ``rewind``: the snapshot restored bitwise) and a
+   ``trainer.step`` delay of ``STALL_DELAY_X`` x the step's EWMA raising
+   ``TrainingStalledError`` at its ``STALL_FACTOR`` x deadline; (d) the
+   ledger's live bytes by tag over the LM beside
+   ``torch.cuda.memory_allocated()`` (at least ``ATTRIBUTION_FLOOR`` %
+   tagged), a real CUDA out-of-memory error inside ``oom_guard`` re-raised
+   as ``DeviceMemoryError`` with a post-mortem and the next LM step
+   running, ``MXNET_HBM_BUDGET_MB`` below the tracked bytes raising
+   ``HBMBudgetError``, and a headroom refusal demoting a superstep of 4 to
+   4 whole steps with the same losses; (e) a replayed whole step inside
+   ``analysis.no_sync()`` syncing nothing; (f) ``profiler.dump_profile()``
+   and ``flight.dump()`` over 2 replayed steps as Chrome traces, 12 of each
+   flash kernel per replay inside ``whole_step`` spans (up to
+   ``PROFILE_TRIES`` profiler sessions), (a)'s goodput account
+   (``retry_replay``, ``recompile`` equal to the capture time,
+   unattributed) and ``report`` reading the journal back; (g) phase 11's
+   LM ``Module`` leg through ``fit(supervise=True)`` with one injected
+   transient against ``fit()``, bitwise; (h) ``prefetch_to_device`` over
+   phase 14's record file read on the host: images/s to the card, an
+   ``OSError`` respawning the worker with no batch lost, corrupt records
+   skipped within the budget and one more raising
+   ``DataSkipBudgetError``;
+17. a ``kernels`` JSON line (the forward kernels' ``launches`` are phase
    8's, with phase 9's as ``training_launches``, phase 11's LM leg's as
    ``module_launches``, phase 12's bf16 ``MultiHeadAttention`` runs' as
    ``mha_launches``, its float32 runs' as ``mha_f32_launches`` and phase
@@ -291,8 +327,10 @@ Phase 13's LM runs cut the steps to 5 (3 before the checkpoint, 2 after).
 Phase 14's record set is 2,048 images (one epoch of ``bench.py``'s 8
 batches; ImageNet's is 1.28 M), its mirrored runs take 5 ResNet-50 steps
 and 3 LM steps.  Phase 15's LM runs take 6 steps (4 compressed, 8 and 4
-more as supersteps), its fp16 block 7, its LM ``Module`` leg 4.  The host has no image decoder (no cv2, no PIL), so the
-records carry ``.npy`` and raw payloads.
+more as supersteps), its fp16 block 7, its LM ``Module`` leg 4.  Phase
+16's LM runs take 8 steps, its ``Module`` leg 3.  The host has no image
+decoder (no cv2, no PIL), so the records carry ``.npy`` and raw
+payloads.
 
 Times: ``device`` is the CUDA-event time of 20 back-to-back calls queued
 behind a spin kernel, per call (L2 warm): the kernels and the gaps between
@@ -2790,6 +2828,16 @@ def phase_mha(mx):
                 sdpa_out, (qs, ks, vs), do, retain_graph=True)),
             "copy_ms": device_ms(lambda: [t.contiguous() for t in views]),
             "err": err, "grad_err": gerr}
+        # the bounds by the kernels table's rule: bf16 at 989 TFLOP/s,
+        # float32 at 3xTF32's 165; 4 D and 4 tensors forward, 10 D and 8
+        # tensors backward
+        rate = H100_BF16_FLOPS if dtype == torch.bfloat16 \
+            else H100_3XTF32_FLOPS
+        times[tag]["k1_bound"] = attention_bound_ms(
+            B, H, T, D, causal, q.element_size(), rate)
+        times[tag]["k1b_bound"] = attention_bound_ms(
+            B, H, T, D, causal, q.element_size(), rate, ops_per_pair=10,
+            tensors=8)
         t = times[tag]
         print(f"MultiHeadAttention {tag}, B={B} T={T} units {E} ({H} heads "
               f"of {D}): 1 {variant} K1 + 1 {variant} K1b per forward and "
@@ -2798,7 +2846,9 @@ def phase_mha(mx):
               f"{str(ref_dtype)[6:]}; forward+backward {t['block_ms']:.3f} "
               f"ms device, {t['block_host_ms']:.3f} ms host clock; K1 "
               f"{t['k1_ms']:.4f} ms, K1b {t['k1b_ms']:.4f} ms alone (SDPA "
-              f"{t['sdpa_ms']:.4f} and {t['sdpa_bwd_ms']:.4f}); the q/k/v "
+              f"{t['sdpa_ms']:.4f} and {t['sdpa_bwd_ms']:.4f}; bounds "
+              f"{t['k1_bound'][0]:.4f} ({t['k1_bound'][1]}) and "
+              f"{t['k1b_bound'][0]:.4f} ({t['k1b_bound'][1]})); the q/k/v "
               f"contiguous copies {t['copy_ms']:.4f} ms")
         del block, x, out, qkv, views, q, k, v, o, lse, do, qs, ks, vs, \
             sdpa_out
@@ -4719,6 +4769,742 @@ def phase_onestep(mx, gluon, resident, lm_module, mha_times):
     return totals
 
 
+# ---------------------------------------------------------------------------
+# phase 16: observability and training resilience
+# ---------------------------------------------------------------------------
+SUP_STEPS = 8           # (a): supervised whole steps, snapshots every 2
+SUP_SNAPSHOT_STEPS = 2
+SUP_FAULT_AT = 5        # the trainer.step raise fires at step 5 (from 0)
+COST_PAIRS = 6          # (b): paired supervised/bare (and on/off) steps
+COST_SNAPSHOT_STEPS = 50  # MXNET_SUPERVISE_SNAPSHOT_STEPS' default
+MLP_WIDTH = 1024        # (c), (d): the small float32 MLP on the card
+MLP_BATCH = 256
+DIVERGE_PATIENCE = 2
+STALL_FACTOR = 5.0      # (c): the deadline, x the step EWMA
+STALL_DELAY_X = 20.0    # the injected delay, x the step EWMA
+ATTRIBUTION_FLOOR = 90.0  # (d): bench.py's memory-rider acceptance, %
+PROFILE_TRIES = 3       # (f): torch.profiler sessions before failing
+MODULE_SUP_STEPS = 3    # (g): phase 11's LM Module leg
+PREFETCH_DEPTH = 2      # (h)
+
+
+def observed():
+    """The phase's instruments: the flight recorder, the memory ledger,
+    goodput and the run journal on, their files in a temporary directory
+    under ``build/``, post-mortems not rate-limited; returns the
+    directory's TemporaryDirectory."""
+    from mxnet_tpu_torch import resilience
+    from mxnet_tpu_torch.observability import (flight, goodput, journal,
+                                               memory)
+    tmp = tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build"))
+    os.environ["MXNET_FLIGHT_DIR"] = os.path.join(tmp.name, "flight")
+    flight.enable()
+    flight.reset()
+    memory.enable()
+    memory.configure(budget_mb=0.0, oom_dump_min_s=0.0)
+    goodput.enable()
+    goodput.reset()
+    journal.configure(run_dir=os.path.join(tmp.name, "run"))
+    journal.MILESTONE_EVERY = 2
+    resilience.POST_MORTEM_MIN_S = 0.0
+    resilience.reset()
+    return tmp
+
+
+def supervised_lm_run(mx, start, batches, supervised):
+    """SUP_STEPS whole steps of phase 9's LM (bf16, float32 masters, SGD
+    momentum 0.9) under deterministic algorithms; ``supervised``: through
+    a TrainingSupervisor (snapshots every SUP_SNAPSHOT_STEPS) with a
+    trainer.step raise at step SUP_FAULT_AT.  Returns the run's record and
+    (net, trainer, stepper, supervisor) for the later checks."""
+    import gc
+    import torch
+    from mxnet_tpu_torch import faultinject as fi
+    from mxnet_tpu_torch.gluon.supervisor import TrainingSupervisor
+    from mxnet_tpu_torch.gluon.wholestep import WholeStepCompiler
+    from mxnet_tpu_torch.observability import goodput
+    gc.collect()
+    torch.cuda.empty_cache()
+    net = lm_fresh(mx, start, "bfloat16")
+    trainer = lm_trainer(mx, net)
+    stepper = WholeStepCompiler(net, mx.gluon.loss.SoftmaxCrossEntropyLoss(),
+                                trainer)
+    sup = None
+    fn = stepper.step
+    plan = fi.FaultPlan()
+    if supervised:
+        sup = TrainingSupervisor(stepper.step, trainer=trainer, params=net,
+                                 snapshot_steps=SUP_SNAPSHOT_STEPS)
+        fn = sup.step
+        plan.add("trainer.step", "raise", exc=OSError, times=1,
+                 after=SUP_FAULT_AT)
+    rec = new_rec()
+    goodput.reset()
+    goodput.start()
+    torch.cuda.synchronize()
+    reset_counts()
+    with env_vars(MXNET_WHOLE_STEP=1), deterministic(), fi.active(plan):
+        run_steps(fn, batches, rec)
+    rec["goodput"] = goodput.report()
+    rec["fired"] = plan.stats()
+    rec["weights"] = lm_weights(trainer)
+    rec["captures"] = stepper.captures
+    rec["capture_s"] = list(stepper._graph.capture_seconds)
+    check(stepper.active, f"whole step inactive: {stepper.fallback_reason}")
+    return rec, (net, trainer, stepper, sup)
+
+
+def paired_ms(fn_a, fn_b, x, y, pairs=COST_PAIRS):
+    """Per-step paired interleave (``bench.py``'s chaos-rider method): the
+    two arms alternate, each step synchronized; the medians of each arm
+    and of the adjacent-pair differences, ms."""
+    import torch
+    a_t, b_t, deltas = [], [], []
+    for i in range(pairs):
+        order = ((fn_a, a_t), (fn_b, b_t)) if i % 2 == 0 else \
+            ((fn_b, b_t), (fn_a, a_t))
+        for fn, acc in order:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn(x, y)
+            torch.cuda.synchronize()
+            acc.append((time.perf_counter() - t0) * 1e3)
+        deltas.append(a_t[-1] - b_t[-1])
+    return (statistics.median(a_t), statistics.median(b_t),
+            statistics.median(deltas))
+
+
+def phase_cost(mx, stepper, sup, batches):
+    """(b) what the instruments cost a replayed LM step: supervised
+    against bare, the snapshot's own time and its share amortized over
+    COST_SNAPSHOT_STEPS steps; then the flight recorder, the memory ledger
+    and goodput each on against off."""
+    import torch
+    from mxnet_tpu_torch.observability import flight, goodput, memory
+    x, y = batches[0]
+    # no snapshot boundary inside the interleave: the default cadence
+    sup.snapshot_steps = COST_SNAPSHOT_STEPS
+    with env_vars(MXNET_WHOLE_STEP=1):
+        sup_ms, bare_ms, d = paired_ms(sup.step, stepper.step, x, y)
+        # the snapshot alone: its call and the copies landing
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sup._snap = None            # force the next boundary
+        sup._maybe_snapshot()
+        call_ms = sup.snapshot_seconds[-1] * 1e3
+        torch.cuda.synchronize()
+        snap_ms = (time.perf_counter() - t0) * 1e3
+        nbytes = sup._snap.nbytes
+        amort = snap_ms / COST_SNAPSHOT_STEPS
+        print(f"  (b) supervised against bare replayed steps ({COST_PAIRS} "
+              f"pairs, interleaved): {sup_ms:.2f} against {bare_ms:.2f} ms, "
+              f"median pair difference {d:.3f} ms ({100 * d / bare_ms:.2f} "
+              f"%); one snapshot of {nbytes / 2 ** 30:.3f} GiB into pinned "
+              f"host buffers: {snap_ms:.1f} ms to land ({call_ms:.1f} ms "
+              f"host call, {nbytes / snap_ms / 1e6:.1f} GB/s), "
+              f"{amort:.3f} ms a step amortized over {COST_SNAPSHOT_STEPS}"
+              f" steps ({100 * amort / bare_ms:.2f} %)")
+        costs = {"supervisor_ms": d, "supervisor_pct": 100 * d / bare_ms,
+                 "snapshot_ms": snap_ms, "snapshot_gib": nbytes / 2 ** 30,
+                 "snapshot_amortized_pct": 100 * amort / bare_ms}
+        for name, mod in (("flight recorder", flight),
+                          ("memory ledger", memory),
+                          ("goodput", goodput)):
+            def off(x, y, mod=mod):
+                mod.ENABLED = False
+                try:
+                    return stepper.step(x, y)
+                finally:
+                    mod.ENABLED = True
+            on_ms, off_ms, d = paired_ms(stepper.step, off, x, y)
+            print(f"      {name} on against off: {on_ms:.2f} against "
+                  f"{off_ms:.2f} ms, median pair difference {d:.3f} ms "
+                  f"({100 * d / off_ms:.2f} %)")
+            costs[name] = 100 * d / off_ms
+    return costs
+
+
+def phase_retry(mx, start, batches):
+    """(a) the supervised retry against an uninterrupted run, bitwise;
+    (d)'s per-tag bytes over the LM; (f)'s goodput account.  Returns the
+    supervised run's objects for (b), (d)-(f)."""
+    from mxnet_tpu_torch.observability import memory
+    L = CONFIG["num_layers"]
+    ref, objs = supervised_lm_run(mx, start, batches, False)
+    ref_losses, ref_weights = ref["raw"], ref["weights"]
+    replayed_ms = statistics.median(ref["walls"][2:])
+    del objs, ref
+    got, objs = supervised_lm_run(mx, start, batches, True)
+    net, trainer, stepper, sup = objs
+    bit_l, _ = tensors_diff(ref_losses, got["raw"])
+    bit_w, rel = tensors_diff(ref_weights, got["weights"])
+    del ref_weights
+    st = sup.stats()
+    fail_ms = got["walls"][SUP_FAULT_AT]
+    gp = got["goodput"]
+    cls = gp["classes"]
+    replay_s = cls.get("retry_replay", {}).get("seconds", 0.0)
+    recompile_s = cls.get("recompile", {}).get("seconds", 0.0)
+    print(f"  (a) {SUP_STEPS} supervised whole steps (snapshots every "
+          f"{SUP_SNAPSHOT_STEPS}), a trainer.step raise at step "
+          f"{SUP_FAULT_AT}: fired {got['fired']}; losses "
+          f"{[round(v, 4) for v in got['losses']]}; against "
+          f"{SUP_STEPS} uninterrupted steps: losses bitwise {bit_l}, "
+          f"{len(got['weights'])} weights and optimizer states bitwise "
+          f"{bit_w}")
+    print(f"      the recovering step took {fail_ms:.1f} ms (the restore's "
+          f"host call {sup.restore_seconds[-1] * 1e3:.1f} ms, in place: "
+          f"{sup.last_restore}; the replay of "
+          f"{SUP_FAULT_AT % SUP_SNAPSHOT_STEPS} step(s); the retry; a "
+          f"{sup.backoff_s * 1e3:.0f} ms backoff) against an uninterrupted "
+          f"replayed step's {replayed_ms:.1f} ms, so the recovery itself (less the backoff "
+          f"and the retried step) {fail_ms - sup.backoff_s * 1e3 - replayed_ms:.1f}"
+          f" ms; supervisor {st}; captures {got['captures']}")
+    check(got["fired"] == {"trainer.step": 1}, f"fault plan {got['fired']}")
+    check(bit_l and bit_w, f"the retried run differs from the "
+          f"uninterrupted one (weights within {rel:.3e})")
+    check(len(got["captures"]) == 1, f"the retried run captured "
+          f"{got['captures']}; a retry should capture nothing")
+    check(sup.last_restore is not None and sup.last_restore["in_place"],
+          f"the restore was not in place: {sup.last_restore}")
+    check_step_launches("(a) supervised whole step", got, "sm90", L)
+    # (f) the goodput account of this run
+    print(f"  (f) goodput of (a)'s run: {gp['goodput_pct']:.2f} % compute "
+          f"over {gp['wall_s']:.3f} s; retry_replay {replay_s:.4f} s (the "
+          f"recovery, less the backoff and the retried step, "
+          f"{(fail_ms - sup.backoff_s * 1e3 - replayed_ms) / 1e3:.4f} s); "
+          f"recompile {recompile_s:.4f} s (the captures "
+          f"{sum(got['capture_s']):.4f} s); unattributed "
+          f"{gp['unattributed_pct']:.2f} % (the whole_step spans time the "
+          "host's replay call, not the card's step); classes "
+          + ", ".join(f"{c} {b['seconds']:.4f} s" for c, b in
+                      sorted(cls.items())))
+    check(abs(recompile_s - sum(got["capture_s"])) < 1e-9,
+          "goodput's recompile is not the capture time")
+    check(sup.restore_seconds[-1] <= replay_s <= fail_ms / 1e3,
+          f"retry_replay {replay_s} s outside [restore, recovering step]")
+    # (d) the ledger over the LM
+    rep = memory.report()
+    dev = rep["device"]
+    alloc = __import__("torch").cuda.memory_allocated()
+    print(f"  (d) memory ledger after the LM's steps, live bytes by tag: "
+          + ", ".join(f"{t} {v['live_bytes'] / 2 ** 30:.3f} GiB "
+                      f"({v['buffers']} tensors)"
+                      for t, v in sorted(dev["tags"].items()))
+          + f"; untagged {dev['untagged_bytes'] / 2 ** 30:.3f} GiB; "
+          f"tracked {dev['total_bytes'] / 2 ** 30:.3f} GiB beside "
+          f"torch.cuda.memory_allocated() {alloc / 2 ** 30:.3f} GiB; "
+          f"{dev['attribution_pct']:.2f} % tagged; the capture's pool "
+          f"{rep['compiled']}")
+    check(dev["attribution_pct"] >= ATTRIBUTION_FLOOR,
+          f"{dev['attribution_pct']} % of tracked bytes tagged, under "
+          f"{ATTRIBUTION_FLOOR}")
+    return got, objs
+
+
+def profile_replays(mx, stepper, batches, path):
+    """(f) two replayed steps under ``profiler`` (a torch.profiler session
+    with the spans merged), up to PROFILE_TRIES sessions until CUPTI
+    records device events: the dumped trace, its events, and the flash
+    kernels inside ``whole_step`` spans."""
+    import torch
+    from mxnet_tpu_torch import profiler
+    from mxnet_tpu_torch.observability import flight
+    for attempt in range(1, PROFILE_TRIES + 1):
+        flight.reset()
+        profiler.set_config(filename=path)
+        profiler.set_state("run")
+        with env_vars(MXNET_WHOLE_STEP=1):
+            for x, y in batches[:2]:
+                stepper.step(x, y)
+        torch.cuda.synchronize()
+        profiler.dump_profile()
+        if profiler.device_event_count():
+            break
+        print(f"      profiler session {attempt}: no device events")
+    with open(path) as f:
+        trace = json.load(f)
+    check(isinstance(trace.get("traceEvents"), list),
+          "the profiler's dump is not a Chrome trace")
+    evs = trace["traceEvents"]
+    check(profiler.device_event_count() > 0, f"torch.profiler recorded no "
+          f"device events in {PROFILE_TRIES} sessions")
+    return trace, evs, attempt
+
+
+def kernels_in_spans(evs, span="whole_step"):
+    """Flash kernel launches inside ``span``: a kernel counts when the
+    CUDA runtime call it correlates with (the graph launch of a replay)
+    starts inside a host ``span`` range of the profiler's trace."""
+    spans = [(e["ts"], e["ts"] + e.get("dur", 0)) for e in evs
+             if e.get("name") == span and e.get("ph") == "X"
+             and e.get("cat") in ("user_annotation", "cpu_op")]
+    runtime = {}
+    for e in evs:
+        c = (e.get("args") or {}).get("correlation")
+        if c is not None and e.get("cat") in ("cuda_runtime",
+                                              "cuda_driver"):
+            runtime[c] = e["ts"]
+    names = {"K1": ("flash_attention_fwd",), "K1b dK/dV": ("dkdv_kernel",),
+             "K1b dQ": ("dq_kernel",)}
+    got = dict.fromkeys(names, 0)
+    total = dict.fromkeys(names, 0)
+    for e in evs:
+        if e.get("cat") != "kernel":
+            continue
+        for g, keys in names.items():
+            if any(k in e.get("name", "") for k in keys):
+                total[g] += 1
+                t = runtime.get((e.get("args") or {}).get("correlation"))
+                if t is not None and any(a <= t <= b for a, b in spans):
+                    got[g] += 1
+    return got, total, len(spans)
+
+
+def phase_traces(mx, objs, batches, tmp):
+    """(e) a replayed whole step inside ``analysis.no_sync()``; (f) the
+    profiler's and the flight recorder's Chrome traces over two replayed
+    steps, and the journal read back by ``report``."""
+    import torch
+    from mxnet_tpu_torch import analysis
+    from mxnet_tpu_torch.observability import flight, journal, report
+    L = CONFIG["num_layers"]
+    net, trainer, stepper, sup = objs
+    x, y = batches[1]
+    with env_vars(MXNET_WHOLE_STEP=1), analysis.sanitized():
+        v0 = analysis.sanitizer.state()["sync_violations"]
+        with analysis.no_sync("a replayed whole step"):
+            loss = stepper.step(x, y)
+        v1 = analysis.sanitizer.state()["sync_violations"]
+        armed = False
+        try:
+            with analysis.no_sync("the control"):
+                mx.nd.asnumpy(loss)
+        except analysis.SyncViolation:
+            armed = True
+    print(f"  (e) a replayed whole step inside analysis.no_sync() under "
+          f"MXNET_SANITIZE: {v1 - v0} sync violations; nd.asnumpy of its "
+          f"loss in the same region raises SyncViolation: {armed}")
+    check(v1 == v0 and armed, "no_sync: a replay synced, or the region "
+          "was not armed")
+    path = os.path.join(tmp, "profile.json")
+    trace, evs, tries = profile_replays(mx, stepper, batches, path)
+    inside, total, nspans = kernels_in_spans(evs)
+    host = sum(1 for e in evs if e.get("name") == "whole_step")
+    kern = sum(1 for e in evs if e.get("cat") == "kernel")
+    print(f"  (f) profiler.dump_profile() over 2 replayed steps (session "
+          f"{tries}): {len(evs)} events, {host} whole_step host spans "
+          f"({nspans} from torch.profiler), {kern} kernels on one "
+          f"timeline; flash kernels inside whole_step spans {inside} of "
+          f"{total}")
+    check(all(v == 2 * L for v in inside.values()) and
+          all(v == 2 * L for v in total.values()),
+          f"flash kernels in the profiled replays {total}, inside "
+          f"whole_step spans {inside}; want {2 * L} of each")
+    fpath = flight.dump(os.path.join(tmp, "flight.json"))
+    with open(fpath) as f:
+        ftrace = json.load(f)
+    fevs = ftrace["traceEvents"]
+    steps = [e for e in fevs if e.get("name") == "whole_step"
+             and e.get("cat") == "step"]
+    check(isinstance(fevs, list) and len(steps) == 2 and all(
+        "ph" in e and ("ts" in e or e["ph"] == "M") for e in fevs),
+        f"flight dump: {len(steps)} whole_step records")
+    fk = sum(1 for e in fevs if e.get("cat") == "kernel")
+    print(f"      flight.dump(): {len(fevs)} events, the 2 whole_step "
+          f"records (step ids {[e['args'].get('step') for e in steps]}) "
+          f"and the session's {fk} kernels merged; flight summary "
+          f"whole_step {flight.summary().get('whole_step', {}).get('p50_ms')}"
+          " ms p50 (the host's replay call)")
+    s = report.summarize_run(journal.RUN_DIR)
+    print(f"      report.summarize_run: run {s['run_id']}, "
+          f"{s['incarnations']} incarnation, {s['entries']} entries, "
+          f"events {s['event_counts']}, last step {s['last_step']}")
+    check(s["incarnations"] == 1 and s["event_counts"].get(
+        "supervisor_retry") == 1 and s["event_counts"].get("milestone"),
+        f"the journal read back: {s['event_counts']}")
+
+
+def phase_oom_budget(mx, stepper, batches):
+    """(d) a real CUDA out-of-memory error inside ``oom_guard`` re-raised
+    as DeviceMemoryError with a post-mortem, the next LM step running;
+    MXNET_HBM_BUDGET_MB below the tracked bytes raising HBMBudgetError."""
+    import torch
+    from mxnet_tpu_torch.observability import memory
+    free, total = torch.cuda.mem_get_info()
+    # more than the card holds: the allocator cannot free its cache into it
+    want = total + (1 << 30)
+    err = None
+    try:
+        with memory.oom_guard("phase16.allocate"):
+            torch.empty(want, dtype=torch.uint8, device="cuda")
+    except memory.DeviceMemoryError as e:
+        err = e
+    path = memory.wait_oom_dump(30.0)
+    check(err is not None and type(err.__cause__).__name__ ==
+          "OutOfMemoryError" and path and os.path.exists(path),
+          f"a real CUDA OOM gave {err!r}, post-mortem {path}")
+    with open(path) as f:
+        pm = json.load(f)
+    x, y = batches[2]
+    with env_vars(MXNET_WHOLE_STEP=1):
+        loss = stepper.step(x, y)
+    fin = bool(torch.isfinite(loss).all())
+    print(f"  (d) allocating {want / 2 ** 30:.2f} GiB ({free / 2 ** 30:.2f} "
+          f"GiB free of {total / 2 ** 30:.2f}) inside oom_guard: "
+          f"{type(err).__name__} from {type(err.__cause__).__name__}; "
+          f"post-mortem {os.path.basename(path)} (top tag "
+          f"{pm['report']['top'][0]['tag'] if pm['report']['top'] else None}"
+          f", flight dump {bool(memory.last_oom().get('flight_path'))}); "
+          f"the next LM step's loss finite: {fin}")
+    check(fin, "the LM step after the OOM is not finite")
+    tracked = memory.tracked_bytes()
+    budget_mb = tracked / 2 ** 20 / 2
+    raised = None
+    with env_vars(MXNET_HBM_BUDGET_MB=f"{budget_mb:.3f}"):
+        memory.configure()
+        try:
+            memory.register(torch.empty(1024, device="cuda"), tag="data")
+        except memory.HBMBudgetError as e:
+            raised = e
+        finally:
+            os.environ.pop("MXNET_HBM_BUDGET_MB", None)
+            memory.configure(budget_mb=0.0)
+    print(f"      MXNET_HBM_BUDGET_MB={budget_mb:.1f} below the "
+          f"{tracked / 2 ** 20:.1f} MB tracked: the next registration "
+          f"raises {type(raised).__name__}: {str(raised)[:100]}")
+    check(raised is not None, "the budget below the live bytes raised "
+          "nothing")
+
+
+def mlp(mx, seed=0):
+    """(c)'s float32 MLP on the card: 3 Dense layers of MLP_WIDTH."""
+    mx.random.seed(seed)
+    net = mx.gluon.nn.HybridSequential()
+    with net.name_scope():
+        net.add(mx.gluon.nn.Dense(MLP_WIDTH, activation="relu",
+                                  in_units=MLP_WIDTH))
+        net.add(mx.gluon.nn.Dense(MLP_WIDTH, activation="relu",
+                                  in_units=MLP_WIDTH))
+        net.add(mx.gluon.nn.Dense(1, in_units=MLP_WIDTH))
+    net.initialize(mx.init.Xavier(), ctx=mx.gpu(0))
+    net.hybridize()
+    return net
+
+
+def mlp_step(mx, net, momentum=0.9):
+    tr = mx.gluon.Trainer(net.collect_params(), "sgd",
+                          {"learning_rate": 0.01, "momentum": momentum})
+    loss = mx.gluon.loss.L2Loss()
+
+    def step(x, y):
+        with mx.autograd.record():
+            l = loss(net(x), y)
+        l.backward()
+        tr.step(x.shape[0])
+        return l
+    return step, tr
+
+
+def mlp_data(mx, n, nan=False, seed=0):
+    import numpy as np
+    rs = np.random.RandomState(seed)
+    out = []
+    for _ in range(n):
+        x = rs.normal(0, 1, (MLP_BATCH, MLP_WIDTH)).astype(np.float32)
+        if nan:
+            x[0, 0] = np.nan
+        out.append((mx.nd.array(x, ctx=mx.gpu(0)), mx.nd.array(
+            rs.normal(0, 1, (MLP_BATCH, 1)).astype(np.float32),
+            ctx=mx.gpu(0))))
+    return out
+
+
+def phase_watchdogs(mx):
+    """(c) divergence (raise, rewind) and the stall watchdog on the MLP;
+    (d) a superstep demoted by a headroom refusal."""
+    import torch
+    from mxnet_tpu_torch import faultinject as fi
+    from mxnet_tpu_torch import resilience as res
+    from mxnet_tpu_torch.autotune import SuperStepCompiler
+    from mxnet_tpu_torch.gluon.supervisor import TrainingSupervisor
+    from mxnet_tpu_torch.gluon.wholestep import WholeStepCompiler
+    from mxnet_tpu_torch.observability import flight, memory
+    flight.reset()      # the LM's step EWMAs must not set the MLP's deadline
+    clean = mlp_data(mx, 8)
+    nan = mlp_data(mx, 2, nan=True, seed=1)
+    # raise
+    net = mlp(mx)
+    step, tr = mlp_step(mx, net)
+    sup = TrainingSupervisor(step, trainer=tr, params=net,
+                             diverge_patience=DIVERGE_PATIENCE,
+                             snapshot_steps=2)
+    err = None
+    try:
+        for x, y in clean[:2] + nan:
+            sup.step(x, y)
+    except res.DivergenceError as e:
+        err = e
+    rep = (err.report or {}) if err else {}
+    pm = {}
+    if rep.get("report_path"):
+        with open(rep["report_path"]) as f:
+            pm = json.load(f)
+    check(err is not None and err.step == 3 and "memory" in pm and
+          rep.get("flight_path") and os.path.exists(rep["flight_path"]),
+          f"divergence raise: {err!r}, post-mortem {rep}")
+    sup.close()
+    # rewind: the step-2 snapshot restored bitwise
+    net = mlp(mx)
+    step, tr = mlp_step(mx, net)
+    sup = TrainingSupervisor(step, trainer=tr, params=net,
+                             diverge_patience=DIVERGE_PATIENCE,
+                             on_diverge="rewind", snapshot_steps=2)
+    for x, y in clean[:2]:
+        sup.step(x, y)
+    at_snap = [p.data().detach().clone()
+               for p in net.collect_params().values()]
+    for x, y in nan:
+        sup.step(x, y)
+    bit, _ = tensors_diff(at_snap, [p.data().detach() for p in
+                                    net.collect_params().values()])
+    print(f"  (c) divergence (patience {DIVERGE_PATIENCE}, f32 MLP of "
+          f"{MLP_WIDTH}): raise gives {type(err).__name__} at step "
+          f"{err.step} with a post-mortem ({os.path.basename(rep['report_path'])}"
+          f", ledger report and flight ring); rewind restores the step-2 "
+          f"snapshot bitwise: {bit} ({sup.last_restore})")
+    check(bit, "the rewind did not restore the snapshot bitwise")
+    sup.close()
+    # stall: a delay of STALL_DELAY_X x the EWMA against a deadline of
+    # STALL_FACTOR x it
+    net = mlp(mx)
+    step, tr = mlp_step(mx, net)
+    sup = TrainingSupervisor(step, trainer=tr, params=net,
+                             stall_factor=STALL_FACTOR, stall_min_s=0.0)
+    for x, y in clean[:5]:          # the EWMA's warm-up: no deadline yet
+        sup.step(x, y)
+        torch.cuda.synchronize()
+    ewma = sup._ewma
+    delay = STALL_DELAY_X * ewma
+    deadline = sup._stall_timeout()
+    plan = fi.FaultPlan().add("trainer.step", "delay", delay_s=delay,
+                              times=1)
+    serr = None
+    t_wall = time.time()
+    t0 = time.perf_counter()
+    with fi.active(plan):
+        try:
+            sup.step(*clean[5])
+        except res.TrainingStalledError as e:
+            serr = e
+    waited = time.perf_counter() - t0
+    time.sleep(delay + 0.2)     # the delayed step finishes on the worker
+    torch.cuda.synchronize()
+    # the watchdog's trip: the post-mortem's own timestamp (writing it, the
+    # ledger report and the flight dump, comes after)
+    tripped = None
+    if serr is not None and serr.report.get("report_path"):
+        with open(serr.report["report_path"]) as f:
+            tripped = json.load(f)["time"] - t_wall
+    print(f"      stall: step EWMA {ewma * 1e3:.2f} ms, a trainer.step "
+          f"delay of {delay * 1e3:.1f} ms against a deadline of "
+          f"{deadline * 1e3:.1f} ms: the watchdog tripped after "
+          f"{tripped * 1e3 if tripped is not None else float('nan'):.1f} "
+          f"ms, {type(serr).__name__} raised after {waited * 1e3:.1f} ms "
+          f"(with the post-mortem written; step "
+          f"{getattr(serr, 'step', None)})")
+    check(serr is not None and tripped is not None and tripped < delay,
+          f"stall: {serr!r}, the watchdog tripped after {tripped} s, the "
+          f"delay {delay:.3f} s")
+    # (d) the headroom ask: a superstep of 4 demoted to 4 whole steps
+    losses = {}
+    for refused in (False, True):
+        net = mlp(mx)
+        tr = mx.gluon.Trainer(net.collect_params(), "sgd",
+                              {"learning_rate": 0.01})
+        stepper = SuperStepCompiler(net, mx.gluon.loss.L2Loss(), tr, k=4)
+        xs = [x for x, _ in clean[:4]]
+        ys = [y for _, y in clean[:4]]
+        with env_vars(MXNET_WHOLE_STEP=1):
+            if refused:
+                need = 4 * (memory.nbytes_of(xs[0]) + memory.nbytes_of(ys[0]))
+                memory.configure(budget_mb=(memory.tracked_bytes() + need / 2)
+                                 / 2 ** 20)
+                try:
+                    out = stepper.superstep(xs, ys)
+                finally:
+                    memory.configure(budget_mb=0.0)
+                check(stepper.super_captures == [] and stepper._super_warned,
+                      "the refused superstep was not demoted")
+            else:
+                out = torch.stack([stepper.step(x, y) for x, y in
+                                   zip(xs, ys)])
+        losses[refused] = out
+    same = torch.equal(losses[False], losses[True])
+    print(f"      a headroom refusal (the budget {need / 2 ** 20 / 2:.1f} MB "
+          f"short of 4 staged batches) demotes the superstep to K=1: its "
+          f"losses equal 4 whole steps' bitwise: {same}")
+    check(same, "the demoted superstep's losses differ from K=1's")
+
+
+def phase_module_supervised(mx):
+    """(g) phase 11's LM Module leg, MODULE_SUP_STEPS steps through
+    ``fit(supervise=True)`` with one injected transient against
+    ``fit()``, under deterministic algorithms: parameters bitwise."""
+    import gc
+    import numpy as np
+    import torch
+    from mxnet_tpu_torch import faultinject as fi
+    from mxnet_tpu_torch.gluon.model_zoo.transformer import TransformerLM
+    B, T = TRAIN_BATCH, CONFIG["max_len"]
+    toks = np.random.RandomState(0).randint(
+        0, CONFIG["vocab"], (B * MODULE_SUP_STEPS, T + 1))
+    data = mx.nd.array(toks[:, :-1].astype(np.float32), ctx=mx.gpu(0))
+    label = mx.nd.array(toks[:, 1:].astype(np.float32), ctx=mx.gpu(0))
+    out = {}
+    for supervise in (False, True):
+        gc.collect()
+        torch.cuda.empty_cache()
+        mx.random.seed(0)
+        net = TransformerLM(**CONFIG, attn_type="flash", prefix="lm_")
+        net.initialize(mx.init.Xavier(), ctx=mx.gpu(0))
+        net(mx.nd.array(np.zeros((1, 8), np.float32), ctx=mx.gpu(0)))
+        net.cast("bfloat16")
+        sym = mx.sym.SoftmaxOutput(net(mx.sym.var("data")),
+                                   preserve_shape=True,
+                                   normalization="valid", name="softmax")
+        weights = {p.name: p.data() for p in net.collect_params().values()}
+        mod = mx.mod.Module(sym, context=mx.gpu(0))
+        it = mx.io.NDArrayIter(data, label, batch_size=B)
+        plan = fi.FaultPlan()
+        if supervise:
+            plan.add("trainer.step", "raise", exc=OSError, times=1, after=1)
+        t0 = time.perf_counter()
+        with deterministic(), fi.active(plan):
+            mod.fit(it, num_epoch=1, arg_params=weights,
+                    eval_metric=DeviceNLL(mx).metric, optimizer="sgd",
+                    optimizer_params={"learning_rate": LM_MODULE_LR,
+                                      "momentum": 0.9,
+                                      "multi_precision": True},
+                    supervise=supervise)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        out[supervise] = ({k: v.detach().clone() for k, v in
+                           mod.get_params()[0].items()}, plan.stats(), secs)
+        del net, weights, mod, it, sym
+    ref, _, t_ref = out[False]
+    got, fired, t_sup = out[True]
+    bit = all(torch.equal(ref[k], got[k]) for k in ref)
+    print(f"  (g) the LM Module leg, fit(supervise=True) for "
+          f"{MODULE_SUP_STEPS} steps, a trainer.step raise at step 1 "
+          f"(fired {fired}), against fit(): {len(ref)} parameters bitwise "
+          f"{bit}; {t_sup:.1f} s against {t_ref:.1f} s")
+    check(fired == {"trainer.step": 1} and bit,
+          "the supervised Module fit differs from fit()")
+
+
+def phase_prefetch(mx, path, it_rate):
+    """(h) ``prefetch_to_device`` over phase 14's record file read on the
+    host: images/s to the card beside phase 14 (b); a data.batch OSError
+    (a respawn, no batch lost) and two corrupt records within the budget
+    in one epoch; one more than the budget raises DataSkipBudgetError."""
+    import torch
+    from mxnet_tpu_torch import faultinject as fi
+    from mxnet_tpu_torch import resilience as res
+    from mxnet_tpu_torch.gluon.data import prefetch_to_device
+    from mxnet_tpu_torch.observability import metrics as M
+    outer = rec_iter(mx, path, device_augment=False, ctx=mx.cpu(),
+                     prefetch_buffer=1)
+    src = outer.iter                # the host reader alone
+    outer.close()
+
+    def epoch(budget=None, plan=None):
+        src.reset()
+        labels, n = [], 0
+        it = prefetch_to_device(src, depth=PREFETCH_DEPTH,
+                                device=mx.gpu(0), skip_budget=budget)
+        t0 = time.perf_counter()
+        with fi.active(plan or fi.FaultPlan()):
+            try:
+                for b in it:
+                    check(b.data[0].is_cuda and b.data[0].dtype ==
+                          torch.float32, "prefetched batch not on the card")
+                    labels.append(b.label[0].cpu())
+                    n += 1
+            finally:
+                torch.cuda.synchronize()
+                it.close()
+        return n, time.perf_counter() - t0, labels
+
+    n, secs, labels = epoch()
+    rate = n * VISION_BATCH / secs
+    r0, s0 = M.PREFETCH_RESPAWNS.value, M.DATA_RECORDS_SKIPPED.value
+    plan = (fi.FaultPlan()
+            .add("data.batch", "raise", exc=OSError, times=1, after=2)
+            .add("data.batch", "raise", exc=res.DataCorruptionError,
+                 times=2, after=4))
+    n2, _, labels2 = epoch(budget=2, plan=plan)
+    resp = M.PREFETCH_RESPAWNS.value - r0
+    skip = M.DATA_RECORDS_SKIPPED.value - s0
+    same = sorted(torch.cat(labels).tolist()) == \
+        sorted(torch.cat(labels2).tolist())
+    over = None
+    try:
+        epoch(budget=2, plan=fi.FaultPlan().add(
+            "data.batch", "raise", exc=res.DataCorruptionError, times=3,
+            after=1))
+    except res.DataSkipBudgetError as e:
+        over = e
+    print(f"  (h) prefetch_to_device(depth {PREFETCH_DEPTH}) over the host "
+          f"reader of phase 14's file (B={VISION_BATCH} float32, pinned "
+          f"staging, a side stream): {n} batches in {secs:.3f} s, "
+          f"{rate:.1f} images/s to the card beside phase 14 (b)'s "
+          f"{it_rate:.1f} (device augment); an OSError and 2 corrupt "
+          f"records in one epoch: {resp} respawn, {skip} skipped, {n2} "
+          f"batches, labels the same: {same}; one more than the budget: "
+          f"{type(over).__name__}")
+    check(n == n2 == REC_IMAGES // VISION_BATCH and resp == 1 and skip == 2
+          and same and over is not None,
+          "prefetch_to_device's respawn or skip budget")
+    return rate
+
+
+def phase_resilience(mx, path, it_rate):
+    """Phase 16: (a)-(h)."""
+    import gc
+    import torch
+    flight_dir = os.environ.get("MXNET_FLIGHT_DIR")
+    tmp = observed()
+    try:
+        t0 = time.perf_counter()
+        start = lm_start(mx)
+        batches = token_batches(mx, SUP_STEPS)
+        got, objs = phase_retry(mx, start, batches)
+        del start
+        net, trainer, stepper, sup = objs
+        costs = phase_cost(mx, stepper, sup, batches)
+        phase_traces(mx, objs, batches, tmp.name)
+        phase_oom_budget(mx, stepper, batches)
+        sup.close()
+        del net, trainer, stepper, sup, objs, got, batches
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase_watchdogs(mx)
+        phase_module_supervised(mx)
+        rate = phase_prefetch(mx, path, it_rate)
+        print(f"  phase 16 instruments' cost (%): {json.dumps(costs)}; "
+              f"prefetch {rate:.1f} images/s; {time.perf_counter() - t0:.1f}"
+              " s")
+    finally:
+        from mxnet_tpu_torch.observability import journal
+        journal.configure(run_dir="")
+        if flight_dir is None:
+            os.environ.pop("MXNET_FLIGHT_DIR", None)
+        else:
+            os.environ["MXNET_FLIGHT_DIR"] = flight_dir
+        tmp.cleanup()
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -4729,6 +5515,9 @@ def main():
               "(mxnet_tpu_torch/ not found)", file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
+    # the flight recorder's dumps (slow-phase anomalies) under build/
+    os.environ.setdefault("MXNET_FLIGHT_DIR",
+                          os.path.join(ROOT, "build", "flight"))
     import numpy as np
     import mxnet_tpu_torch as mx
     # float32 means IEEE float32 in every comparison below
@@ -4800,6 +5589,7 @@ def main():
         print(f"phase 13: {time.perf_counter() - t_state:.1f} s")
         print("== phase 14: the record-file input path")
         t_rec = time.perf_counter()
+        # the record file stays for phase 16's prefetcher
         with tempfile.TemporaryDirectory(
                 dir=os.path.join(ROOT, "build")) as root:
             path, first, labels = write_image_rec(mx, root)
@@ -4809,12 +5599,17 @@ def main():
             phase_tensor_rec(mx, root)
             mirror_counts, _ = phase_mirror(mx, lm_gluon, lm_module)
             phase_export(mx, root)
-        print(f"phase 14: {time.perf_counter() - t_rec:.1f} s")
-        print("== phase 15: the one-program training step (CUDA graphs)")
-        t_one = time.perf_counter()
-        onestep_counts = phase_onestep(mx, lm_gluon, resident, lm_module,
-                                       mha_times)
-        print(f"phase 15: {time.perf_counter() - t_one:.1f} s")
+            print(f"phase 14: {time.perf_counter() - t_rec:.1f} s")
+            print("== phase 15: the one-program training step (CUDA "
+                  "graphs)")
+            t_one = time.perf_counter()
+            onestep_counts = phase_onestep(mx, lm_gluon, resident,
+                                           lm_module, mha_times)
+            print(f"phase 15: {time.perf_counter() - t_one:.1f} s")
+            print("== phase 16: observability and training resilience")
+            t_res = time.perf_counter()
+            phase_resilience(mx, path, it_rate)
+            print(f"phase 16: {time.perf_counter() - t_res:.1f} s")
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -70,3 +70,7 @@ from . import callback
 from . import monitor
 from . import checkpoint
 from . import autotune
+from . import analysis
+from . import faultinject
+from . import resilience
+from . import profiler

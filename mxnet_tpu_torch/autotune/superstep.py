@@ -19,8 +19,12 @@ persisted ``superstep_k`` decision for this model on this card > 4.  What
 the whole step cannot take demotes the call to K single steps (which
 themselves run the fused path when ineligible), with one warning.
 
-Not ported: the memory ledger's headroom ask before staging K batches,
-which comes with ROADMAP item 5.
+Before staging K batches a call asks the memory ledger for their bytes
+(``memory.ensure_headroom``, against ``MXNET_HBM_BUDGET_MB``); a refusal
+demotes that call to K single steps and leaves the superstep viable for
+the next call.  Each superstep fires ``trainer.step`` once, before
+anything advances, and ``device.unavailable`` before the replay call,
+which is a ``superstep`` span inside ``memory.oom_guard``.
 """
 from __future__ import annotations
 
@@ -30,6 +34,11 @@ import torch
 
 from .. import autograd
 from ..base import MXNetError, getenv
+from ..faultinject import fire as _fi_fire
+from ..observability import flight as _flight
+from ..observability import journal as _journal
+from ..observability import memory as _memory
+from ..observability.tracing import trace_span
 from ..gluon.parameter import DeferredInitializationError
 from ..gluon.wholestep import StepGraph, WholeStepCompiler, \
     _AmpIneligible, _Ineligible, amp_policy, count_snapshot, step_generators
@@ -40,6 +49,12 @@ logger = logging.getLogger("mxnet_tpu_torch.autotune.superstep")
 
 #: K when neither the environment, the constructor nor a decision sets it
 DEFAULT_K = 4
+
+
+class _SuperIneligible(RuntimeError):
+    """THIS call cannot run as a superstep (the memory ledger refused
+    headroom for staging its K batches): demote it to K=1 without
+    demoting the compiler."""
 
 
 class SuperStepCompiler(WholeStepCompiler):
@@ -111,6 +126,10 @@ class SuperStepCompiler(WholeStepCompiler):
             return self._run_super(built, datas, labels, bs, policy, k)
         except DeferredInitializationError:
             return self._sequential(datas, labels, bs)
+        except _SuperIneligible as e:
+            # per-call demotion: the superstep stays viable
+            self._warn_demoted(str(e))
+            return self._sequential(datas, labels, bs)
         except _AmpIneligible as e:
             self._warn_demoted(str(e))
             return self._sequential(datas, labels, bs)
@@ -118,6 +137,19 @@ class SuperStepCompiler(WholeStepCompiler):
             self._warn_demoted(str(e))
             self._note_fallback(str(e))
             return self._sequential(datas, labels, bs)
+
+    @staticmethod
+    def _ask_headroom(datas, labels, k) -> None:
+        """Ask the memory ledger for the K staged batches' bytes before
+        staging them; a refusal raises ``_SuperIneligible``."""
+        if not _memory.ENABLED:
+            return
+        need = sum(_memory.nbytes_of(a) for a in (datas[0], labels[0])) * k
+        if not _memory.ensure_headroom(
+                need, why=f"superstep staging (K={k} batches)"):
+            raise _SuperIneligible(
+                f"the memory ledger refused {need} bytes of headroom for "
+                f"staging K={k} batches")
 
     def _warn_demoted(self, reason: str) -> None:
         if not self._super_warned:
@@ -157,6 +189,9 @@ class SuperStepCompiler(WholeStepCompiler):
 
     def _run_super(self, built, datas, labels, bs, policy, k):
         tr = self.trainer
+        # one fault site per superstep, before anything advances
+        _fi_fire("trainer.step", step=tr._step_id)
+        self._ask_headroom(datas, labels, k)
         thr, scaler = self._prepare(built, policy, bs)
         upd = tr._updater
         opt_ = upd.optimizer
@@ -193,11 +228,20 @@ class SuperStepCompiler(WholeStepCompiler):
                                             hyper.rescale), *args)
                     for s in range(k)])
 
-            losses = self._super_graph.run(key, body, device, gens)
+            _fi_fire("device.unavailable", step=tr._step_id)
+            with trace_span("superstep", cat="trainer"), \
+                    _flight.phase_span("superstep", cat="step",
+                                       step=tr._step_id, watch=True,
+                                       mem=True, labels={"k": k}), \
+                    _memory.oom_guard("superstep.step"):
+                losses = self._super_graph.run(key, body, device, gens)
         except Exception:
             rollback()
             raise
         upd.hyper_cache.commit(idx, device, counts0, steps=k)
         upd.dtype_policy = policy
         tr._applied_ts = (idx, hyper.t)
+        tr._step_id += k
+        if _journal.ENABLED:
+            _journal.maybe_milestone(tr._step_id, source="superstep")
         return losses.clone()

@@ -200,3 +200,30 @@ class _ThreadLocalStack(threading.local):
 
     def pop(self):
         return self.stack.pop()
+
+
+def atomic_write(fname: str, data) -> None:
+    """Crash-atomic small-file write: a temporary file in the same
+    directory, then one ``os.replace``; str writes text, bytes binary."""
+    tmp = f"{fname}.tmp-{os.getpid()}"
+    mode = "w" if isinstance(data, str) else "wb"
+    with open(tmp, mode) as f:
+        f.write(data)
+    os.replace(tmp, fname)
+
+
+def unique_path(directory: str, stem: str, ext: str, clock=None) -> str:
+    """Collision-free timestamped file path,
+    ``<dir>/<stem>-<UTC stamp>-<pid>[.N]<ext>``, the one filename policy of
+    every dump writer (the profiler, the flight recorder, post-mortems).
+    ``clock`` is the epoch-seconds source (default ``time.time``)."""
+    import time as _time
+    t = (clock or _time.time)()
+    stamp = _time.strftime("%Y%m%d-%H%M%S", _time.gmtime(t))
+    base_name = f"{stem}-{stamp}-{os.getpid()}"
+    path = os.path.join(directory, base_name + ext)
+    n = 1
+    while os.path.exists(path):
+        path = os.path.join(directory, f"{base_name}.{n}{ext}")
+        n += 1
+    return path

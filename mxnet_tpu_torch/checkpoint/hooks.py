@@ -3,9 +3,9 @@ exit, so a preempted worker (spot VM reclaim, k8s pod eviction — the
 cloud sends SIGTERM and gives you seconds) resumes from its last step
 instead of its last periodic checkpoint.
 
-The port's copy of ``mxnet_tpu/checkpoint/hooks.py``: a plain
-``threading.Lock`` in place of the sanitizer's ``make_lock``; the flight
-recorder dump and the run journal's entry wait for ROADMAP.md item 5.
+The port's copy of ``mxnet_tpu/checkpoint/hooks.py``: after the save the
+hook dumps the flight ring (``reason="preempt"``) and writes the run
+journal's terminal ``preempted`` entry.
 """
 from __future__ import annotations
 
@@ -13,9 +13,9 @@ import atexit
 import logging
 import signal
 import sys
-import threading
 from typing import Callable, Tuple
 
+from ..analysis.sanitizer import make_lock
 from .manager import CheckpointManager
 
 log = logging.getLogger(__name__)
@@ -29,7 +29,7 @@ class _PreemptionHook:
         self.state_fn = state_fn
         self.exit_on_signal = exit_on_signal
         self._fired = False
-        self._lock = threading.Lock()
+        self._lock = make_lock("checkpoint.hooks.fired")
         self._prev = {}
         self._signals = tuple(signals)
         self._atexit_registered = False
@@ -39,6 +39,7 @@ class _PreemptionHook:
             if self._fired:
                 return
             self._fired = True
+        step = None
         try:
             step, state = self.state_fn()
             if self.manager._last_saved_step == int(step) and \
@@ -57,6 +58,30 @@ class _PreemptionHook:
             self.manager.wait(timeout=300)
         except Exception as e:  # noqa: BLE001 — dying anyway; log, don't mask
             log.error("preemption-hook save failed: %s", e)
+        finally:
+            # the timeline of what the run was doing when it was reclaimed,
+            # after the save (its spans belong in the dump), inline (the
+            # process is exiting), never masking a save failure
+            self._dump_flight()
+            # the journal's terminal entry, fsync'd before the exit
+            try:
+                from ..observability import journal as _journal
+                if _journal.ENABLED:
+                    _journal.emit("preempted", step=step, durable=True,
+                                  why=why)
+            except Exception as e:  # noqa: BLE001 — dying anyway
+                log.error("preemption-hook journal entry failed: %s", e)
+
+    @staticmethod
+    def _dump_flight() -> None:
+        try:
+            from ..observability import flight as _flight
+            if _flight.ENABLED:
+                path = _flight.dump(reason="preempt")
+                log.warning("preemption hook: flight timeline dumped to %s",
+                            path)
+        except Exception as e:  # noqa: BLE001
+            log.error("preemption-hook flight dump failed: %s", e)
 
     def _on_signal(self, signum, frame):
         self._save_once(f"signal {signum}")

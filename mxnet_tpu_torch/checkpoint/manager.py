@@ -42,6 +42,11 @@ import time
 from typing import Callable, Dict, List, Optional, Tuple
 
 from ..base import MXNetError, getenv
+from ..faultinject import fire as _fi_fire
+from ..observability import flight as _flight
+from ..observability import journal as _journal
+from ..observability import memory as _memory
+from ..observability import metrics as _metrics
 from . import layout as _layout
 from .layout import CheckpointInvalidError
 
@@ -61,6 +66,25 @@ def _configured_amp() -> str:
         return amp_policy()
     except MXNetError:
         return "f32"
+
+
+def _corrupt_step_dir(path: str) -> None:
+    """The ``checkpoint.io`` corrupt rule's damage: flip one byte in the
+    middle of the first shard of a COMMITTED checkpoint (sizes unchanged,
+    quick validation passes; the CRC-validated load must reject it)."""
+    try:
+        names = sorted(n for n in os.listdir(path) if n.endswith(".npz"))
+    except OSError:
+        return
+    if not names:
+        return
+    fp = os.path.join(path, names[0])
+    size = os.path.getsize(fp)
+    with open(fp, "r+b") as f:
+        f.seek(size // 2)
+        b = f.read(1)
+        f.seek(size // 2)
+        f.write(bytes([b[0] ^ 0xFF]))
 
 
 class CheckpointError(MXNetError):
@@ -151,20 +175,34 @@ class CheckpointManager:
             raise CheckpointError("CheckpointManager is closed")
         self._raise_pending_error()
         step = int(step)
-        snap = _layout.snapshot_state(state)
-        job = (step, snap, dict(meta or {}), dict(signatures or {}))
-        if self._async and not block:
-            with self._lock:
-                self._ensure_worker()
-                # backpressure: each queued job pins a full host snapshot
-                while self._pending >= self.max_pending:
-                    self._lock.wait()
-                self._queue.append(job)
-                self._pending += 1
-                self._lock.notify_all()
-        else:
-            self._run_job(job)
-            self._raise_pending_error()
+        t0 = time.perf_counter()
+        # the caller-visible blocking phase: snapshot + (async) queue
+        # admission, or the whole write in sync mode
+        with _flight.phase_span("checkpoint_block", cat="checkpoint",
+                                step=step, mem=True):
+            snap = _layout.snapshot_state(state)
+            if _memory.ENABLED:
+                # each queued save pins a host snapshot until committed
+                for _name, (kind, payload) in snap.items():
+                    if kind == "array":
+                        _memory.register_host(payload, tag="checkpoint_host")
+            job = (step, snap, dict(meta or {}), dict(signatures or {}), t0)
+            if self._async and not block:
+                with self._lock:
+                    self._ensure_worker()
+                    # backpressure: each queued job pins a full host
+                    # snapshot
+                    while self._pending >= self.max_pending:
+                        self._lock.wait()
+                    self._queue.append(job)
+                    self._pending += 1
+                    self._lock.notify_all()
+            else:
+                self._run_job(job)
+                self._raise_pending_error()
+        if _metrics.ENABLED:
+            _metrics.CHECKPOINT_SAVE_BLOCKED_SECONDS.observe(
+                time.perf_counter() - t0)
 
     def _ensure_worker(self) -> None:
         if self._worker is not None and self._worker.is_alive():
@@ -194,7 +232,9 @@ class CheckpointManager:
         (sync) or lands in _errors for wait()/the next save() (async)."""
         step = job[0]
         try:
-            with self._write_lock:
+            with self._write_lock, \
+                    _flight.phase_span("checkpoint_write", cat="checkpoint",
+                                       step=step):
                 self._run_attempts(*job)
         except Exception as e:  # noqa: BLE001 — see docstring
             err = e if isinstance(e, CheckpointError) else CheckpointError(
@@ -206,19 +246,30 @@ class CheckpointManager:
                 return
             raise err from e
 
-    def _run_attempts(self, step, snap, meta, signatures) -> None:
+    def _run_attempts(self, step, snap, meta, signatures, t0) -> None:
         attempts = self.retries + 1
         delay = self.backoff_s
         for attempt in range(attempts):
             try:
                 if self.fault_hook is not None:
                     self.fault_hook(step, attempt)
-                _layout.write_checkpoint_dir(
+                # the process-wide fault site: OSError exercises the retry
+                # path, the default InjectedFault exhausts it
+                _fi_fire("checkpoint.io", step=step, attempt=attempt)
+                written = _layout.write_checkpoint_dir(
                     self.directory, step, snap, meta=meta,
                     signatures=signatures,
                     tmp_token=f"{os.getpid()}-{next(self._seq)}")
+                # corrupt rules act AFTER the commit: the next restore
+                # must skip this checkpoint by its CRC
+                _fi_fire("checkpoint.io", only="corrupt",
+                         corrupt=lambda: _corrupt_step_dir(os.path.join(
+                             self.directory, _layout.step_dirname(step))))
                 break
             except (OSError, IOError) as e:
+                if _metrics.ENABLED:
+                    _metrics.CHECKPOINT_FAILURES.inc(
+                        stage="save_attempt", reason=type(e).__name__)
                 if attempt == attempts - 1:
                     raise CheckpointError(
                         f"checkpoint step {step} failed after "
@@ -229,10 +280,24 @@ class CheckpointManager:
                 time.sleep(delay)
                 delay *= 2
         self._last_saved_step = step
+        if _metrics.ENABLED:
+            _metrics.CHECKPOINT_SAVE_SECONDS.observe(
+                time.perf_counter() - t0)
+            _metrics.CHECKPOINT_BYTES_WRITTEN.inc(written)
+            _metrics.CHECKPOINT_LAST_STEP.set(step)
+        if _journal.ENABLED:
+            # durable: after a crash the last checkpoint_save row is the
+            # resume point
+            _journal.emit("checkpoint_save", step=step, durable=True,
+                          bytes=written,
+                          seconds=round(time.perf_counter() - t0, 6))
         try:
             self._gc()
         except Exception as e:  # noqa: BLE001 — GC must not fail a save
             log.warning("checkpoint GC failed: %s", e)
+            if _metrics.ENABLED:
+                _metrics.CHECKPOINT_FAILURES.inc(
+                    stage="gc", reason=type(e).__name__)
 
     # -- barrier -------------------------------------------------------------
     def wait(self, timeout: Optional[float] = None) -> None:
@@ -308,6 +373,7 @@ class CheckpointManager:
         is invalid, raises ``CheckpointError`` listing each step and why
         it was rejected."""
         self.wait()
+        t0 = time.perf_counter()
         candidates = [int(step)] if step is not None \
             else sorted(_layout.raw_steps(self.directory), reverse=True)
         rejected: List[Tuple[int, str, str]] = []
@@ -321,7 +387,18 @@ class CheckpointManager:
                 rejected.append((cand, getattr(e, "kind", "invalid"),
                                  str(e)))
                 log.warning("skipping invalid checkpoint %s: %s", path, e)
+                if _metrics.ENABLED:
+                    _metrics.CHECKPOINT_FAILURES.inc(
+                        stage="restore", reason=getattr(e, "kind",
+                                                        "invalid"))
                 continue
+            if _metrics.ENABLED:
+                _metrics.CHECKPOINT_RESTORE_SECONDS.observe(
+                    time.perf_counter() - t0)
+            if _journal.ENABLED:
+                _journal.emit("checkpoint_restore", step=cand,
+                              durable=False,
+                              seconds=round(time.perf_counter() - t0, 6))
             if with_manifest:
                 return cand, state, manifest
             return cand, state
@@ -500,6 +577,8 @@ def restore_trainer(manager: CheckpointManager, params, trainer=None,
         p._load_init(_host_tensor(arr), pctx)
     if trainer is not None and TRAINER_STATES_KEY in state:
         trainer.set_states_bytes(state[TRAINER_STATES_KEY])
+    if _journal.ENABLED:
+        _journal.resume_marker(got_step, source="restore_trainer")
     return got_step
 
 

@@ -40,7 +40,10 @@ import torch
 
 from .base import MXNetError, getenv
 from .context import as_device
+from .faultinject import fire as _fi_fire
 from .ndarray import zeros
+from .observability import memory as _memory
+from .observability.tracing import trace_span
 from .ndarray.register import write_back
 from .symbol.graph import GraphPlan
 
@@ -107,6 +110,11 @@ class Executor:
         """Run the graph on the bound tensors (``kwargs`` first copied into
         the arguments they name); returns the outputs."""
         self._load(kwargs)
+        with trace_span("forward", cat="executor"), \
+                _memory.oom_guard("executor.forward"):
+            return self._forward(is_train)
+
+    def _forward(self, is_train):
         self._outputs = self._graph = None
         if is_train and self._grad_names:
             leaves = {n: self.arg_dict[n].detach().requires_grad_()
@@ -162,9 +170,16 @@ class Executor:
                     tgt.copy_(g)
 
     def forward_backward(self, out_grads=None, **kwargs) -> List[torch.Tensor]:
-        """One training step's forward and backward (the Module.fit path)."""
-        self.forward(is_train=True, **kwargs)
-        self.backward(out_grads)
+        """One training step's forward and backward (the Module.fit path).
+        An out-of-memory error in it dumps the ledger and the flight ring
+        and is raised as ``DeviceMemoryError``; the ``memory.oom`` fault
+        site injects one here."""
+        self._load(kwargs)
+        with trace_span("forward_backward", cat="executor"), \
+                _memory.oom_guard("executor.forward_backward"):
+            _fi_fire("memory.oom", at="executor")
+            self._forward(True)
+            self.backward(out_grads)
         return self._outputs
 
     def _set_results(self, outs, new_aux) -> None:

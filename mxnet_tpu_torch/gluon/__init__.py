@@ -10,3 +10,5 @@ from . import model_zoo
 from .trainer import Trainer
 from . import wholestep
 from .wholestep import WholeStepCompiler
+from . import supervisor
+from .supervisor import TrainingSupervisor

@@ -26,6 +26,7 @@ from ..base import MXNetError, np_dtype, torch_dtype
 from ..context import Context, as_device, current_context
 from .. import autograd, initializer
 from ..initializer import InitDesc
+from ..observability import memory as _memory
 
 
 class DeferredInitializationError(MXNetError):
@@ -105,6 +106,11 @@ class Parameter:
         # only floating-point tensors can carry gradients in torch
         req = self._grad_req if tensor.is_floating_point() else "null"
         self._data = torch.nn.Parameter(tensor, requires_grad=req != "null")
+        if _memory.ENABLED:
+            # the memory ledger: a parameter is born (or replaced) here;
+            # ``_memory_tag`` lets a subsystem claim its own row
+            _memory.register(self._data,
+                             tag=getattr(self, "_memory_tag", "param"))
         autograd.mark_variable(self._data, None, req)
         for block, attr in self._owners:
             block._parameters[attr] = self._data

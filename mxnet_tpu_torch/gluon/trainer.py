@@ -44,6 +44,15 @@ carries the bucket residuals (``bucket``), the store's per-key residuals
 this trainer's parameters; residuals saved for another bucket layout
 raise ``MXNetError`` when the bucketer is built.
 
+Each ``step`` is a ``trainer_step`` span (``trace_span`` and a watched
+flight-recorder phase sampling the memory ledger), fires the
+``trainer.step`` fault site before it writes anything, and leaves a run
+journal milestone; the bucketed reduce is an ``allreduce`` phase.  The
+memory ledger tags the gradients (``grad``), the buckets
+(``grad_bucket``), the residuals (``compression_residual``) and the
+scaler (``optimizer_state``).  The program introspector's perf sentinel
+the JAX package ticks here is not ported yet (ROADMAP.md, item 5).
+
 Not ported yet, and raising ``NotImplementedError`` that names the item:
 a distributed kvstore (ROADMAP.md, queue item 6) and parameters on
 several devices (item 6).
@@ -56,9 +65,15 @@ import numpy as _np
 import torch
 
 from .. import optimizer as opt
+from ..analysis import sanitizer as _san
 from ..base import MXNetError, getenv
+from ..faultinject import fire as _fi_fire
 from ..model import _create_kvstore
 from ..ndarray import ndarray as _nd
+from ..observability import flight as _flight
+from ..observability import journal as _journal
+from ..observability import memory as _memory
+from ..observability.tracing import trace_span
 from .parameter import Parameter, ParameterDict
 
 
@@ -110,6 +125,9 @@ class Trainer:
         self._scaler = None
         self._applied_ts = None
         self._applied_ts_pending = None
+        # training steps taken through this trainer (the whole step and
+        # the superstep advance it too): the spans' and faults' step id
+        self._step_id = 0
 
     def _param_dict(self):
         return {i: param for i, param in enumerate(self._params)}
@@ -162,8 +180,23 @@ class Trainer:
     def step(self, batch_size, ignore_stale_grad=False):
         """One optimization step with the gradients scaled by
         1/batch_size."""
+        with trace_span("trainer_step", cat="optimizer"), \
+                _flight.phase_span("trainer_step", cat="step",
+                                   step=self._step_id, watch=True,
+                                   mem=True):
+            self._step(batch_size, ignore_stale_grad)
+        self._step_id += 1
+        if _journal.ENABLED:
+            _journal.maybe_milestone(self._step_id, source="trainer")
+
+    def _step(self, batch_size, ignore_stale_grad):
         if not self._kv_initialized:
             self._init_kvstore()
+        # fires before any parameter or state is written, so an injected
+        # raise is a step that failed without consuming state
+        _fi_fire("trainer.step", step=self._step_id)
+        if _memory.ENABLED:
+            self._register_grads()
         if self._update_on_kvstore:
             self._optimizer.rescale_grad = self._scale / batch_size
             # the reference never masks the kvstore's push set
@@ -176,6 +209,14 @@ class Trainer:
             return
         self._allreduce_grads(for_step=True)
         self.update(batch_size, ignore_stale_grad)
+
+    def _register_grads(self) -> None:
+        """Tag the live gradient buffers (torch makes them at the first
+        backward; re-registering a tracked one costs a dict lookup)."""
+        for p in self._params:
+            if p.grad_req != "null" and p._data is not None and \
+                    p._data.grad is not None:
+                _memory.register(p._data.grad, tag="grad")
 
     def allreduce_grads(self):
         """Reduce each gradient through the kvstore, if there is one (over
@@ -221,8 +262,14 @@ class Trainer:
         idx = tuple(i for i, _ in dense)
         bk = self._ensure_bucketer(sig, idx)
         gc = self._kv._gc
-        with torch.no_grad():
+        with torch.no_grad(), trace_span("bucketed_allreduce",
+                                         cat="kvstore"), \
+                _flight.phase_span("allreduce", cat="kvstore",
+                                   step=self._step_id, mem=True):
             flats = bk.flatten(grads)
+            if _memory.ENABLED:
+                for f in flats:
+                    _memory.register(f, tag="grad_bucket")
             if gc is not None:
                 if self._residuals is None:
                     self._residuals = self._init_residuals(bk)
@@ -271,11 +318,15 @@ class Trainer:
 
     @staticmethod
     def _make_scaler(scale, good, window, device):
-        return {"scale": torch.tensor(float(scale), dtype=torch.float32,
-                                      device=device),
-                "good": torch.tensor(int(good), dtype=torch.int32,
+        out = {"scale": torch.tensor(float(scale), dtype=torch.float32,
                                      device=device),
-                "window": int(window)}
+               "good": torch.tensor(int(good), dtype=torch.int32,
+                                    device=device),
+               "window": int(window)}
+        if _memory.ENABLED:
+            _memory.register(out["scale"], tag="optimizer_state")
+            _memory.register(out["good"], tag="optimizer_state")
+        return out
 
     @property
     def loss_scale(self) -> float:
@@ -283,6 +334,7 @@ class Trainer:
         it waits for the device."""
         if self._scaler is None:
             return 1.0
+        _san.check_sync("Trainer.loss_scale")
         return float(self._scaler["scale"].item())
 
     def _init_residuals(self, bk):
@@ -305,10 +357,15 @@ class Trainer:
                     "saved from the same model and bucket layout "
                     "(MXNET_BUCKET_SIZE_MB included).")
             self._pending_residuals = None
-            return [torch.as_tensor(_np.asarray(a, dtype=_np.float32))
-                    .to(device) for a in arrays]
-        return [torch.zeros(n, dtype=torch.float32, device=device)
-                for n in bk.sizes]
+            out = [torch.as_tensor(_np.asarray(a, dtype=_np.float32))
+                   .to(device) for a in arrays]
+        else:
+            out = [torch.zeros(n, dtype=torch.float32, device=device)
+                   for n in bk.sizes]
+        if _memory.ENABLED:
+            for r in out:
+                _memory.register(r, tag="compression_residual")
+        return out
 
     def _live(self, ignore_stale_grad, mask=True):
         """The (index, parameter) pairs to update.  A stale gradient raises
@@ -397,6 +454,7 @@ class Trainer:
                       for k, v in self._kv._residuals.items()}
         scaler = None
         if self._scaler is not None:
+            _san.check_sync("Trainer state read")
             scaler = {"scale": float(self._scaler["scale"].item()),
                       "good": int(self._scaler["good"].item()),
                       "window": int(self._scaler["window"])}

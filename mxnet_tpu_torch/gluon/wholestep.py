@@ -43,9 +43,17 @@ counter keep their values through a ``where``) and halves the scale, and
 update counts (``num_update``, lr schedules) advance on every step, as in
 the JAX package; the device counter ``t`` only on applied ones.
 
+A replay runs no Python, so the hooks sit around the replay call: each
+step fires the ``trainer.step`` and ``device.unavailable`` fault sites on
+the host before it, and the call is a ``whole_step`` span (``trace_span``
+and a watched flight-recorder phase sampling the memory ledger) inside
+``memory.oom_guard``.  A capture's time is booked as goodput's
+``recompile`` (``StepGraph.capture_seconds``) and the change of the
+allocator's bytes across it as the ledger's compiled stats.  The run
+journal gets a milestone per step.
+
 Not ported: the mesh and its sharded step (ROADMAP item 6) and the
-fault-injection, flight-recorder, journal, introspection, memory-ledger
-and sanitizer hooks (item 5).
+program introspector's hooks (item 5).
 """
 from __future__ import annotations
 
@@ -59,6 +67,12 @@ from .. import autograd
 from .. import random as _random
 from .. import symbol as sym_mod
 from ..base import MXNetError, getenv
+from ..faultinject import fire as _fi_fire
+from ..observability import flight as _flight
+from ..observability import goodput as _goodput
+from ..observability import journal as _journal
+from ..observability import memory as _memory
+from ..observability.tracing import trace_span
 from ..optimizer import _is_low_prec
 from ..symbol.graph import GraphPlan
 from .parameter import DeferredInitializationError
@@ -213,8 +227,9 @@ class StepGraph:
         self.where = where or (lambda: "the step")
         self._entries: "OrderedDict[tuple, dict]" = OrderedDict()
         self._last = None
-        #: the reason for each capture, in order
+        #: the reason for each capture, in order, and its host seconds
         self.captures = []
+        self.capture_seconds = []
         self.replays = 0
         #: host time of the last ``replay()`` call (its enqueue), ms
         self.replay_host_ms = None
@@ -249,7 +264,18 @@ class StepGraph:
             return self._eager(fn, device)
         self._entries.move_to_end(key)
         if ent["graph"] is None:
+            t0 = time.perf_counter()
+            before = torch.cuda.memory_stats(device) \
+                if _memory.ENABLED else None
             ent["graph"], ent["out"] = self._capture(fn, generators)
+            dt = time.perf_counter() - t0
+            self.capture_seconds.append(dt)
+            if _goodput.ENABLED:
+                # a capture is the card's compile: goodput's recompile
+                _goodput.attribute("recompile", dt)
+            if before is not None:
+                _memory.note_compiled(self.name, _memory.compiled_stats_dict(
+                    before, torch.cuda.memory_stats(device)))
             self.captures.append(ent["why"])
             (logger.info if len(self.captures) == 1 else logger.warning)(
                 "%s: captured a CUDA graph (%s)", self.name, ent["why"])
@@ -567,6 +593,10 @@ class WholeStepCompiler:
 
     def _run(self, built, data, label, bs, policy):
         tr = self.trainer
+        # before anything advances: an injected raise is a step that
+        # failed without consuming state (a replay runs no Python, so the
+        # sites fire here, on the host)
+        _fi_fire("trainer.step", step=tr._step_id)
         thr, scaler = self._prepare(built, policy, bs)
         upd = tr._updater
         opt_ = upd.optimizer
@@ -584,15 +614,24 @@ class WholeStepCompiler:
             gens = step_generators(built["plan"], device)
             key = self._key(built, policy, thr, scaler, opt_, (x, y),
                             args, hyper, gens)
-            loss = self._graph.run(
-                key, lambda: self._body(built, policy, thr, scaler, x, y,
-                                        hyper, *args), device, gens)
+            _fi_fire("device.unavailable", step=tr._step_id)
+            with trace_span("whole_step", cat="trainer"), \
+                    _flight.phase_span("whole_step", cat="step",
+                                       step=tr._step_id, watch=True,
+                                       mem=True), \
+                    _memory.oom_guard("wholestep.step"):
+                loss = self._graph.run(
+                    key, lambda: self._body(built, policy, thr, scaler, x,
+                                            y, hyper, *args), device, gens)
         except Exception:
             rollback()
             raise
         upd.hyper_cache.commit(idx, device, counts_t)
         upd.dtype_policy = policy
         tr._applied_ts = (idx, hyper.t)
+        tr._step_id += 1
+        if _journal.ENABLED:
+            _journal.maybe_milestone(tr._step_id, source="whole_step")
         return loss.clone()
 
     def _feed(self, name, slot, value, device):

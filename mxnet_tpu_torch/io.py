@@ -29,18 +29,18 @@ from __future__ import annotations
 import ctypes
 import gzip
 import os
-import queue
 import struct
-import threading
+import time
 from collections import namedtuple
 from typing import List
 
 import numpy as _np
 import torch
 
-from .base import MXNetError, np_dtype
+from .base import MXNetError, getenv, np_dtype
 from .context import as_device
 from .ndarray.ndarray import _from_numpy
+from .observability import metrics as _metrics
 
 DataDesc = namedtuple("DataDesc", ["name", "shape", "dtype", "layout"])
 DataDesc.__new__.__defaults__ = (_np.float32, "NCHW")
@@ -268,19 +268,23 @@ class ResizeIter(DataIter):
         return self.current_batch.pad
 
 
-_END = object()
-
 
 class PrefetchingIter(DataIter):
     """Read ahead of the consumer in a background thread (parity: io.py
     PrefetchingIter, src/io/iter_prefetcher.h): up to ``depth`` batches of
-    the wrapped iterator wait in a queue.  An exception in the thread is
-    raised to the consumer.  Copying each batch to a device in the thread
-    (the JAX package's ``device=``) comes with ``prefetch_to_device``
-    (ROADMAP.md, queue item 5)."""
+    the wrapped iterator wait in a queue, behind the shared
+    ``gluon.data.prefetcher.AsyncPrefetcher``.  An exception in the thread
+    is raised to the consumer, then ``StopIteration``.  With ``device`` (a
+    Context or torch.device) the thread also copies each batch there
+    (pinned staging, a side stream, the consumer's stream waiting on the
+    copy): the next batch is on the card before the training loop asks for
+    it.  The core's fault containment rides along: a transient source IO
+    error respawns the worker once, and ``skip_budget`` (default
+    ``MXNET_DATA_SKIP_BUDGET``) skips corrupt records
+    (``resilience.DataCorruptionError``) instead of ending the epoch."""
 
     def __init__(self, iters, rename_data=None, rename_label=None,
-                 depth=2):
+                 depth=None, device=None, skip_budget=None):
         if not isinstance(iters, list):
             iters = [iters]
         if len(iters) != 1:
@@ -289,8 +293,11 @@ class PrefetchingIter(DataIter):
         super().__init__(self.iter.batch_size)
         self.rename_data = rename_data
         self.rename_label = rename_label
-        self._depth = int(depth)
-        self._thread = None
+        self._depth = int(depth) if depth is not None \
+            else int(getenv("MXNET_PREFETCH_DEPTH", 2))
+        self._device = device
+        self._skip_budget = skip_budget
+        self._pf = None
         self._start()
 
     def _renamed(self, descs, rename):
@@ -308,46 +315,31 @@ class PrefetchingIter(DataIter):
         return self._renamed(self.iter.provide_label, self.rename_label)
 
     def _start(self):
-        self._queue = q = queue.Queue(maxsize=max(self._depth, 1))
-        self._stop = stop = threading.Event()
-        source = self.iter
+        from .gluon.data.prefetcher import (AsyncPrefetcher,
+                                            _device_put_batch,
+                                            _resolve_device)
+        transform = None
+        if self._device is not None:
+            dev = _resolve_device(self._device)
+            transform = lambda b: _device_put_batch(b, dev)  # noqa: E731
+        self._pf = AsyncPrefetcher(self.iter.next, depth=self._depth,
+                                   transform=transform,
+                                   skip_budget=self._skip_budget)
 
-        def put(item):
-            while not stop.is_set():
-                try:
-                    q.put(item, timeout=0.05)
-                    return True
-                except queue.Full:
-                    continue
-            return False
-
-        def work():
-            try:
-                while True:
-                    try:
-                        batch = source.next()
-                    except StopIteration:
-                        put(_END)
-                        return
-                    if not put(batch):
-                        return
-            except BaseException as e:  # handed to the consumer
-                put(e)
-
-        self._thread = threading.Thread(target=work, daemon=True)
-        self._thread.start()
+    # tells BaseModule.fit this iterator records its own consumer-side
+    # stall, so fit does not observe the same wait again
+    _self_timed_data_wait = True
 
     def next(self):
-        if self._thread is None:
+        if self._pf is None:
             raise StopIteration
-        item = self._queue.get()
-        if item is _END:
-            self.close()
-            raise StopIteration
-        if isinstance(item, BaseException):
-            self.close()
-            raise item
-        return item
+        on = _metrics.ENABLED
+        t0 = time.perf_counter() if on else 0.0
+        try:
+            return self._pf.get()
+        finally:
+            if on:
+                _metrics.DATA_WAIT_SECONDS.observe(time.perf_counter() - t0)
 
     def iter_next(self):
         raise NotImplementedError
@@ -359,11 +351,10 @@ class PrefetchingIter(DataIter):
 
     def close(self):
         """Stop the thread and drop what it read ahead."""
-        if self._thread is None:
+        if self._pf is None:
             return
-        self._stop.set()
-        self._thread.join()
-        self._thread = None
+        self._pf.close()
+        self._pf = None
 
     def __del__(self):
         try:

@@ -37,6 +37,8 @@ import torch
 
 from . import optimizer as opt
 from .base import MXNetError
+from .faultinject import fire as _fi_fire
+from .observability import memory as _memory
 from .ndarray.ndarray import write_atomic
 
 _TYPES = ("local", "device", "local_allreduce_cpu", "local_allreduce_device",
@@ -216,6 +218,8 @@ class KVStore:
         keys, is_list = _key_list(key)
         for k, vlist in zip(keys, _val_list(value, len(keys), is_list)):
             self._store[k] = vlist[0].detach().clone()
+            if _memory.ENABLED:
+                _memory.register(self._store[k], tag="kvstore")
 
     def push(self, key, value, priority: int = 0) -> None:
         """Sum each key's values; update the stored weight with the sum when
@@ -281,7 +285,9 @@ class KVStore:
         ``compression`` (a ``GradientCompression`` or its params) each sum
         is quantized against its entry of ``residuals`` (flat float32, the
         caller's, zeros when None) and dequantized, and the call returns
-        ``(reduced, new residuals)``."""
+        ``(reduced, new residuals)``.  The ``kvstore.allreduce`` fault
+        site fires first."""
+        _fi_fire("kvstore.allreduce")
         vals = [list(v) if isinstance(v, (list, tuple)) else [v]
                 for v in values]
         merged = []

@@ -13,6 +13,7 @@ import math
 import numpy as _np
 import torch
 
+from .analysis import sanitizer as _san
 from .base import MXNetError, Registry
 
 _REG = Registry("metric")
@@ -31,6 +32,7 @@ def check_label_shapes(labels, preds, shape=False):
 def _as_np(x):
     """A host array; bfloat16 tensors come back as float32."""
     if isinstance(x, torch.Tensor):
+        _san.check_sync("metric update")
         x = x.detach()
         if x.dtype == torch.bfloat16:
             x = x.float()

@@ -4,9 +4,12 @@ forward/backward contract, parameter get/set).
 
 The counterpart of ``mxnet_tpu/module/base_module.py``; ``fit``'s
 ``checkpoint_dir`` resumes from and saves into a ``checkpoint``
-directory.  The JAX module's flight-recorder, step and trace spans wait
-for observability (ROADMAP.md, queue item 5), and ``supervise`` for the
-training supervisor (item 5).
+directory, and ``supervise=True`` runs each step through
+``gluon.TrainingSupervisor.for_module`` (transient faults retried from a
+snapshot restored in place, the stall watchdog).  Each step is a
+``step_span`` (a flight-recorder ``train_step`` record), each batch read
+a ``data_wait`` phase and a ``mxnet_data_wait_seconds`` sample unless the
+iterator times its own wait (``PrefetchingIter``).
 """
 from __future__ import annotations
 
@@ -20,6 +23,9 @@ from .. import metric as _metric
 from .. import ndarray as nd
 from ..context import cpu
 from ..model import BatchEndParam
+from ..observability import flight as _flight
+from ..observability import metrics as _metrics
+from ..observability.tracing import step_span, trace_span
 
 
 def _check_input_names(symbol, names, typename, throw):
@@ -148,13 +154,13 @@ class BaseModule:
         advances to the saved epoch), saves one atomic async checkpoint
         every ``checkpoint_period`` epochs and after the last, keeps the
         newest ``checkpoint_max_keep`` (None = all), and waits for the
-        writes before returning."""
+        writes before returning.
+
+        ``supervise=True`` runs each step (forward_backward + update)
+        through ``TrainingSupervisor.for_module``: transient failures retry
+        from a rolling snapshot restored in place, the stall watchdog
+        raises typed errors.  Inert under ``MXNET_SUPERVISE=0``."""
         assert num_epoch is not None, "please specify number of epochs"
-        if supervise:
-            raise NotImplementedError(
-                "fit(supervise=True): the training supervisor is not ported "
-                "yet (ROADMAP.md, queue item 5: observability and "
-                "resilience)")
         from ..initializer import Uniform
         if initializer is None:
             initializer = Uniform(0.01)
@@ -178,13 +184,19 @@ class BaseModule:
             validation_metric = eval_metric
         if not isinstance(eval_metric, _metric.EvalMetric):
             eval_metric = _metric.create(eval_metric)
+        sup = None
+        if supervise:
+            from ..gluon.supervisor import TrainingSupervisor
+            sup = TrainingSupervisor.for_module(self)
         try:
             self._fit_epochs(train_data, eval_data, eval_metric,
                              validation_metric, epoch_end_callback,
                              batch_end_callback, eval_end_callback,
                              eval_batch_end_callback, monitor, begin_epoch,
-                             num_epoch, ckpt, checkpoint_period)
+                             num_epoch, ckpt, checkpoint_period, sup)
         finally:
+            if sup is not None:
+                sup.close()
             if ckpt is not None:
                 ckpt.close()  # every queued write committed, or raised
 
@@ -213,25 +225,45 @@ class BaseModule:
                     validation_metric, epoch_end_callback,
                     batch_end_callback, eval_end_callback,
                     eval_batch_end_callback, monitor, begin_epoch,
-                    num_epoch, ckpt=None, checkpoint_period=1):
+                    num_epoch, ckpt=None, checkpoint_period=1, sup=None):
+        global_step = 0
         for epoch in range(begin_epoch, num_epoch):
             tic = time.time()
             eval_metric.reset()
             nbatch = 0
             data_iter = iter(train_data)
             end_of_batch = False
-            next_data_batch = next(data_iter)
+            with trace_span("data_fetch", cat="io"), \
+                    _flight.phase_span("data_wait", cat="io"):
+                next_data_batch = next(data_iter)
             while not end_of_batch:
                 data_batch = next_data_batch
                 if monitor is not None:
                     monitor.tic()
-                self.forward_backward(data_batch)
-                self.update()
+                with step_span(global_step):
+                    if sup is not None:
+                        sup.step(data_batch)
+                    else:
+                        self.forward_backward(data_batch)
+                        with trace_span("update", cat="optimizer"):
+                            self.update()
+                global_step += 1
+                # iterators that time their own wait (PrefetchingIter)
+                # are not counted again here
+                timed = _metrics.ENABLED and not getattr(
+                    data_iter, "_self_timed_data_wait", False)
+                t0 = time.perf_counter() if timed else 0.0
                 try:
-                    next_data_batch = next(data_iter)
+                    with trace_span("data_fetch", cat="io"), \
+                            _flight.phase_span("data_wait", cat="io",
+                                               step=global_step):
+                        next_data_batch = next(data_iter)
                     self.prepare(next_data_batch)
                 except StopIteration:
                     end_of_batch = True
+                if timed:
+                    _metrics.DATA_WAIT_SECONDS.observe(
+                        time.perf_counter() - t0)
                 self.update_metric(eval_metric, data_batch.label)
                 if monitor is not None:
                     monitor.toc_print()

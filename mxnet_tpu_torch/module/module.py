@@ -42,6 +42,9 @@ import torch
 
 from .. import optimizer as opt
 from ..base import MXNetError, getenv
+from ..faultinject import fire as _fi_fire
+from ..observability import memory as _memory
+from ..observability.tracing import trace_span
 from ..context import Context, current_context
 from ..initializer import InitDesc, Uniform
 from ..io import DataDesc
@@ -294,6 +297,16 @@ class Module(BaseModule):
         aux = {name: alloc(shared_aux, name, shp, dt) for name, shp, dt in
                zip(self._aux_names, aux_shapes, aux_types)}
         self._exec = Executor(self._symbol, ctx, args, grads, reqs, aux)
+        if _memory.ENABLED:
+            inputs = set(self._data_names) | set(self._label_names) | \
+                set(self._state_names)
+            for name, t in args.items():
+                _memory.register(t, tag="executor" if name in inputs
+                                 else "param")
+            for t in aux.values():
+                _memory.register(t, tag="param")
+            for t in grads.values():
+                _memory.register(t, tag="grad")
         sparse = [s.in_refs[1][1] for s in self._exec._plan.steps
                   if s.op.name == "Embedding" and s.params.get("sparse_grad")
                   and reqs.get(s.in_refs[1][1], "null") != "null"]
@@ -473,9 +486,14 @@ class Module(BaseModule):
                    ("optimizer", opt_.fused_hyper_key()),
                    ("storage", tuple(t.data_ptr() for t in tensors)),
                    ("generator", tuple(id(g) for g in gens)))
-            outs = graph.run(key, lambda: self._fused_body(
-                names, ukeys, weights, states, store, groups, hyper),
-                device, gens)
+            # the executor's fused step: the out-of-memory chokepoint and
+            # its fault site, on the host before the replay call
+            with trace_span("fused_step", cat="executor"), \
+                    _memory.oom_guard("executor.fused_step"):
+                _fi_fire("memory.oom", at="executor")
+                outs = graph.run(key, lambda: self._fused_body(
+                    names, ukeys, weights, states, store, groups, hyper),
+                    device, gens)
         except Exception:
             rollback()
             raise

@@ -6,7 +6,8 @@ from .register import invoke, populate
 
 populate(globals())
 
-from .ndarray import (add, arange, array, asnumpy, attach_grad, concatenate,
+from .ndarray import (add, arange, array, asnumpy, asscalar, attach_grad,
+                      concatenate,
                       divide, empty, equal, eye, from_dlpack, from_numpy,
                       full, grad, greater, greater_equal, hypot, lesser,
                       lesser_equal, load, load_frombuffer, maximum, minimum,

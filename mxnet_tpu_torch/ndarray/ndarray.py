@@ -32,6 +32,7 @@ import numpy as _np
 import torch
 import torch.utils.dlpack
 
+from ..analysis import sanitizer as _san
 from ..base import MXNetError, bfloat16, np_dtype, torch_dtype
 from ..context import as_device
 
@@ -135,7 +136,9 @@ def onehot_encode(indices, out) -> torch.Tensor:
 def waitall() -> None:
     """Wait for every queued operation: a synchronisation of each CUDA
     device this process has used (work on the CPU has finished when its
-    call returns)."""
+    call returns).  Inside ``analysis.no_sync()`` it raises
+    ``SyncViolation`` (under ``MXNET_SANITIZE=1``)."""
+    _san.check_sync("nd.waitall")
     if torch.cuda.is_initialized():
         for i in range(torch.cuda.device_count()):
             torch.cuda.synchronize(i)
@@ -193,13 +196,24 @@ lesser_equal = _binary("broadcast_lesser_equal", "_lesser_equal_scalar",
 
 def asnumpy(x: torch.Tensor) -> _np.ndarray:
     """A host copy, also of a CPU tensor (which the optimizers update in
-    place); bfloat16 comes back as an ``ml_dtypes.bfloat16`` array."""
+    place); bfloat16 comes back as an ``ml_dtypes.bfloat16`` array.  A
+    device-to-host read: ``analysis.no_sync()`` regions forbid it."""
+    _san.check_sync("nd.asnumpy")
     x = x.detach().to("cpu", copy=True)
     if x.dtype == torch.bfloat16:
         if bfloat16 is None:
             raise MXNetError("a bfloat16 host copy requires ml_dtypes")
         return x.view(torch.int16).numpy().view(bfloat16)
     return x.numpy()
+
+
+def asscalar(x: torch.Tensor):
+    """The Python number of a one-element tensor (parity:
+    ``NDArray.asscalar``); a device-to-host read."""
+    if x.numel() != 1:
+        raise ValueError("The current array is not a scalar")
+    _san.check_sync("nd.asscalar")
+    return x.item()
 
 
 def host_copy(x: torch.Tensor) -> _np.ndarray:

@@ -1,12 +1,25 @@
 """Metrics registry: counters, gauges, histograms with labels, the
-Prometheus-text / JSON exporters, and the serving metrics.
+Prometheus-text / JSON exporters, and the port's metrics (parity:
+``mxnet_tpu/observability/metrics.py``).
 
-The counterpart of the part of ``mxnet_tpu/observability/metrics.py`` that
-the serving tier writes: the same primitives, the same ``SERVE_*`` metric
-names and labels, and ``snapshot()["serving"]``.  Every hook reads the
-module global ``ENABLED`` first, so ``MXNET_METRICS_ENABLED=0`` costs one
-boolean test per hook; metrics are module-level objects created once at
-import and never looked up by name on a hot path.
+The same primitives and names as the JAX package: the serving metrics
+(``SERVE_*``), and those the observability and resilience hooks write —
+fault injection, checkpoints, the sanitizer, flight dumps, the memory
+ledger, the training supervisor, the prefetcher, data waits, goodput and
+SLO burn.  The JAX package's XLA dispatch counters and its
+introspection gauges (MFU, roofline) have no counterpart yet: the
+program introspector is not ported (ROADMAP.md, queue item 5).
+
+Design rules:
+
+  - module-level fast-path flag: every runtime hook reads ``ENABLED``
+    (plain module global) before touching a metric, so
+    ``MXNET_METRICS_ENABLED=0`` costs one boolean test per hook;
+  - stable identity: metrics are created ONCE at import and looked up by
+    attribute, never by name on the hot path;
+  - on-demand expensive data: the CUDA allocator's numbers
+    (``torch.cuda.memory_stats``/``mem_get_info``) are read inside
+    ``snapshot()``/the exporters, never per step.
 """
 from __future__ import annotations
 
@@ -15,8 +28,13 @@ import threading
 from typing import Dict, List, Optional, Tuple
 
 from ..base import getenv
+from ..analysis.sanitizer import make_lock as _make_lock
 
 ENABLED: bool = getenv("MXNET_METRICS_ENABLED", True)
+
+
+def enabled() -> bool:
+    return ENABLED
 
 
 def enable() -> None:
@@ -29,10 +47,11 @@ def disable() -> None:
     ENABLED = False
 
 
-# One shared mutation lock: hooks fire from request threads and from the
-# serving dispatcher threads; an unguarded read-modify-write would drop
-# increments.
-_MUT_LOCK = threading.Lock()
+# One shared mutation lock: hooks fire from the training thread, request
+# threads, serving dispatchers and data-pipeline producer threads; an
+# unguarded read-modify-write would drop increments.  (A plain
+# threading.Lock unless MXNET_SANITIZE=1.)
+_MUT_LOCK = _make_lock("metrics.mut")
 
 
 def _label_key(labels: dict) -> Tuple:
@@ -40,7 +59,7 @@ def _label_key(labels: dict) -> Tuple:
 
 
 class Metric:
-    """Base: name + help + label-set -> value(s)."""
+    """Base: name + help + label-set → value(s)."""
 
     kind = "untyped"
 
@@ -58,8 +77,8 @@ class Metric:
 
 
 class Counter(Metric):
-    """Monotonic counter; labeled children live in a dict keyed by sorted
-    label items."""
+    """Monotonic counter.  The unlabeled path is one float add (hot-path
+    safe); labeled children live in a dict keyed by sorted label items."""
 
     kind = "counter"
 
@@ -69,15 +88,18 @@ class Counter(Metric):
         super().__init__(name, help, registry)
 
     def inc(self, value: float = 1.0, **labels) -> None:
-        with _MUT_LOCK:
-            if labels:
-                k = _label_key(labels)
+        if labels:
+            k = _label_key(labels)
+            with _MUT_LOCK:
                 self._children[k] = self._children.get(k, 0.0) + value
-            else:
+        else:
+            with _MUT_LOCK:
                 self._value += value
 
     @property
     def value(self) -> float:
+        # list() snapshots in one GIL-atomic C copy: hook threads may
+        # insert a new label key while we read
         return self._value + sum(list(self._children.values()))
 
     def get(self, **labels) -> float:
@@ -89,9 +111,10 @@ class Counter(Metric):
         self._children.clear()
 
     def fold_label(self, label: str, value, replacement) -> None:
-        """Merge every child whose ``label`` equals ``value`` into the same
-        label set with ``label=replacement`` (bounds label cardinality and
-        keeps the total)."""
+        """Merge every child whose ``label`` equals ``value`` into the
+        same label set with ``label=replacement`` — bounds label
+        cardinality (e.g. evicted serving tenants fold into
+        ``tenant="_evicted"``) while preserving the counter's total."""
         with _MUT_LOCK:
             for k in [k for k in list(self._children)
                       if dict(k).get(label) == value]:
@@ -111,36 +134,81 @@ class Counter(Metric):
 
 
 class Gauge(Metric):
-    """Point-in-time value, optionally one per label set."""
+    """Point-in-time value; optional callback makes it computed-on-read
+    (used for device memory so the allocator is read only at export time)."""
 
     kind = "gauge"
 
-    def __init__(self, name, help="", registry=None):
+    def __init__(self, name, help="", registry=None, fn=None):
         self._value = 0.0
         self._children: Dict[Tuple, float] = {}
+        self._fn = fn
         super().__init__(name, help, registry)
 
     def set(self, value: float, **labels) -> None:
         if labels:
+            k = _label_key(labels)
+            # same lock as replace_children(): a labeled set racing the
+            # full-child-set swap must not land in the orphaned old dict
+            # and vanish from every future export
             with _MUT_LOCK:
-                self._children[_label_key(labels)] = float(value)
+                self._children[k] = float(value)
         else:
             self._value = float(value)
 
+    def inc(self, value: float = 1.0, **labels) -> None:
+        if labels:
+            k = _label_key(labels)
+            with _MUT_LOCK:
+                self._children[k] = self._children.get(k, 0.0) + value
+        else:
+            with _MUT_LOCK:
+                self._value += value
+
+    def dec(self, value: float = 1.0, **labels) -> None:
+        self.inc(-value, **labels)
+
     def get(self, **labels) -> float:
+        if self._fn is not None and not labels:
+            return float(self._fn())
         return self._children.get(_label_key(labels), 0.0) if labels \
             else self._value
 
     def remove(self, **labels) -> None:
-        """Drop one labeled child (keeps per-label cardinality bounded)."""
+        """Drop one labeled child (gauges are point-in-time, so removal
+        is semantically clean — used to keep per-tenant gauge
+        cardinality bounded when a tenant is evicted)."""
         with _MUT_LOCK:
             self._children.pop(_label_key(labels), None)
+
+    def replace_children(self, items) -> None:
+        """Atomically swap the FULL labeled-child set from an iterable
+        of ``(labels_dict, value)`` — one reference assignment, so an
+        export racing the rebuild sees either the old or the new
+        complete set, never a half-built one (the export-time pull
+        refresh idiom, e.g. the memory ledger's per-tag gauge)."""
+        children = {_label_key(labels): float(v) for labels, v in items}
+        with _MUT_LOCK:
+            # same lock discipline as inc/dec/remove — a concurrent
+            # labeled mutator must not land its write in the orphaned
+            # old dict and vanish from every future export
+            self._children = children
 
     def reset(self) -> None:
         self._value = 0.0
         self._children.clear()
 
     def samples(self):
+        if self._fn is not None:
+            try:
+                out = [(self.name, (), float(self._fn()))]
+            except Exception:
+                out = [(self.name, (), 0.0)]
+            # computed gauges may ALSO carry labeled children (the
+            # per-mesh-axis MFU/flops splits refreshed by the fn pull)
+            for k, v in sorted(list(self._children.items())):
+                out.append((self.name, k, v))
+            return out
         out = []
         if self._value or not self._children:
             out.append((self.name, (), self._value))
@@ -155,8 +223,14 @@ _DEFAULT_BUCKETS = (1e-4, 5e-4, 1e-3, 5e-3, 1e-2, 5e-2, 0.1, 0.5, 1.0,
 
 
 class Histogram(Metric):
-    """Fixed-bucket histogram (cumulative ``le`` buckets on export, like
-    Prometheus); tracks sum and count."""
+    """Fixed-bucket histogram (cumulative `le` buckets on export, like
+    Prometheus); tracks sum + count so mean is recoverable.
+
+    ``observe(value, exemplar=...)`` additionally remembers the latest
+    exemplar (a flight-recorder trace_id) per bucket — the OpenMetrics
+    exemplar idea: a p99 bucket links to one concrete recorded request
+    timeline instead of an anonymous count (``exemplars()``,
+    ``snapshot()["serving"]["latency_exemplars"]``)."""
 
     kind = "histogram"
 
@@ -166,14 +240,34 @@ class Histogram(Metric):
         self._counts = [0] * (len(self.buckets) + 1)  # +inf tail
         self._sum = 0.0
         self._count = 0
+        self._exemplars: Dict[int, Tuple[float, object]] = {}
         super().__init__(name, help, registry)
 
-    def observe(self, value: float) -> None:
+    def observe(self, value: float, exemplar=None) -> None:
         with _MUT_LOCK:
             self._sum += value
             self._count += 1
-            self._counts[next((i for i, b in enumerate(self.buckets)
-                               if value <= b), len(self.buckets))] += 1
+            for i, b in enumerate(self.buckets):
+                if value <= b:
+                    self._counts[i] += 1
+                    if exemplar is not None:
+                        self._exemplars[i] = (value, exemplar)
+                    return
+            self._counts[-1] += 1
+            if exemplar is not None:
+                self._exemplars[len(self.buckets)] = (value, exemplar)
+
+    def exemplars(self) -> Dict[str, dict]:
+        """{le: {"value", "trace_id"}} for buckets that have one —
+        the hop from a latency percentile to `flight` dump spans."""
+        with _MUT_LOCK:
+            items = list(self._exemplars.items())
+        out = {}
+        for i, (v, ex) in sorted(items):
+            le = "+Inf" if i >= len(self.buckets) \
+                else repr(float(self.buckets[i]))
+            out[le] = {"value": v, "trace_id": ex}
+        return out
 
     @property
     def count(self) -> int:
@@ -191,13 +285,13 @@ class Histogram(Metric):
         self._counts = [0] * (len(self.buckets) + 1)
         self._sum = 0.0
         self._count = 0
+        self._exemplars.clear()
 
     def samples(self):
         out, cum = [], 0
         for b, c in zip(self.buckets, self._counts):
             cum += c
-            out.append((self.name + "_bucket", (("le", repr(float(b))),),
-                        cum))
+            out.append((self.name + "_bucket", (("le", repr(float(b))),), cum))
         cum += self._counts[-1]
         out.append((self.name + "_bucket", (("le", "+Inf"),), cum))
         out.append((self.name + "_sum", (), self._sum))
@@ -206,11 +300,11 @@ class Histogram(Metric):
 
 
 class MetricsRegistry:
-    """Name -> Metric; collect/export/reset over the whole set."""
+    """Name → Metric; collect/export/reset over the whole set."""
 
     def __init__(self):
         self._metrics: Dict[str, Metric] = {}
-        self._lock = threading.Lock()
+        self._lock = _make_lock("metrics.registry")
 
     def _register(self, metric: Metric) -> None:
         with self._lock:
@@ -221,10 +315,14 @@ class MetricsRegistry:
     def get(self, name: str) -> Optional[Metric]:
         return self._metrics.get(name)
 
+    def metrics(self) -> List[Metric]:
+        return list(self._metrics.values())
+
     def reset(self) -> None:
         for m in self._metrics.values():
             m.reset()
 
+    # -- exporters ----------------------------------------------------------
     def render_prometheus(self) -> str:
         lines = []
         for m in self._metrics.values():
@@ -234,8 +332,7 @@ class MetricsRegistry:
             for series, labels, value in m.samples():
                 sel = ""
                 if labels:
-                    sel = "{" + ",".join(f'{k}="{v}"' for k, v in labels) \
-                        + "}"
+                    sel = "{" + ",".join(f'{k}="{v}"' for k, v in labels) + "}"
                 v = repr(float(value)) if isinstance(value, float) \
                     else str(value)
                 lines.append(f"{series}{sel} {v}")
@@ -255,7 +352,7 @@ class MetricsRegistry:
                                "inf": m._counts[-1]}
             else:
                 series = {}
-                for _, labels, value in m.samples():
+                for name_, labels, value in m.samples():
                     key = ",".join(f"{k}={v}" for k, v in labels) or "_"
                     series[key] = value
                 out[m.name] = {"type": m.kind, "values": series}
@@ -337,9 +434,265 @@ SERVE_BUCKET_HBM_BYTES = Gauge(
     "bucket; labels are the bounded bucket-lattice set)")
 
 
+
+# -- the observability and resilience hooks' metrics ----------------------
+DATA_WAIT_SECONDS = Histogram(
+    "mxnet_data_batch_wait_seconds",
+    "Time the training loop waited for the next data batch")
+PREFETCH_WAIT_SECONDS = Histogram(
+    "mxnet_prefetch_wait_seconds",
+    "Time the consumer blocked on the prefetch-to-device queue; near "
+    "zero when the input pipeline keeps ahead of the device")
+FAULTS_INJECTED = Counter(
+    "mxnet_faults_injected_total",
+    "Faults fired by the faultinject harness, by site and "
+    "mode.  Nonzero in production means someone left MXNET_FAULT_PLAN "
+    "set")
+CHECKPOINT_SAVE_SECONDS = Histogram(
+    "mxnet_checkpoint_save_seconds",
+    "Full wall-clock of each checkpoint save, snapshot through atomic "
+    "commit (async saves: measured on the writer thread)")
+CHECKPOINT_SAVE_BLOCKED_SECONDS = Histogram(
+    "mxnet_checkpoint_save_blocked_seconds",
+    "Time CheckpointManager.save() blocked its caller — the step "
+    "critical-path cost.  Async mode: just the device->host snapshot; "
+    "sync mode: the whole write")
+CHECKPOINT_RESTORE_SECONDS = Histogram(
+    "mxnet_checkpoint_restore_seconds",
+    "Wall-clock of each successful checkpoint restore (CRC validation "
+    "included)")
+CHECKPOINT_BYTES_WRITTEN = Counter(
+    "mxnet_checkpoint_bytes_written_total",
+    "Payload bytes committed by checkpoint saves (shard files)")
+CHECKPOINT_LAST_STEP = Gauge(
+    "mxnet_checkpoint_last_step",
+    "Step of the most recent successfully committed checkpoint — a "
+    "flat-lining value under traffic is the page-the-oncall signal "
+    "that durable state has stopped advancing")
+CHECKPOINT_FAILURES = Counter(
+    "mxnet_checkpoint_failures_total",
+    "Checkpoint subsystem failures by stage (save_attempt = retried "
+    "transient IO error, save = retries exhausted, restore = torn/"
+    "corrupt checkpoint skipped, gc = retention sweep error) and "
+    "reason")
+ANALYSIS_LOCK_VIOLATIONS = Counter(
+    "mxnet_analysis_lock_order_violations_total",
+    "Concurrency-sanitizer lock findings under MXNET_SANITIZE=1, by "
+    "kind (cycle = ABBA ordering hazard across subsystem locks, "
+    "reentry = same-thread re-acquisition of a non-reentrant lock, "
+    "e.g. a SIGTERM handler mid-save).  Nonzero anywhere, "
+    "including chaos runs, is a bug")
+ANALYSIS_SYNC_VIOLATIONS = Counter(
+    "mxnet_analysis_sync_violations_total",
+    "Device->host syncs observed inside analysis.no_sync() regions "
+    "(the runtime check of the host-sync discipline)")
+FLIGHT_DUMPS = Counter(
+    "mxnet_flight_dumps_total",
+    "Flight-recorder timeline dumps by reason (manual = flight.dump() "
+    "call, anomaly = slow-phase watchdog trip [k x EWMA, "
+    "MXNET_FLIGHT_SLOW_FACTOR], signal = SIGUSR2, oom = device "
+    "out-of-memory post-mortem via memory.oom_guard).  A climbing "
+    "anomaly "
+    "count is the page-the-oncall signal that steps/requests keep "
+    "blowing their own baseline — each dump under MXNET_FLIGHT_DIR "
+    "holds the timeline of the moments before it")
+MEMORY_LEDGER_BYTES = Gauge(
+    "mxnet_memory_ledger_bytes",
+    "Tracked live bytes by ledger tag and space (observability.memory; "
+    "bounded tag set — param/grad/output/executor/optimizer_state/"
+    "grad_bucket/compression_residual/serve_weights/kvstore/prefetch/"
+    "data/checkpoint_host/supervisor_snapshot, space=device|host "
+    "[host = checkpoint and supervisor snapshot twins], and _untagged "
+    "for the unattributed remainder).  Refreshed at export time from "
+    "the weakref ledger, never on the hot path")
+SUPERVISOR_SNAPSHOTS = Counter(
+    "mxnet_supervisor_snapshots_total",
+    "Rolling host snapshots the TrainingSupervisor took (every "
+    "MXNET_SUPERVISE_SNAPSHOT_STEPS) — the donation-safe restore points "
+    "transient-step retries rebuild from")
+SUPERVISOR_RETRIES = Counter(
+    "mxnet_supervisor_retries_total",
+    "Supervised training steps re-executed after a transient failure "
+    "(restore last snapshot -> replay window -> retry).  A climbing "
+    "count with training still progressing is the supervisor doing its "
+    "job; pair with faults_injected to tell chaos from real faults")
+SUPERVISOR_REWINDS = Counter(
+    "mxnet_supervisor_rewinds_total",
+    "Snapshot restores performed by the TrainingSupervisor, by reason "
+    "(retry = transient-step recovery, divergence = "
+    "MXNET_SUPERVISE_ON_DIVERGE=rewind)")
+SUPERVISOR_WATCHDOG_TRIPS = Counter(
+    "mxnet_supervisor_watchdog_trips_total",
+    "Training watchdog firings by kind (divergence = "
+    "MXNET_SUPERVISE_DIVERGE_PATIENCE consecutive nonfinite losses, "
+    "stall = a step blew its EWMA-derived deadline).  Each trip leaves "
+    "one rate-limited post-mortem (report + flight ring) under "
+    "MXNET_FLIGHT_DIR")
+SUPERVISOR_LAST_SNAPSHOT_STEP = Gauge(
+    "mxnet_supervisor_last_snapshot_step",
+    "Step id of the TrainingSupervisor's most recent rolling host "
+    "snapshot — how far back a donation-safe retry would rewind")
+PREFETCH_RESPAWNS = Counter(
+    "mxnet_prefetch_respawns_total",
+    "AsyncPrefetcher worker threads respawned after a transient IO "
+    "error (one respawn per prefetcher lifetime; a second transient "
+    "surfaces to the consumer)")
+DATA_RECORDS_SKIPPED = Counter(
+    "mxnet_data_records_skipped_total",
+    "Corrupt input records skipped by the prefetcher's "
+    "MXNET_DATA_SKIP_BUDGET (typed DataSkipBudgetError on exhaustion)")
+def _goodput_ratio() -> float:
+    """Export-time pull of the goodput fraction from the run ledger
+    (lazy/guarded — a scrape must never fail because of it; 0.0 until
+    any span is attributed)."""
+    try:
+        from . import goodput as _gp
+        if not _gp.ENABLED:
+            return 0.0
+        return float(_gp.ratio())
+    except Exception:  # noqa: BLE001
+        return 0.0
+
+
+GOODPUT_RATIO = Gauge(
+    "mxnet_goodput_ratio",
+    "Fraction (0..1) of this run's wall-clock attributed to useful "
+    "compute (flight trainer_step/whole_step/serve_dispatch spans) by "
+    "the goodput ledger (observability.goodput) — the rest "
+    "is badput (mxnet_badput_seconds_total) or unattributed.  Computed "
+    "at export",
+    fn=lambda: _goodput_ratio())
+BADPUT_SECONDS = Counter(
+    "mxnet_badput_seconds_total",
+    "Wall-clock seconds lost to each badput class, by reason "
+    "(data_wait / checkpoint_block / retry_replay / rewind / recompile "
+    "/ eviction_churn / stall / shed — the closed goodput taxonomy)")
+SLO_BURN = Counter(
+    "mxnet_slo_burn_total",
+    "Rate-limited SLO burn firings, by slo (goodput = run goodput %% "
+    "fell below MXNET_SLO_GOODPUT_PCT, serve_p99 = sliding-window "
+    "serve p99 exceeded MXNET_SLO_SERVE_P99_MS).  Each firing also "
+    "warns, journals an slo_burn entry, and fails the slo_burn "
+    "readyz() check until the window recovers")
+
+
+
+
+def _hbm_stats_all() -> List[dict]:
+    """Per-CUDA-device numbers of the caching allocator
+    (``torch.cuda.memory_stats``: bytes_in_use = allocated bytes,
+    peak_bytes_in_use, bytes_reserved) and of the card
+    (``torch.cuda.mem_get_info``: bytes_free, bytes_limit = the card's
+    total), the JAX package's key names where they have one.  Empty on a
+    machine without CUDA or before CUDA is initialized (reading them
+    never initializes it)."""
+    out = []
+    try:
+        import torch
+        if not torch.cuda.is_available() or not torch.cuda.is_initialized():
+            return out
+        for i in range(torch.cuda.device_count()):
+            s = torch.cuda.memory_stats(i)
+            free, total = torch.cuda.mem_get_info(i)
+            out.append({
+                "device": str(i), "platform": "gpu",
+                "bytes_in_use": int(s.get("allocated_bytes.all.current", 0)),
+                "peak_bytes_in_use": int(
+                    s.get("allocated_bytes.all.peak", 0)),
+                "bytes_reserved": int(s.get("reserved_bytes.all.current", 0)),
+                "num_ooms": int(s.get("num_ooms", 0)),
+                "bytes_free": int(free), "bytes_limit": int(total)})
+    except Exception:  # noqa: BLE001 — an export must never fail
+        pass
+    return out
+
+
+def hbm_stats() -> List[dict]:
+    return _hbm_stats_all()
+
+
+def _hbm_in_use_total() -> float:
+    return float(sum(s.get("bytes_in_use", 0) for s in _hbm_stats_all()))
+
+
+HBM_BYTES_IN_USE = Gauge(
+    "mxnet_hbm_bytes_in_use",
+    "Sum of the CUDA caching allocator's allocated bytes over the local "
+    "cards (sampled at export)",
+    fn=_hbm_in_use_total)
+
+
+def _sum_by_label(counter: Counter, label: str) -> Dict[str, float]:
+    out: Dict[str, float] = {}
+    for k, v in list(counter._children.items()):
+        key = dict(k).get(label, "_")
+        out[key] = out.get(key, 0.0) + v
+    return out
+
+
+def _flight_snapshot() -> dict:
+    """snapshot()["flight"]: ring/watchdog state + per-phase p50/p99 +
+    slowest-record exemplars (lazy/guarded)."""
+    try:
+        from . import flight as _fl
+        return _fl.snapshot_summary()
+    except Exception:  # noqa: BLE001
+        return {"enabled": False}
+
+
+def _memory_snapshot() -> dict:
+    """snapshot()["memory"]: per-tag live/peak bytes, attribution pct,
+    untagged remainder, budget + OOM state (lazy/guarded)."""
+    try:
+        from . import memory as _mem
+        return _mem.snapshot_summary()
+    except Exception:  # noqa: BLE001
+        return {"enabled": False}
+
+
+def _goodput_snapshot() -> dict:
+    """snapshot()["goodput"]: per-class seconds/events, goodput %,
+    unattributed slack, SLO targets + burn state, and the run journal's
+    id/path (lazy/guarded)."""
+    try:
+        from . import goodput as _gp
+        out = _gp.report()
+        if out.get("enabled"):
+            out["slo"] = _gp.slo_state()
+        from . import journal as _jr
+        out["run_id"] = _jr.run_id()
+        out["journal_path"] = _jr.path()
+        return out
+    except Exception:  # noqa: BLE001
+        return {"enabled": False}
+
+
+def _journal_snapshot() -> dict:
+    try:
+        from . import journal as _jr
+        return {"enabled": _jr.ENABLED, "run_id": _jr.run_id(),
+                "path": _jr.path()}
+    except Exception:  # noqa: BLE001
+        return {"enabled": False}
+
+
+def _analysis_snapshot() -> dict:
+    """snapshot()["analysis"]: sanitizer state + violation counters."""
+    out = {"lock_order_violations": ANALYSIS_LOCK_VIOLATIONS.value,
+           "sync_violations": ANALYSIS_SYNC_VIOLATIONS.value}
+    try:
+        from ..analysis import sanitizer as _san
+        out.update(_san.state())
+    except Exception:  # noqa: BLE001
+        out["enabled"] = False
+    return out
+
+
 def snapshot() -> dict:
-    """One JSON-able dict of the serving numbers (the JAX package's
-    ``snapshot()["serving"]`` keys that the port's serving tier writes)."""
+    """One JSON-able dict: the serving numbers, and the flight, memory,
+    goodput, journal, analysis, supervisor, prefetch and checkpoint
+    sections (the JAX package's ``snapshot()`` keys for the parts the
+    port has), with the CUDA allocator's numbers under ``hbm``."""
     return {
         "serving": {
             "requests": SERVE_REQUESTS.value,
@@ -357,13 +710,66 @@ def snapshot() -> dict:
             "ready": SERVE_READY.get(),
             "ready_transitions": SERVE_READY_TRANSITIONS.value,
             "readmissions": SERVE_READMITS.value,
+            "faults_injected": FAULTS_INJECTED.value,
+            "latency_exemplars": SERVE_LATENCY_SECONDS.exemplars(),
         },
+        "data_wait_ms_total": DATA_WAIT_SECONDS.sum * 1e3,
+        "data_wait_ms_mean": DATA_WAIT_SECONDS.mean * 1e3,
+        "prefetch_wait_ms_total": PREFETCH_WAIT_SECONDS.sum * 1e3,
+        "flight": _flight_snapshot(),
+        "goodput": _goodput_snapshot(),
+        "journal": _journal_snapshot(),
+        "memory": _memory_snapshot(),
+        "analysis": _analysis_snapshot(),
+        "supervisor": {
+            "snapshots": SUPERVISOR_SNAPSHOTS.value,
+            "last_snapshot_step": SUPERVISOR_LAST_SNAPSHOT_STEP.get(),
+            "retries": SUPERVISOR_RETRIES.value,
+            "rewinds": {dict(k).get("reason", "_"): v for k, v in
+                        sorted(list(SUPERVISOR_REWINDS._children.items()))},
+            "watchdog_trips": {
+                dict(k).get("kind", "_"): v for k, v in
+                sorted(list(SUPERVISOR_WATCHDOG_TRIPS._children.items()))},
+            "prefetch_respawns": PREFETCH_RESPAWNS.value,
+            "data_records_skipped": DATA_RECORDS_SKIPPED.value,
+        },
+        "prefetch": {
+            "wait_ms_total": PREFETCH_WAIT_SECONDS.sum * 1e3,
+            "waits": PREFETCH_WAIT_SECONDS.count,
+            "respawns": PREFETCH_RESPAWNS.value,
+            "records_skipped": DATA_RECORDS_SKIPPED.value,
+        },
+        "checkpoint": {
+            "last_step": CHECKPOINT_LAST_STEP.get(),
+            "saves": CHECKPOINT_SAVE_SECONDS.count,
+            "save_ms_mean": CHECKPOINT_SAVE_SECONDS.mean * 1e3,
+            "save_blocked_ms_mean":
+                CHECKPOINT_SAVE_BLOCKED_SECONDS.mean * 1e3,
+            "restores": CHECKPOINT_RESTORE_SECONDS.count,
+            "restore_ms_mean": CHECKPOINT_RESTORE_SECONDS.mean * 1e3,
+            "bytes_written": CHECKPOINT_BYTES_WRITTEN.value,
+            "failures": CHECKPOINT_FAILURES.value,
+        },
+        "faults_injected": _sum_by_label(FAULTS_INJECTED, "site"),
+        "hbm": hbm_stats(),
     }
 
 
+def _refresh_export_gauges() -> None:
+    """Pull-style gauges refresh here so the render paths export fresh
+    values even when ``snapshot()`` never runs (lazy/guarded)."""
+    try:
+        from . import memory as _mem
+        _mem.refresh_gauge()
+    except Exception:  # noqa: BLE001
+        pass
+
+
 def render_prometheus() -> str:
+    _refresh_export_gauges()
     return REGISTRY.render_prometheus()
 
 
 def render_json() -> str:
+    _refresh_export_gauges()
     return REGISTRY.render_json()

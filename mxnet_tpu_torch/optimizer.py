@@ -52,7 +52,10 @@ import torch
 
 from . import random as _random
 from .base import MXNetError, Registry
+from .faultinject import fire as _fi_fire
 from .ndarray import ndarray as _nd
+from .observability import memory as _memory
+from .observability.tracing import trace_span
 from .ops import optimizer_ops as _ops
 
 _REG = Registry("optimizer")
@@ -612,6 +615,15 @@ def _on_device(state, device):
     return state
 
 
+def _register_state(state) -> None:
+    """Ledger-register the tensors of an optimizer state tree."""
+    if isinstance(state, torch.Tensor):
+        _memory.register(state, tag="optimizer_state")
+    elif isinstance(state, (tuple, list)):
+        for s in state:
+            _register_state(s)
+
+
 class Updater:
     """Applies an optimizer with per-index states (parity: optimizer.py:827,
     the per-key path)."""
@@ -628,6 +640,10 @@ class Updater:
             self.states[index] = self.optimizer.create_state_multi_precision(
                 index, weight)
             self.states_synced[index] = True
+            if _memory.ENABLED:
+                # optimizer state (momentum, Adam's moments, f32 masters)
+                # is born here
+                _register_state(self.states[index])
         elif not self.states_synced.get(index, False):
             self.states[index] = _on_device(self.states[index], weight.device)
             self.states_synced[index] = True
@@ -746,17 +762,24 @@ class FusedUpdater(Updater):
         indices = list(indices)
         for i, w in zip(indices, weights):
             self._ensure_state(i, w)
-        for i in indices:
-            opt_._update_count(i)
-        groups: Dict[tuple, list] = {}
-        for i, g, w in zip(indices, grads, weights):
-            mp = opt_.multi_precision and _is_low_prec(w.dtype)
-            groups.setdefault((w.device, w.dtype, mp), []).append((i, g, w))
-        for (_, _, mp), items in groups.items():
-            idx = [i for i, _, _ in items]
-            opt_.fused_step(idx, [w for _, _, w in items],
-                            [g for _, g, _ in items],
-                            [self.states[i] for i in idx], mp)
+        # the out-of-memory post-mortem chokepoint of the fused update,
+        # with its two fault sites, fired before anything is written
+        with trace_span("optimizer_update_all", cat="optimizer"), \
+                _memory.oom_guard("optimizer.update_all"):
+            _fi_fire("memory.oom", at="optimizer")
+            _fi_fire("device.unavailable", at="optimizer")
+            for i in indices:
+                opt_._update_count(i)
+            groups: Dict[tuple, list] = {}
+            for i, g, w in zip(indices, grads, weights):
+                mp = opt_.multi_precision and _is_low_prec(w.dtype)
+                groups.setdefault((w.device, w.dtype, mp),
+                                  []).append((i, g, w))
+            for (_, _, mp), items in groups.items():
+                idx = [i for i, _, _ in items]
+                opt_.fused_step(idx, [w for _, _, w in items],
+                                [g for _, g, _ in items],
+                                [self.states[i] for i in idx], mp)
 
 
 def get_updater(optimizer: Optimizer) -> FusedUpdater:

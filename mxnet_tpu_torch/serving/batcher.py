@@ -13,8 +13,12 @@ Latency contract: a lone request waits at most ``max_wait_ms`` beyond its
 own dispatch; under load the queue drains continuously and the wait
 converges to zero (the previous dispatch is the wait).
 
-Not ported: the flight-recorder spans and the fault-injection site
-(ROADMAP.md, queue item 5); locks are plain ``threading`` locks.
+Each request carries a flight-recorder trace id from submit through its
+queue wait, the stacking and the dispatch (``serve_submit``,
+``serve_queue_wait``, ``serve_stack`` records, joinable across the
+threads in a dump), and its end-to-end latency feeds the slow-request
+watchdog.  The ``serving.batcher`` fault site fires before each group
+dispatch: a raise there kills the worker, whose futures then fail typed.
 """
 from __future__ import annotations
 
@@ -28,6 +32,8 @@ from typing import Dict, List, Optional
 import numpy as _np
 
 from ..base import MXNetError, getenv
+from ..faultinject import fire as _fi_fire
+from ..observability import flight as _flight
 from ..observability import metrics as _metrics
 from .buckets import covering_bucket, pad_to_shape
 
@@ -56,14 +62,34 @@ class BatcherDeadError(MXNetError):
     caller hanging in Future.result() forever."""
 
 
+def record_group_queue_wait(group, t_dispatch_us: float) -> None:
+    """Flight-record each request's queue wait (submit to dispatch start)
+    under its own trace id; shared by ``MicroBatcher`` and
+    ``ResilientServer``."""
+    for r in group:
+        _flight.record("serve_queue_wait", "serving", r.t0 * 1e6,
+                       t_dispatch_us, trace_id=r.trace_id)
+
+
+def group_trace_scope(group):
+    """The thread-local trace scope of a group: its members' ids joined,
+    so the spans recorded inside join against every member."""
+    return _flight.trace_scope(
+        _flight.join_ids([r.trace_id for r in group]))
+
+
 class _Request:
-    __slots__ = ("inputs", "rows", "future", "t0")
+    __slots__ = ("inputs", "rows", "future", "t0", "trace_id")
 
     def __init__(self, inputs: Dict[str, _np.ndarray]):
         self.inputs = inputs
         self.rows = next(iter(inputs.values())).shape[0]
         self.future: Future = Future()
         self.t0 = time.perf_counter()
+        # the flight-recorder request id, minted here and carried through
+        # queue wait, stacking and dispatch
+        self.trace_id = _flight.new_trace_id() if _flight.ENABLED \
+            else None
 
 
 def stack_requests(spec, group) -> Dict[str, _np.ndarray]:
@@ -178,6 +204,10 @@ class MicroBatcher:
             req = _Request({n: self._pred._as_host(n, v)
                             for n, v in inputs.items()})
             self._pred._check_request(req.inputs)
+            if _flight.ENABLED:
+                # the caller-thread anchor of the request's trace id
+                _flight.record("serve_submit", "serving", req.t0 * 1e6,
+                               _flight.now_us(), trace_id=req.trace_id)
         except Exception as e:  # noqa: BLE001 — delivered to caller
             f = Future()
             f.set_exception(e)
@@ -297,12 +327,18 @@ class MicroBatcher:
         return group
 
     def _dispatch_group(self, group: List[_Request]) -> None:
+        fl = _flight.ENABLED
+        if fl:
+            record_group_queue_wait(group, _flight.now_us())
         try:
-            stacked = stack_requests(self._pred.spec, group)
-            # the routed private path: request accounting happens here,
-            # per caller (predict() would count the stacked batch as one
-            # request and fold queue wait out of the latency histogram)
-            outs = self._pred._predict_routed(stacked)
+            with group_trace_scope(group):
+                with _flight.phase_span("serve_stack", cat="serving"):
+                    stacked = stack_requests(self._pred.spec, group)
+                # the routed private path: request accounting happens
+                # here, per caller (predict() would count the stacked
+                # batch as one request and fold queue wait out of the
+                # latency histogram)
+                outs = self._pred._predict_routed(stacked)
             lo = 0
             for r in group:
                 # done() guard: close(timeout) may have already failed
@@ -315,9 +351,14 @@ class MicroBatcher:
             if _metrics.ENABLED:
                 _metrics.SERVE_REQUESTS.inc(len(group))
                 for r in group:
-                    _metrics.SERVE_LATENCY_SECONDS.observe(now - r.t0)
+                    _metrics.SERVE_LATENCY_SECONDS.observe(
+                        now - r.t0, exemplar=r.trace_id)
                 _metrics.SERVE_COALESCED_ROWS.set(
                     sum(r.rows for r in group))
+            if fl:
+                # the slow-request watchdog: end-to-end latency vs EWMA
+                for r in group:
+                    _flight.note("serve_request", now - r.t0)
         except Exception as e:  # noqa: BLE001 — failures go to callers
             for r in group:
                 if not r.future.done():
@@ -330,6 +371,9 @@ class MicroBatcher:
                 group = self._take_group()
                 if group is None:
                     return
+                # a raise rule here kills the worker: every in-flight and
+                # queued future must then fail typed, never hang
+                _fi_fire("serving.batcher")
                 self._dispatch_group(group)
                 group = None
                 if self._closed and self._queue.empty() \

@@ -28,6 +28,12 @@ since the batcher and server dispatch from threads of their own.
 newest valid step without rebuilding a bucket (the entries hold no
 weights: every dispatch reads the live pair), and ``start_auto_reload``
 polls a directory for new steps from a thread of its own.
+
+Each dispatch is a ``serve_dispatch`` flight phase (with ``serve_pad`` and
+``serve_slice`` around it) inside ``memory.oom_guard``, and fires the
+``serving.dispatch`` and ``memory.oom`` fault sites; ``hot_reload`` fires
+``serving.hot_reload``.  A bucket build's time is goodput's
+``recompile``; the served weights are the ledger's ``serve_weights``.
 """
 from __future__ import annotations
 
@@ -42,7 +48,12 @@ import torch
 from ..base import MXNetError, np_dtype, torch_dtype
 from ..context import as_device, cpu, current_context
 from .. import ndarray as nd
+from ..faultinject import fire as _fi_fire
+from ..observability import flight as _flight
+from ..observability import goodput as _goodput
+from ..observability import memory as _memory
 from ..observability import metrics as _metrics
+from ..observability.tracing import trace_span
 from .. import symbol as sym_mod
 from ..symbol import Symbol
 from ..symbol.graph import GraphPlan, meta_tensor
@@ -57,6 +68,15 @@ class ModelEvictedError(MXNetError):
 
 def _nbytes(t: torch.Tensor) -> int:
     return t.numel() * t.element_size()
+
+
+def _served(weights):
+    """Tag served weights in the memory ledger; returns them."""
+    if _memory.ENABLED:
+        for d in weights:
+            for v in d.values():
+                _memory.register(v, tag="serve_weights")
+    return weights
 
 
 class BucketedPredictor:
@@ -143,8 +163,8 @@ class BucketedPredictor:
 
     def _upload(self):
         host_p, host_a = self._host_payload
-        return ({k: v.to(self._device) for k, v in host_p.items()},
-                {k: v.to(self._device) for k, v in host_a.items()})
+        return _served(({k: v.to(self._device) for k, v in host_p.items()},
+                        {k: v.to(self._device) for k, v in host_a.items()}))
 
     @property
     def _params(self) -> dict:
@@ -212,6 +232,7 @@ class BucketedPredictor:
                 raise ModelEvictedError(
                     "model weights are evicted — readmit() before "
                     "building or serving buckets")
+            t_build = time.perf_counter()
             in_shapes = self.spec.bucket_input_shapes(key)
             extra = {n: torch.zeros(s, device=self._device)
                      for n, s in self._placeholder_shapes(in_shapes).items()}
@@ -248,6 +269,11 @@ class BucketedPredictor:
             self._ever_compiled.add(key)
             self._extra[key] = extra
             self._compiled[key] = in_shapes
+            if _goodput.ENABLED:
+                # a bucket build (its warm-up forward loads every kernel
+                # it launches) is the served path's compile: recompile
+                _goodput.attribute("recompile",
+                                   time.perf_counter() - t_build)
             return in_shapes
 
     def warmup(self, keys=None) -> "BucketedPredictor":
@@ -344,18 +370,29 @@ class BucketedPredictor:
             if extra is None:
                 raise ModelEvictedError(
                     f"bucket {key} evicted mid-dispatch — retry")
-        if _metrics.ENABLED:
-            _metrics.SERVE_BATCHES.inc()
-        # one read: a concurrent evict cannot tear the pair
-        weights = self._weights
-        if not weights[0] and not weights[1] and not self._resident:
-            raise ModelEvictedError(
-                "model weights were evicted between build and dispatch — "
-                "readmit() and retry")
-        with self._on_device():
-            data = {n: nd.array(a, ctx=self._device)
-                    for n, a in padded.items()}
-            return self._run(data, extra, weights)
+        # the flight span opens before the fault sites: an injected delay
+        # shows as a long serve_dispatch phase
+        with _flight.phase_span("serve_dispatch", cat="serving",
+                                labels={"bucket": bucket_label(key)},
+                                mem=True), \
+                _memory.oom_guard("serving.dispatch"):
+            # delay = slow model, raise = failed dispatch (to the caller);
+            # memory.oom = a synthetic out-of-memory for the post-mortem
+            _fi_fire("serving.dispatch", key=key)
+            _fi_fire("memory.oom", at="serving")
+            if _metrics.ENABLED:
+                _metrics.SERVE_BATCHES.inc()
+            # one read: a concurrent evict cannot tear the pair
+            weights = self._weights
+            if not weights[0] and not weights[1] and not self._resident:
+                raise ModelEvictedError(
+                    "model weights were evicted between build and "
+                    "dispatch — readmit() and retry")
+            with self._on_device(), trace_span("serve_dispatch",
+                                               cat="serving"):
+                data = {n: nd.array(a, ctx=self._device)
+                        for n, a in padded.items()}
+                return self._run(data, extra, weights)
 
     def _predict_routed(self, inputs: Dict[str, _np.ndarray]) -> list:
         shapes = {n: a.shape for n, a in inputs.items()}
@@ -371,8 +408,10 @@ class BucketedPredictor:
             return [_np.concatenate(parts, axis=0)
                     for parts in zip(*outs_per_chunk)]
         bucket_shapes = self.spec.bucket_input_shapes(key)
-        padded = {n: pad_to_shape(a, bucket_shapes[n])
-                  for n, a in inputs.items()}
+        with _flight.phase_span("serve_pad", cat="serving",
+                                labels={"bucket": bucket_label(key)}):
+            padded = {n: pad_to_shape(a, bucket_shapes[n])
+                      for n, a in inputs.items()}
         if _metrics.ENABLED:
             _metrics.SERVE_PADDING_WASTE.set(
                 self.spec.waste_fraction(key, shapes))
@@ -380,7 +419,8 @@ class BucketedPredictor:
         # the valid rows, on axis 0 only (batch padding is dead rows at
         # the tail; the output's sequence layout is the model's), copied
         # to the host: the request's one device-to-host copy
-        return [nd.asnumpy(o[:rows]) for o in outs]
+        with _flight.phase_span("serve_slice", cat="serving"):
+            return [nd.asnumpy(o[:rows]) for o in outs]
 
     def predict(self, *args, **kwargs) -> List[_np.ndarray]:
         """Run one request: positional args follow the symbol's input
@@ -504,6 +544,8 @@ class BucketedPredictor:
         that lacks a served name or has another shape raises, and the old
         weights keep serving.  Returns the loaded step."""
         from ..checkpoint import ARG_PREFIX, AUX_PREFIX, PARAM_PREFIX
+        # a raise here proves the old weights keep serving
+        _fi_fire("serving.hot_reload")
         if not self._resident:
             raise MXNetError(
                 "hot_reload: model weights are evicted — readmit() first")
@@ -534,8 +576,8 @@ class BucketedPredictor:
                     {n: lookup(n, (AUX_PREFIX, PARAM_PREFIX), "aux state", c)
                      for n, c in old_aux.items()})
         with self._on_device():
-            new = tuple({k: v.to(self._device) for k, v in d.items()}
-                        for d in new_host)
+            new = _served(tuple({k: v.to(self._device) for k, v in
+                                 d.items()} for d in new_host))
         # one assignment commits both dicts: in-flight dispatches hold the
         # old pair, new ones see the new pair; under the lifecycle lock,
         # so a racing evict/close is not clobbered

@@ -22,12 +22,17 @@ TF-Serving / SRE shape, arxiv 1605.08695):
     the metrics registry (``mxnet_serve_ready``,
     ``mxnet_serve_ready_transitions_total``).
 
-Not ported yet (ROADMAP.md, queue item 5, observability): the goodput
-ledger, flight-recorder spans and the memory-budget checks and OOM retry
-of the JAX package; the compile-cache and hot-reload readiness checks go
-with them (there is no persistent compile cache, and hot reload waits for
-``checkpoint/``).  ``StepEDF``, the decode-step deadline estimator,
-comes with the ``DecodeEngine`` that feeds it (queue item 2).
+Goodput: a shed admission counts a ``shed`` event, an expired request
+books its queue wait as ``shed`` seconds, and each served latency feeds
+the serve-p99 SLO monitor (``MXNET_SLO_SERVE_P99_MS``; ``readyz`` gains
+an ``slo_burn`` check when an SLO is declared).  Each request carries a
+flight-recorder trace id through its queue wait and stacking, and its
+latency feeds the slow-request watchdog.
+
+Not ported yet: the memory-budget readiness check and the OOM retry of
+the JAX package, and the compile-cache readiness check (there is no
+persistent compile cache).  ``StepEDF``, the decode-step deadline
+estimator, comes with the ``DecodeEngine`` that feeds it (queue item 2).
 """
 from __future__ import annotations
 
@@ -45,9 +50,12 @@ from typing import Dict, List, Optional, Tuple
 import numpy as _np
 
 from ..base import MXNetError, getenv
+from ..observability import flight as _flight
+from ..observability import goodput as _goodput
 from ..observability import metrics as _metrics
 from .batcher import (BatcherClosedError, BatcherDeadError,
-                      GenerativeRouteError, stack_requests)
+                      GenerativeRouteError, group_trace_scope,
+                      record_group_queue_wait, stack_requests)
 
 log = logging.getLogger(__name__)
 
@@ -77,7 +85,7 @@ class DeadlineExceeded(MXNetError):
 
 class _Request:
     __slots__ = ("inputs", "rows", "future", "tenant", "tref",
-                 "priority", "deadline", "t0")
+                 "priority", "deadline", "t0", "trace_id")
 
     def __init__(self, inputs, tenant: str, priority: int,
                  deadline: Optional[float]):
@@ -92,6 +100,8 @@ class _Request:
         self.priority = int(priority)
         self.deadline = deadline  # absolute perf_counter time, or None
         self.t0 = time.perf_counter()
+        self.trace_id = _flight.new_trace_id() if _flight.ENABLED \
+            else None
 
 
 class _Tenant:
@@ -424,6 +434,10 @@ class ResilientServer:
         t.shed += 1
         if _metrics.ENABLED:
             _metrics.SERVE_SHED.inc(tenant=t.name, reason=reason)
+        if _goodput.ENABLED:
+            # a refused admission wasted no measurable wall-clock yet:
+            # count the event
+            _goodput.attribute("shed", 0.0)
 
     # -- scheduler -----------------------------------------------------------
     def _pop_into(self, group: List[_Request], expired: List[_Request],
@@ -504,6 +518,9 @@ class ResilientServer:
             self._publish_goodput(t)
             if not r.future.done():
                 waited = (time.perf_counter() - r.t0) * 1e3
+                if _goodput.ENABLED:
+                    # an expired request's whole queue wait was wasted
+                    _goodput.attribute("shed", waited / 1e3)
                 r.future.set_exception(DeadlineExceeded(
                     f"deadline passed after {waited:.1f}ms in queue "
                     f"(tenant '{r.tenant}'); request was dropped before "
@@ -536,15 +553,20 @@ class ResilientServer:
             if not group:
                 return
         ok = True
+        fl = _flight.ENABLED
+        if fl:
+            record_group_queue_wait(group, _flight.now_us())
         try:
-            stacked = stack_requests(self._pred.spec, group)
-            # independent tripwire reading for the invariant (pinned at 0
-            # by the tests): dispatch truly starts here
-            t_start = time.perf_counter()
-            for r in group:
-                if r.deadline is not None and t_start >= r.deadline:
-                    self._expired_dispatches += 1
-            outs = self._pred._predict_routed(stacked)
+            with group_trace_scope(group):
+                with _flight.phase_span("serve_stack", cat="serving"):
+                    stacked = stack_requests(self._pred.spec, group)
+                # independent tripwire reading for the invariant (pinned
+                # at 0 by the tests): dispatch truly starts here
+                t_start = time.perf_counter()
+                for r in group:
+                    if r.deadline is not None and t_start >= r.deadline:
+                        self._expired_dispatches += 1
+                outs = self._pred._predict_routed(stacked)
             lo = 0
             for r in group:
                 if not r.future.done():
@@ -556,7 +578,12 @@ class ResilientServer:
                 t.served += 1
                 self._publish_goodput(t)
                 if _metrics.ENABLED:
-                    _metrics.SERVE_LATENCY_SECONDS.observe(now - r.t0)
+                    _metrics.SERVE_LATENCY_SECONDS.observe(
+                        now - r.t0, exemplar=r.trace_id)
+                if _goodput.ENABLED:
+                    _goodput.serve_latency_sample((now - r.t0) * 1e3)
+                if fl:
+                    _flight.note("serve_request", now - r.t0)
             if _metrics.ENABLED:
                 _metrics.SERVE_REQUESTS.inc(len(group))
                 _metrics.SERVE_COALESCED_ROWS.set(
@@ -676,6 +703,10 @@ class ResilientServer:
         # 6. the scheduler itself
         checks["scheduler_alive"] = (self._thread.is_alive()
                                      and self._fatal is None)
+        # 7. declared SLOs (listed only when an operator declared one)
+        if _goodput.ENABLED and _goodput.slo_armed():
+            checks["slo_burn"] = not _goodput.slo_burning()
+            detail["slo"] = _goodput.slo_state()
         ready = all(checks.values()) and not self._closed
         return ready, checks, detail
 

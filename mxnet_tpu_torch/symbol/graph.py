@@ -31,9 +31,11 @@ around the matrix products ride it); as in the JAX package, a run with
 overrides is not segmented.  ``running`` holds the index of the step
 being run, so a failure inside a captured step can name its op.
 
-Not ported: the channels-last layout pass (TPU only), per-layer profiler
-scopes (``introspect``, ROADMAP item 5) and the RNN parameter hook (item
-7).
+Not ported: the channels-last layout pass (TPU only), the per-layer
+profiler scopes that the program introspector reads (``introspect``, the
+last part of ROADMAP item 5: the tracing, flight, memory and goodput
+layers are ported and wrap the runs from outside) and the RNN parameter
+hook (item 7).
 """
 from __future__ import annotations
 

@@ -24,6 +24,18 @@ def test_imports_with_jax_and_mxnet_tpu_blocked():
             "import mxnet_tpu_torch as mx; "
             "import mxnet_tpu_torch.recordio, mxnet_tpu_torch.image, "
             "mxnet_tpu_torch.detection, mxnet_tpu_torch._native; "
+            "import mxnet_tpu_torch.analysis.sanitizer, "
+            "mxnet_tpu_torch.observability.tracing, "
+            "mxnet_tpu_torch.observability.journal, "
+            "mxnet_tpu_torch.observability.goodput, "
+            "mxnet_tpu_torch.observability.flight, "
+            "mxnet_tpu_torch.observability.timeline, "
+            "mxnet_tpu_torch.observability.memory, "
+            "mxnet_tpu_torch.observability.report, "
+            "mxnet_tpu_torch.profiler, mxnet_tpu_torch.resilience, "
+            "mxnet_tpu_torch.faultinject, "
+            "mxnet_tpu_torch.gluon.supervisor, "
+            "mxnet_tpu_torch.gluon.data.prefetcher; "
             "assert not any(m == 'jax' or m.startswith(('jax.', 'mxnet_tpu.')) "
             "for m in sys.modules if sys.modules[m] is not None); "
             "print(len(mx.nd.__dict__))")
