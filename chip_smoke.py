@@ -297,13 +297,51 @@ its plain version:
    ``OSError`` respawning the worker with no batch lost, corrupt records
    skipped within the budget and one more raising
    ``DataSkipBudgetError``;
-17. a ``kernels`` JSON line (the forward kernels' ``launches`` are phase
+17. the program introspector, the tuner, decode and the registry: (a)
+   phase 9's LM whole step (bf16, ``INTRO_STEPS`` steps): its counted
+   matrix-product and attention flops exactly the probe formula's
+   (``experiments/lm_mfu_probe.py:123-127``), MFU over the card's step
+   time (the CUDA event pairs around each replay) against the H100 table's
+   peak, strictly inside (0, 1) and within ``TOL_MFU`` of probe flops over
+   the synchronized host median of steps 2-6 over the peak, the per-layer
+   rows and at least ``ATTRIBUTION_FLOOR`` % attributed, the
+   introspector's cost per replayed step (``INTRO_PAIRS`` interleaved
+   pairs); ResNet-50's ``Module`` step (phase 11's configuration) counted
+   and its MFU; (b) the perf sentinel: a baseline of the LM step written,
+   re-armed at half its time, firing exactly once in ``SENTINEL_STEPS``
+   steps, a ``ResilientServer``'s readyz failing ``perf_regression`` and
+   passing after ``refresh_baseline``; (c) ``autotune.tune()`` on the LM
+   (K in ``TUNE_KS``, ``TUNE_PAIRS`` pairs, buckets ``TUNE_BUCKETS_MB``,
+   the serving lattice from phase 8's recorded traffic and the hold window
+   from its dispatch EWMA), its decision and evidence, a second
+   ``tune()`` with no measured run, a fresh ``BucketedPredictor`` and
+   ``MicroBatcher`` reading the persisted lattice and wait; (d)
+   ``DecodeEngine`` serving ``ToyLM`` at the LM's widths (``DECODE``; 64
+   slots, pages of 16 tokens, 64 pages; the recurrence's matrices scaled
+   by 4/sqrt(dim) so that it contracts as at the JAX package's width),
+   ``warmup()`` capturing the whole lattice, ``DECODE_SEQS`` sequences
+   joining and leaving: replays equal steps, no capture after warmup,
+   every 8th sequence's tokens equal to its solo run and the 4 shortest to
+   the same engine on the CPU (exact, but for a printed near-tie: the
+   float64 top-2 logits within ``NEAR_TIE``), tokens/s, a step's host
+   clock and the most used key's replay in device time; an EDF shed at
+   admission, a mid-flight expiry and a KV eviction, each typed; (e)
+   ``ModelRegistry``: ``REG_MODELS`` full-width bf16 LMs (seeds 0-3,
+   batch buckets ``REG_BATCH``, sequence buckets ``REG_SEQ``), the reclaim
+   order (a decode engine's KV pages first, then buckets, then weights),
+   a readmitted model's logits bitwise its logits before the eviction
+   (both timed), then every kernel count set to 0, ``REG_REQUESTS``
+   requests from 4 tenant threads under a budget for two models, typed
+   failures only, 12 sm90 K1 launches per dispatch and bucket build,
+   counted;
+18. a ``kernels`` JSON line (the forward kernels' ``launches`` are phase
    8's, with phase 9's as ``training_launches``, phase 11's LM leg's as
    ``module_launches``, phase 12's bf16 ``MultiHeadAttention`` runs' as
    ``mha_launches``, its float32 runs' as ``mha_f32_launches`` and phase
    13's LM training steps' as ``resume_launches`` and phase 14's mirrored
    LM leg's as ``mirror_launches`` and phase 15's captured steps' as
-   ``onestep_launches``; the two K1b kernels'
+   ``onestep_launches`` and phase 17's registry flood's as
+   ``registry_launches``; the two K1b kernels'
    are phase 9's main path, with phase 11's as ``module_launches``, phase
    12's as ``mha_launches`` and ``mha_f32_launches``, phase 13's as
    ``resume_launches``, phase 14's as ``mirror_launches`` and phase 15's
@@ -328,7 +366,10 @@ Phase 14's record set is 2,048 images (one epoch of ``bench.py``'s 8
 batches; ImageNet's is 1.28 M), its mirrored runs take 5 ResNet-50 steps
 and 3 LM steps.  Phase 15's LM runs take 6 steps (4 compressed, 8 and 4
 more as supersteps), its fp16 block 7, its LM ``Module`` leg 4.  Phase
-16's LM runs take 8 steps, its ``Module`` leg 3.  The host has no image
+16's LM runs take 8 steps, its ``Module`` leg 3.  Phase 17's LM step takes
+7 steps and 12 interleaved, its ResNet-50 ``Module`` 3, the tuner's sweep 6
+pairs per K; its decode traffic is 128 sequences, its registry flood 64
+requests.  The host has no image
 decoder (no cv2, no PIL), so the records carry ``.npy`` and raw
 payloads.
 
@@ -4975,8 +5016,8 @@ def phase_retry(mx, start, batches):
           f"{(fail_ms - sup.backoff_s * 1e3 - replayed_ms) / 1e3:.4f} s); "
           f"recompile {recompile_s:.4f} s (the captures "
           f"{sum(got['capture_s']):.4f} s); unattributed "
-          f"{gp['unattributed_pct']:.2f} % (the whole_step spans time the "
-          "host's replay call, not the card's step); classes "
+          f"{gp['unattributed_pct']:.2f} % (a replay's compute is the "
+          "card's time of it, from the introspector's CUDA events); classes "
           + ", ".join(f"{c} {b['seconds']:.4f} s" for c, b in
                       sorted(cls.items())))
     check(abs(recompile_s - sum(got["capture_s"])) < 1e-9,
@@ -5505,6 +5546,690 @@ def phase_resilience(mx, path, it_rate):
         tmp.cleanup()
 
 
+# -- phase 17: the program introspector, the tuner, decode, the registry ---
+INTRO_STEPS = 7         # (a): phase 9's LM whole step: eager, capture, replays
+INTRO_PAIRS = 6         # (a): the introspector on against off, interleaved
+TOL_MFU = 0.05          # (a): MFU against probe flops / host median / peak
+RESNET_FLOP_STEPS = 3   # (a): ResNet-50 Module steps: 1 counted, 2 timed
+SENTINEL_STEPS = 3      # (b): replayed steps against a halved baseline
+TUNE_KS = (2, 4, 8)     # (c)
+TUNE_PAIRS = 6
+TUNE_BUCKETS_MB = (8, 32, 128)
+DECODE = dict(vocab=32768, dim=1024, window=16)  # (d): ToyLM, the LM's widths
+DECODE_SLOTS = 64
+DECODE_PAGE_TOKENS = 16
+DECODE_PAGES = 64       # capacity 1024 tokens a sequence
+DECODE_SEQS = 128
+DECODE_PROMPT = (16, 300)   # prompt tokens, inclusive
+DECODE_NEW = (32, 256)      # new tokens, inclusive
+DECODE_FIRST = 48       # admitted up front; one more every DECODE_JOIN steps
+DECODE_JOIN = 2
+DECODE_SOLO_EVERY = 8   # every 8th sequence against its solo run
+DECODE_CPU = 4          # the 4 shortest against the same engine on the CPU
+REG_MODELS = 4          # (e): bf16 TransformerLMs, seeds 0-3
+REG_BATCH = (1, 4)
+REG_SEQ = (256, 1024)
+REG_REQUESTS = 64       # the flood, from 4 tenant threads
+REG_SHAPES = ((1, 200), (1, 256), (2, 256), (1, 700), (4, 256), (1, 1000))
+REG_SLACK = 0.6         # the budget: the two resident models + 0.6 of one
+
+
+def probe_flops(B, T):
+    """``experiments/lm_mfu_probe.py:123-127``: the matrix products and the
+    attention of one training step, 3 x the forward's."""
+    L, d, v = CONFIG["num_layers"], CONFIG["dim"], CONFIG["vocab"]
+    f = CONFIG.get("ffn_dim") or 4 * d
+    p = L * (4 * d * d + 2 * d * f) + d * v
+    return 3 * (2 * p * B * T + L * 4 * B * T * T * d)
+
+
+def phase_introspect(mx, start):
+    """(a) the LM whole step's counted flops, MFU over the card's step time
+    against probe flops over the synchronized host median, per-layer rows,
+    the introspector's cost per replayed step; (b) the perf sentinel.
+    Returns the LM's MFU record."""
+    import gc
+    import torch
+    from mxnet_tpu_torch.gluon.wholestep import WholeStepCompiler
+    from mxnet_tpu_torch.observability import goodput
+    from mxnet_tpu_torch.observability import introspect as I
+    from mxnet_tpu_torch.observability import metrics as M
+    I.enable()
+    I.reset()
+    net = lm_fresh(mx, start, "bfloat16")
+    trainer = lm_trainer(mx, net)
+    stepper = WholeStepCompiler(net, mx.gluon.loss.SoftmaxCrossEntropyLoss(),
+                                trainer)
+    x, y = token_batches(mx, 1)[0]
+    walls = []
+    # Python's collector off while the steps are timed, as timeit does:
+    # a collection of the heap sixteen phases left would land on the
+    # host clock's steps and not on the card's
+    gc.collect()
+    gc.disable()
+    try:
+        with env_vars(MXNET_WHOLE_STEP=1):
+            for _ in range(INTRO_STEPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                stepper.step(x, y)
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t0) * 1e3)
+    finally:
+        gc.enable()
+    I.drain_device_times()
+    check(stepper.active, f"whole step inactive: {stepper.fallback_reason}")
+    rec = I.programs()["whole_step"]
+    kind = rec["by_kind"]
+    mm = kind.get("matmul", 0.0) + kind.get("attention", 0.0)
+    want = probe_flops(TRAIN_BATCH, CONFIG["max_len"])
+    out = I.mfu()
+    host_med = statistics.median(walls[1:6])
+    peak, src = I.peak_flops()
+    mfu_host = want / (host_med / 1e3) / peak
+    print(f"  (a) LM whole step (bf16, B={TRAIN_BATCH}, T="
+          f"{CONFIG['max_len']}): counted {rec['flops']:.6e} flops a step "
+          f"({', '.join(f'{k} {v:.6e}' for k, v in sorted(kind.items()))}), "
+          f"{rec['bytes']:.6e} bytes (unfused ops' inputs and outputs), "
+          f"compute dtype {rec['dtype']}; matrix products and attention "
+          f"{mm:.6e} against the probe formula's {want:.6e}")
+    print(f"      peak {peak:.4e} flops/s ({src}); the card's step time "
+          f"{out.get('step_time_ms')} ms ({out.get('step_time_source')}) -> "
+          f"MFU {out.get('mfu')} ({out.get('mfu_pct')} %), "
+          f"{out.get('flops_per_s', 0):.4e} flops/s, arithmetic intensity "
+          f"{out.get('arithmetic_intensity')}; synchronized host clock of "
+          f"steps 2-6 {[round(w, 2) for w in walls[1:6]]}, median "
+          f"{host_med:.2f} ms -> probe flops / median / peak {mfu_host:.6f};"
+          f" the replay call's host time {stepper._graph.replay_host_ms} ms")
+    check(mm == want, f"counted matrix-product flops {mm} != the probe "
+          f"formula's {want}")
+    check(out.get("step_time_source") == "device",
+          f"MFU's step time is not the card's: {out}")
+    check(0.0 < out["mfu"] < 1.0, f"MFU {out['mfu']} outside (0, 1)")
+    check(abs(out["mfu"] / mfu_host - 1.0) <= TOL_MFU,
+          f"MFU {out['mfu']} not within {TOL_MFU:.0%} of {mfu_host}")
+    rows = I.per_layer("whole_step", top=6)
+    pct = I.attributed_pct("whole_step")
+    print("      per_layer top rows: " + "; ".join(
+        f"{r['layer']} {r['flops']:.4e} ({r['pct']} %, est {r['est_ms']} "
+        f"ms)" for r in rows) + f"; attributed {pct} %")
+    check(pct >= ATTRIBUTION_FLOOR, f"{pct} % of the flops attributed")
+    # the introspector's own cost per replayed step (goodput held off in
+    # both arms, so the difference is the event pair and the sentinel)
+    was_gp = goodput.ENABLED
+    goodput.disable()
+
+    def off(a, b):
+        I.disable()
+        try:
+            return stepper.step(a, b)
+        finally:
+            I.enable()
+    try:
+        with env_vars(MXNET_WHOLE_STEP=1):
+            on_ms, off_ms, d = paired_ms(stepper.step, off, x, y,
+                                         pairs=INTRO_PAIRS)
+    finally:
+        if was_gp:
+            goodput.enable()
+    print(f"      introspector on against off per replayed step "
+          f"({INTRO_PAIRS} pairs, interleaved): {on_ms:.2f} against "
+          f"{off_ms:.2f} ms, median pair difference {d:.3f} ms "
+          f"({100 * d / off_ms:.2f} %)")
+    lm = dict(out, cost_pct=100 * d / off_ms, host_median_ms=host_med,
+              mfu_host=mfu_host, counted_flops=rec["flops"],
+              matmul_flops=mm)
+    # (b) the perf sentinel: a baseline of this step, re-armed at half
+    I.drain_device_times()
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as d, \
+            env_vars(MXNET_PERF_BASELINE_DIR=d, MXNET_WHOLE_STEP=1):
+        I.configure(sentinel_every=1, regression_min_s=300.0)
+        try:
+            base = I.refresh_baseline("whole_step")
+            check(base is not None and base["step_time_source"] == "device",
+                  f"baseline {base}")
+            path = I.baseline_path("whole_step")
+            with open(path, "w") as f:
+                json.dump(dict(base, step_time_p50_ms=base[
+                    "step_time_p50_ms"] / 2), f)
+            I._sentinel.clear()
+            fired0 = M.PERF_REGRESSIONS.get(kind="step_time",
+                                            phase="whole_step")
+            pred, srv = sentinel_server(mx)
+            try:
+                for _ in range(SENTINEL_STEPS):
+                    stepper.step(x, y)
+                    torch.cuda.synchronize()
+                fired = M.PERF_REGRESSIONS.get(
+                    kind="step_time", phase="whole_step") - fired0
+                rz = srv.readyz()
+                I.refresh_baseline("whole_step")
+                rz2 = srv.readyz()
+            finally:
+                srv.close()
+                pred.close()
+        finally:
+            I.configure(sentinel_every=25)
+    print(f"  (b) sentinel: baseline {os.path.basename(path)} at "
+          f"{base['step_time_p50_ms']} ms (the card's), re-armed at "
+          f"{base['step_time_p50_ms'] / 2:.4f} ms; {SENTINEL_STEPS} replayed "
+          f"steps fired {fired:.0f} time(s); readyz perf_regression "
+          f"{rz['checks'].get('perf_regression')} ({rz['reasons']}), after "
+          f"refresh_baseline {rz2['checks'].get('perf_regression')}")
+    check(fired == 1, f"the sentinel fired {fired} times, want once")
+    check(rz["checks"].get("perf_regression") is False,
+          f"readyz did not flip: {rz['checks']}")
+    check(rz2["checks"].get("perf_regression") is True,
+          f"refresh_baseline did not clear the check: {rz2['checks']}")
+    return lm
+
+
+def sentinel_server(mx):
+    """A small served model on the card behind a ResilientServer (its
+    readyz carries the sentinel's check)."""
+    import numpy as np
+    sym = mx.sym.FullyConnected(mx.sym.Variable("data"), num_hidden=4,
+                                name="sentinel_fc")
+    params = {"sentinel_fc_weight": np.ones((4, 8), np.float32),
+              "sentinel_fc_bias": np.zeros(4, np.float32)}
+    pred = mx.serving.BucketedPredictor(sym, params, {"data": (4, 8)})
+    pred.warmup()
+    return pred, mx.serving.ResilientServer(pred, watchdog_interval_s=60.0)
+
+
+def phase_resnet_flops(mx):
+    """(a) the ResNet-50 ``Module`` step's counted flops and MFU: phase
+    11's configuration, one counted step and two timed ones."""
+    import gc
+    import torch
+    from mxnet_tpu_torch.observability import introspect as I
+    gc.collect()
+    torch.cuda.empty_cache()
+    mod = bind_resnet_module(mx, resnet_symbol(mx, VISION_MODEL))
+    data, labels = module_data(mx, VISION_BATCH)
+    batch = mx.io.DataBatch([data], [labels])
+    walls = []
+    for _ in range(RESNET_FLOP_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mod.forward_backward(batch)
+        mod.update()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    progs = I.programs()
+    flops = progs["executor:fwd_bwd"]["flops"] + \
+        progs["fused_update"]["flops"]
+    step_ms = statistics.median(walls[1:])
+    out = I.mfu(step_time_s=step_ms / 1e3, flops=flops,
+                peak=I.peak_flops("bfloat16")[0])
+    print(f"      ResNet-50 Module step (B={VISION_BATCH}, bf16): counted "
+          f"{flops:.6e} flops (executor:fwd_bwd "
+          f"{progs['executor:fwd_bwd']['flops']:.6e}, matrix products and "
+          f"convolutions {progs['executor:fwd_bwd']['by_kind'].get('conv', 0) + progs['executor:fwd_bwd']['by_kind'].get('matmul', 0):.6e}; "
+          f"fused_update {progs['fused_update']['flops']:.6e}); steps "
+          f"{[round(w, 1) for w in walls]} ms, MFU {out['mfu_pct']} % at "
+          f"{step_ms:.1f} ms (synchronized host clock)")
+    check(0.0 < out["mfu"] < 1.0, f"ResNet-50 MFU {out['mfu']}")
+    del mod, data, labels, batch
+    return {"flops": flops, "mfu": out["mfu"], "step_ms": step_ms}
+
+
+def phase_tune(mx, start, serve_obs):
+    """(c) ``autotune.tune()`` on the LM: K, bucket size, the serving
+    lattice from phase 8's traffic and the hold window from its dispatch
+    EWMA; a second tune() runs nothing; a fresh predictor and batcher read
+    the decision."""
+    import gc
+    import torch
+    from mxnet_tpu_torch.autotune import decisions, sweep
+    from mxnet_tpu_torch.serving import BucketSpec
+    gc.collect()
+    torch.cuda.empty_cache()
+    net = lm_fresh(mx, start, "bfloat16")
+    trainer = lm_trainer(mx, net)
+    loss = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    x, y = token_batches(mx, 1)[0]
+    shapes = {"data": (SCORE_BATCH, CONFIG["max_len"])}
+    spec_sig = BucketSpec(shapes, seq_axes={"data": 1}).signature
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as d, \
+            env_vars(MXNET_AUTOTUNE_DIR=d):
+        decisions.enable()
+        decisions.reset_cache()
+        t0 = time.perf_counter()
+        rec = sweep.tune(net, loss, trainer, x, y, ks=TUNE_KS,
+                         pairs=TUNE_PAIRS,
+                         bucket_candidates_mb=TUNE_BUCKETS_MB,
+                         serve_traffic=serve_obs["traffic"],
+                         serve_max_batch=SCORE_BATCH, apply_env=False,
+                         serve_signature=spec_sig,
+                         serve_dispatch_ewma_s=serve_obs["ewma_s"])
+        t_tune = time.perf_counter() - t0
+        runs = sweep.last_sweep_runs
+        check(rec is not None, "tune() returned no decision")
+        ev = rec["evidence"]
+        print(f"  (c) tune(): {t_tune:.1f} s, {runs} measured runs; "
+              f"decision {json.dumps(rec['knobs'], sort_keys=True)}")
+        for k, row in sorted(ev["superstep"].items(), key=lambda kv:
+                             int(kv[0])):
+            print(f"      K={k}: superstep {row['superstep_ms_per_step']} "
+                  f"ms a step against whole steps' "
+                  f"{row['wholestep_ms_per_step']} (chunked delta "
+                  f"{row['delta_pct']} %, ran {row['scanned']})")
+        print("      bucket size: " + "; ".join(
+            f"{mb} MB {row['med_ms']} ms ({row['buckets']} buckets)"
+            for mb, row in ev["bucket_size"].items())
+            + f"; phase 8's traffic {len(serve_obs['traffic'])} requests, "
+            f"sizes {sorted(set(serve_obs['traffic']))}; its dispatch EWMA "
+            f"{ev['serve_dispatch_ewma_ms']} ms")
+        check(runs > 0, "the first tune() measured nothing")
+        decisions.reset_cache()
+        t0 = time.perf_counter()
+        rec2 = sweep.tune(net, loss, trainer, x, y, ks=TUNE_KS,
+                          pairs=TUNE_PAIRS,
+                          bucket_candidates_mb=TUNE_BUCKETS_MB,
+                          apply_env=False)
+        t2 = time.perf_counter() - t0
+        print(f"      second tune(): {sweep.last_sweep_runs} measured runs "
+              f"in {t2:.2f} s, the same knobs "
+              f"{rec2 is not None and rec2['knobs'] == rec['knobs']}")
+        check(sweep.last_sweep_runs == 0 and rec2 is not None
+              and rec2["knobs"] == rec["knobs"],
+              "the second tune() did not reload the decision")
+        lattice = [int(t) for t in rec["knobs"]["serve_buckets"].split(",")]
+        params = {n: p.data() for n, p in net.collect_params().items()}
+        pred = mx.serving.BucketedPredictor(net(mx.sym.var("data")), params,
+                                            shapes, seq_axes={"data": 1})
+        mb = mx.serving.MicroBatcher(pred)
+        wait_ms = mb._max_wait_s * 1e3
+        mb.close()
+        pred.close()
+        print(f"      a fresh BucketedPredictor's batch buckets "
+              f"{pred.spec.batch_buckets} (decided {lattice}); its "
+              f"MicroBatcher waits {wait_ms} ms (decided "
+              f"{rec['knobs']['serve_max_wait_ms']})")
+        check(pred.spec.batch_buckets == lattice,
+              "the fresh predictor did not read the persisted lattice")
+        check(abs(wait_ms - rec["knobs"]["serve_max_wait_ms"]) < 1e-9,
+              "the fresh batcher did not read the persisted wait")
+    return {"runs": runs, "knobs": rec["knobs"], "seconds": t_tune}
+
+
+def toylm_logits64(params, prompt, gen, j, window):
+    """ToyLM's logits at the step that emits generated token ``j`` of a
+    sequence, in float64 on the host (the near-tie check)."""
+    import numpy as np
+    emb, wx, wh, out = (np.asarray(params[k], np.float64)
+                        for k in ("emb", "wx", "wh", "out"))
+    toks = list(prompt) + list(gen)
+    h = np.zeros(wx.shape[0])
+    kv = []
+    last = len(prompt) - 1 + j
+    for pos in range(last + 1):
+        h = np.tanh(emb[toks[pos]] @ wx + h @ wh)
+        kv.append(h)
+    r = np.mean(kv[max(0, last - window + 1):last + 1], axis=0)
+    return (h + r) @ out
+
+
+def same_tokens(params, seq, got, want, what):
+    """``got`` equals ``want``, except after a printed near-tie: the first
+    differing token's float64 top-2 logits within NEAR_TIE."""
+    import numpy as np
+    if got == want:
+        return True
+    j = next(i for i, (a, b) in enumerate(zip(got, want)) if a != b) \
+        if any(a != b for a, b in zip(got, want)) else min(len(got),
+                                                          len(want))
+    logits = toylm_logits64(params, seq[0], want, j, DECODE["window"])
+    top = np.sort(logits)[-2:]
+    gap = float(top[1] - top[0])
+    print(f"      {what}: tokens differ from token {j} on "
+          f"({got[j:j + 3]} against {want[j:j + 3]}); float64 top-2 gap "
+          f"there {gap:.3e}")
+    check(gap <= NEAR_TIE, f"{what}: tokens differ at {j} without a "
+          f"near-tie (gap {gap:.3e})")
+    return False
+
+
+def phase_decode(mx):
+    """(d) ``DecodeEngine`` serving ``ToyLM`` at the LM's widths."""
+    import collections
+    import gc
+    import numpy as np
+    import torch
+    from mxnet_tpu_torch.observability import metrics as M
+    from mxnet_tpu_torch.serving import (DeadlineExceeded, DecodeEngine,
+                                         Overloaded, SequenceEvicted, ToyLM)
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = ToyLM(**DECODE)
+    params = model.init_params(0)
+    # the recurrence's matrices scaled by 4 / sqrt(dim): the JAX package's
+    # draws are sized for its default width 16, where the recurrence
+    # contracts; at 1024 they make it chaotic, and the last-bit differences
+    # of matrix products of other shapes (a solo run's, the CPU's) would
+    # grow into other tokens
+    for k in ("wx", "wh"):
+        params[k] = params[k] * np.float32(4.0 / math.sqrt(DECODE["dim"]))
+    kw = dict(params=params, slots=DECODE_SLOTS,
+              page_tokens=DECODE_PAGE_TOKENS, max_pages=DECODE_PAGES)
+    eng = DecodeEngine(model, warmup=False, name="toylm", **kw)
+    c0 = M.SERVE_COMPILES.value
+    t0 = time.perf_counter()
+    n_keys = eng.warmup()
+    torch.cuda.synchronize()
+    t_warm = time.perf_counter() - t0
+    built = M.SERVE_COMPILES.value - c0
+    held = eng.stats()["kv_bytes"]
+    print(f"  (d) DecodeEngine(ToyLM vocab {DECODE['vocab']}, dim "
+          f"{DECODE['dim']}, window {DECODE['window']}; {DECODE_SLOTS} "
+          f"slots, pages of {DECODE_PAGE_TOKENS} tokens, {DECODE_PAGES} "
+          f"pages): warmup captured {n_keys} keys in {t_warm:.2f} s "
+          f"({built:.0f} SERVE_COMPILES), holding {held / 2 ** 30:.3f} GiB "
+          f"of state")
+    check(built == n_keys == len(eng.spec.all_keys()),
+          f"warmup built {built} of {n_keys} keys")
+    rs = np.random.RandomState(17)
+    seqs = [([int(t) for t in rs.randint(0, DECODE["vocab"], rs.randint(
+        DECODE_PROMPT[0], DECODE_PROMPT[1] + 1))],
+             int(rs.randint(DECODE_NEW[0], DECODE_NEW[1] + 1)))
+            for _ in range(DECODE_SEQS)]
+    c1 = M.SERVE_COMPILES.value
+    st0 = eng.stats()
+    futs = [eng.submit(*s) for s in seqs[:DECODE_FIRST]]
+    nxt, k, walls, keys = DECODE_FIRST, 0, [], collections.Counter()
+    t0 = time.perf_counter()
+    while nxt < DECODE_SEQS or eng.pending():
+        ts = time.perf_counter()
+        eng.step()
+        walls.append((time.perf_counter() - ts) * 1e3)
+        keys[eng.stats()["key"]] += 1
+        k += 1
+        if nxt < DECODE_SEQS and k % DECODE_JOIN == 0:
+            futs.append(eng.submit(*seqs[nxt]))
+            nxt += 1
+    t_traffic = time.perf_counter() - t0
+    outs = [f.result(timeout=60) for f in futs]
+    st = eng.stats()
+    steps, replays = st["steps"] - st0["steps"], st["replays"] - st0[
+        "replays"]
+    tokens = sum(len(o) for o in outs)
+    top_key = max((kk for kk in keys if kk is not None), key=keys.get)
+    ent = eng._compiled[top_key]
+    dev_ms = device_ms(lambda: ent["graph"].replay())
+    print(f"      {DECODE_SEQS} sequences joining and leaving: {steps} "
+          f"steps, {replays} replays, {tokens} tokens in {t_traffic:.2f} s "
+          f"({tokens / t_traffic:.1f} tokens/s); a step's host clock median "
+          f"{statistics.median(walls):.3f} ms (p90 "
+          f"{percentile(walls, 90):.3f}); the most used key {top_key} "
+          f"({keys[top_key]} steps) replays in {dev_ms:.4f} ms of device "
+          f"time; SERVE_COMPILES after warmup "
+          f"{M.SERVE_COMPILES.value - c1:.0f}")
+    check(replays == steps, f"{replays} replays for {steps} steps")
+    check(M.SERVE_COMPILES.value == c1, "traffic captured a key")
+    check(all(len(o) == s[1] for o, s in zip(outs, seqs)),
+          "a sequence ended short")
+    # solo runs and the CPU
+    solo = DecodeEngine(model, warmup=False, name="solo", **kw)
+    same = 0
+    for i in range(0, DECODE_SEQS, DECODE_SOLO_EVERY):
+        same += same_tokens(params, seqs[i], outs[i],
+                            solo.generate(*seqs[i]), f"sequence {i} solo")
+    solo.close()
+    short = sorted(range(DECODE_SEQS), key=lambda i: len(seqs[i][0]) +
+                   seqs[i][1])[:DECODE_CPU]
+    cpu = DecodeEngine(model, warmup=False, name="cpu", dev=mx.cpu(), **kw)
+    cfuts = [cpu.submit(*seqs[i]) for i in short]
+    cpu.drain()
+    cpu_same = sum(same_tokens(params, seqs[i], outs[i], f.result(),
+                               f"sequence {i} on the CPU")
+                   for i, f in zip(short, cfuts))
+    cpu.close()
+    n_solo = len(range(0, DECODE_SEQS, DECODE_SOLO_EVERY))
+    print(f"      tokens bitwise equal to the solo run for {same} of "
+          f"{n_solo} sequences and to the CPU engine for {cpu_same} of "
+          f"{DECODE_CPU} (the rest after printed near-ties)")
+    # EDF shed, mid-flight expiry, KV eviction
+    try:
+        eng.submit(seqs[0][0], DECODE_NEW[1], deadline_ms=0.01)
+        check(False, "an unmeetable deadline was admitted")
+    except Overloaded as e:
+        shed = str(e)
+    # a deadline twice the admission estimate (remaining tokens over every
+    # slot), which one sequence decoding alone cannot meet
+    n_new = min(200, eng.capacity - 16)
+    eta_ms = eng._edf.eta_s(15 + n_new, DECODE_SLOTS) * 1e3
+    fut = eng.submit(seqs[1][0][:16], n_new, deadline_ms=2 * eta_ms)
+    e0 = eng.stats()["expired"]
+    while not fut.done():
+        eng.step()
+    try:
+        fut.result()
+        check(False, "a sequence outlived its deadline")
+    except DeadlineExceeded as e:
+        expired = str(e)
+    check(eng.stats()["expired"] == e0 + 1, "the expiry was not counted")
+    vfuts = [eng.submit(seqs[i][0][:32], 64) for i in range(3)]
+    eng.step()
+    eng.step()
+    st = eng.stats()
+    cur = eng._state_bytes(st["key"])
+    freed = eng.release_kv_pages(st["kv_bytes"] - cur + 1, why="phase 17")
+    eng.drain()
+    kinds = []
+    for f in vfuts:
+        try:
+            f.result()
+            kinds.append("done")
+        except SequenceEvicted as e:
+            kinds.append(f"SequenceEvicted(retry_after_s="
+                         f"{e.retry_after_s:.3f})")
+    print(f"      EDF shed at admission: Overloaded({shed[:60]}...); "
+          f"expired mid-flight: DeadlineExceeded({expired[:50]}...); "
+          f"release_kv_pages freed {freed / 2 ** 20:.1f} MiB of "
+          f"{st['kv_bytes'] / 2 ** 20:.1f}: {kinds}")
+    check(sum(k != "done" for k in kinds) == 1 and freed > 0,
+          f"the KV reclaim evicted {kinds}")
+    eng.close()
+    return {"tokens_s": tokens / t_traffic, "steps": steps,
+            "step_ms": statistics.median(walls), "device_ms": dev_ms,
+            "warmup_s": t_warm, "state_gib": held / 2 ** 30}
+
+
+def registry_model(mx, seed):
+    """A full-width bf16 TransformerLM from ``seed``: (symbol, params)."""
+    import numpy as np
+    from mxnet_tpu_torch.gluon.model_zoo.transformer import TransformerLM
+    mx.random.seed(seed)
+    net = TransformerLM(**CONFIG, attn_type="flash", prefix=f"m{seed}_")
+    net.initialize(mx.init.Xavier(), ctx=mx.gpu(0))
+    net(mx.nd.array(np.zeros((1, 8), np.float32), ctx=mx.gpu(0)))
+    net.cast("bfloat16")
+    net.hybridize()
+    return net(mx.sym.var("data")), {n: p.data() for n, p in
+                                     net.collect_params().items()}
+
+
+def phase_registry(mx):
+    """(e) ``ModelRegistry``: four LMs under a budget for two."""
+    import gc
+    import threading
+    import numpy as np
+    import torch
+    from mxnet_tpu_torch.kernels import flash_attention as kfa
+    from mxnet_tpu_torch.observability import memory
+    from mxnet_tpu_torch.observability import metrics as M
+    from mxnet_tpu_torch.serving import (DeadlineExceeded, DecodeEngine,
+                                         ModelRegistry, ModelUnavailable,
+                                         Overloaded, SequenceEvicted, ToyLM)
+    gc.collect()
+    torch.cuda.empty_cache()
+    names = [f"m{i}" for i in range(REG_MODELS)]
+    reg = ModelRegistry(budget_mb=1e9)        # sized below, once built
+    t0 = time.perf_counter()
+    for i, n in enumerate(names):
+        sym, params = registry_model(mx, i)
+        reg.register(n, sym, params, {"data": (max(REG_BATCH),
+                                               max(REG_SEQ))},
+                     tenants=[f"{n}-t"], batch_buckets=list(REG_BATCH),
+                     seq_axes={"data": 1}, seq_buckets=list(REG_SEQ),
+                     server_kwargs={"watchdog_interval_s": 60.0})
+        del sym, params
+    torch.cuda.synchronize()
+    t_reg = time.perf_counter() - t0
+    rs = np.random.RandomState(23)
+    probe = rs.randint(0, CONFIG["vocab"], REG_SHAPES[0]).astype(np.float32)
+    before = reg.predict(model="m0", data=probe)[0]
+    wb = reg._entry("m0").predictor.memory_stats()["weights_bytes"]
+    print(f"  (e) ModelRegistry: {REG_MODELS} LMs (bf16, {wb / 2 ** 30:.3f} "
+          f"GiB of weights each; batch buckets {REG_BATCH} x sequence "
+          f"buckets {REG_SEQ}) registered and warmed in {t_reg:.1f} s")
+    # the LRU order: decode KV, then buckets, then weights
+    eng = DecodeEngine(ToyLM(**DECODE), slots=8, page_tokens=16,
+                       max_pages=8, warmup=False, name="regkv")
+    gens = [eng.submit([1, 2, 3], 64), eng.submit([4, 5], 64)]
+    eng.step()
+    eng.step()
+
+    def ev():
+        """Evictions so far by kind, over every model and the engine."""
+        return {k: sum(M.SERVE_EVICTIONS.get(kind=k, model=m)
+                       for m in names + ["regkv"])
+                for k in ("kv_pages", "bucket", "model")}
+
+    e0 = ev()
+    reg._make_room(eng.stats()["kv_bytes"] / 4.0, exclude=None,
+                   why="phase 17 kv")
+    e1 = ev()
+    kinds = [type(f.exception()).__name__ if f.done() and f.exception()
+             else "live" for f in gens]
+    eng.close()
+    reg._make_room(1.0, exclude=None, why="phase 17 bucket")
+    e2 = ev()
+    reg._make_room(float(2 ** 40), exclude="m3", why="phase 17 weights")
+    e3 = ev()
+    d1, d2, d3 = ({k for k in a if b[k] != a[k]}
+                  for a, b in ((e0, e1), (e1, e2), (e2, e3)))
+    print(f"      reclaim order: a small deficit with a decode engine live "
+          f"took {sorted(d1)} (its sequences {kinds}); a 1-byte deficit "
+          f"{sorted(d2)}; everything but m3 {sorted(d3)}; evictions by kind "
+          f"{e3}; rungs {[reg.degradation(n) for n in names]}")
+    check(d1 == {"kv_pages"} and "SequenceEvicted" in kinds,
+          f"the first reclaim took {d1} (sequences {kinds})")
+    check(d2 == {"bucket"}, f"a 1-byte deficit took {d2}")
+    check("model" in d3, f"the large deficit took {d3}")
+    # readmission bitwise, timed
+    e = reg._entry("m0")
+    check(not e.predictor.resident, "m0 kept its weights")
+    t0 = time.perf_counter()
+    again = reg.predict(model="m0", data=probe)[0]
+    t_readmit = time.perf_counter() - t0
+    check(np.array_equal(before, again), "m0's logits changed across its "
+          "eviction and readmission")
+    t0 = time.perf_counter()
+    freed = reg._evict_model(e, why="phase 17 timing")
+    torch.cuda.synchronize()
+    t_evict = time.perf_counter() - t0
+    print(f"      m0 readmitted (weights uploaded, the 1x256 bucket "
+          f"rebuilt, one request) in {t_readmit * 1e3:.1f} ms, logits "
+          f"bitwise equal to before its eviction; evicting it again freed "
+          f"{freed / 2 ** 30:.3f} GiB in {t_evict * 1e3:.1f} ms")
+    # the flood under a budget for two models
+    for n in names:
+        reg._entry(n).predictor.evict()
+    for n in names[:2]:
+        reg.predict(model=n, data=probe)
+    gc.collect()
+    reg.budget_bytes = memory.tracked_bytes() + REG_SLACK * wb
+    reqs = [rs.randint(0, CONFIG["vocab"], REG_SHAPES[i % len(REG_SHAPES)])
+            .astype(np.float32) for i in range(REG_REQUESTS)]
+    results = {"errors": [], "typed": [], "served": 0, "lat": []}
+    lock = threading.Lock()
+
+    def load(tenant, idx):
+        for i in idx:
+            model = names[(i * 3 + len(tenant)) % REG_MODELS]
+            t = time.perf_counter()
+            try:
+                reg.predict(model=model, tenant=tenant, data=reqs[i])
+                with lock:
+                    results["served"] += 1
+                    results["lat"].append(time.perf_counter() - t)
+            except (ModelUnavailable, Overloaded, DeadlineExceeded) as ex:
+                with lock:
+                    results["typed"].append(type(ex).__name__)
+            except Exception as ex:  # noqa: BLE001 — the invariant
+                with lock:
+                    results["errors"].append(repr(ex))
+    b0, c0 = M.SERVE_BATCHES.value, M.SERVE_COMPILES.value
+    ev0 = M.SERVE_EVICTIONS.value
+    rm0 = M.SERVE_READMITS.value
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=load, args=(
+        t, range(j, REG_REQUESTS, 4))) for j, t in
+        enumerate(("acme", "beta", "gamma", "delta"))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    t_flood = time.perf_counter() - t0
+    batches = M.SERVE_BATCHES.value - b0
+    builds = M.SERVE_COMPILES.value - c0
+    launches = counts["flash_attention.sm90"]
+    print(f"      flood: {REG_REQUESTS} requests from 4 tenants over "
+          f"{REG_MODELS} models under a budget for two "
+          f"({reg.budget_bytes / 2 ** 30:.2f} GiB) in {t_flood:.1f} s: "
+          f"{results['served']} served (p50 "
+          f"{percentile([1e3 * v for v in results['lat']], 50):.1f} ms, p99 "
+          f"{percentile([1e3 * v for v in results['lat']], 99):.1f} ms), "
+          f"typed {collections_count(results['typed'])}, errors "
+          f"{results['errors']}; {M.SERVE_EVICTIONS.value - ev0:.0f} "
+          f"evictions, {M.SERVE_READMITS.value - rm0:.0f} readmissions; "
+          f"{batches:.0f} dispatches + {builds:.0f} bucket builds, "
+          f"{launches} sm90 K1 launches ({counts['flash_attention.f32']} "
+          f"f32)")
+    check(not results["errors"], f"untyped failures: {results['errors']}")
+    check(results["served"] > 0, "the flood served nothing")
+    check(launches == CONFIG["num_layers"] * (batches + builds)
+          and counts["flash_attention.f32"] == 0,
+          f"{launches} sm90 launches for {batches} dispatches and {builds} "
+          f"builds, want {CONFIG['num_layers']} each")
+    check(M.SERVE_EVICTIONS.value > ev0, "no eviction under the budget")
+    reg.close()
+    return {"counts": counts, "readmit_ms": t_readmit * 1e3,
+            "evict_ms": t_evict * 1e3, "served": results["served"]}
+
+
+def collections_count(xs):
+    import collections
+    return dict(collections.Counter(xs))
+
+
+def phase_programs(mx, serve_obs):
+    """Phase 17: (a)-(e)."""
+    import gc
+    import torch
+    t0 = time.perf_counter()
+    start = lm_start(mx)
+    lm = phase_introspect(mx, start)
+    gc.collect()
+    torch.cuda.empty_cache()
+    rn = phase_resnet_flops(mx)
+    tune = phase_tune(mx, start, serve_obs)
+    del start
+    dec = phase_decode(mx)
+    reg = phase_registry(mx)
+    print(f"  phase 17: LM MFU {lm['mfu_pct']} % ({lm['step_time_ms']} ms), "
+          f"ResNet-50 MFU {100 * rn['mfu']:.4f} %, tune {tune['runs']} runs, "
+          f"decode {dec['tokens_s']:.1f} tokens/s, registry readmit "
+          f"{reg['readmit_ms']:.1f} ms; {time.perf_counter() - t0:.1f} s")
+    return reg["counts"]
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -5549,7 +6274,13 @@ def main():
         del flash, dense
         phase_kv(mx, prompts, static_tokens, static_times)
         print("== phase 8: serving through the symbol graph")
+        # the tuner's traffic ring records while decisions are on
+        from mxnet_tpu_torch.autotune import decisions, sweep
+        from mxnet_tpu_torch.serving import buckets as serving_buckets
+        decisions.enable()
         counts = phase_serving(mx, prompts, L)
+        serve_obs = {"traffic": serving_buckets.observed_traffic(),
+                     "ewma_s": sweep._serve_dispatch_ewma()}
         print("== phase 9: training")
         t_train = time.perf_counter()
         bwd_errs, bwd_f32_errs, bwd_times = phase_train_kernel(mx)
@@ -5610,6 +6341,11 @@ def main():
             t_res = time.perf_counter()
             phase_resilience(mx, path, it_rate)
             print(f"phase 16: {time.perf_counter() - t_res:.1f} s")
+        print("== phase 17: the program introspector, the tuner, decode "
+              "and the registry")
+        t_prog = time.perf_counter()
+        registry_counts = phase_programs(mx, serve_obs)
+        print(f"phase 17: {time.perf_counter() - t_prog:.1f} s")
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -5734,6 +6470,8 @@ def main():
         entry["mirror_launches"] = mirror_counts[f"flash_attention.{variant}"]
         entry["onestep_launches"] = onestep_counts.get(
             f"flash_attention.{variant}", 0)
+        entry["registry_launches"] = registry_counts[
+            f"flash_attention.{variant}"]
     for entry, variant in zip(kernels_line["kernels"][3:5], ("sm90", "f32")):
         entry["module_launches"] = module_counts[
             f"flash_attention.bwd.{variant}"]

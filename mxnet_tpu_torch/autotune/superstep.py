@@ -36,8 +36,10 @@ from .. import autograd
 from ..base import MXNetError, getenv
 from ..faultinject import fire as _fi_fire
 from ..observability import flight as _flight
+from ..observability import introspect as _introspect
 from ..observability import journal as _journal
 from ..observability import memory as _memory
+from ..observability import metrics as _metrics
 from ..observability.tracing import trace_span
 from ..gluon.parameter import DeferredInitializationError
 from ..gluon.wholestep import StepGraph, WholeStepCompiler, \
@@ -75,6 +77,7 @@ class SuperStepCompiler(WholeStepCompiler):
         self._super_warned = False
         self._stack_cache = {}
         self._super_graph = StepGraph("superstep", self._where)
+        self._super_ran = False
 
     @property
     def k(self) -> int:
@@ -98,6 +101,11 @@ class SuperStepCompiler(WholeStepCompiler):
         if self._built is None:
             return None
         return _decisions.model_signature(self._built["sig"])
+
+    @property
+    def super_active(self) -> bool:
+        """True once a superstep (not a demoted call) has run."""
+        return self._super_ran
 
     @property
     def super_captures(self):
@@ -159,8 +167,14 @@ class SuperStepCompiler(WholeStepCompiler):
             self._super_warned = True
 
     def _sequential(self, datas, labels, bs):
-        return torch.stack([self.step(d, l, batch_size=bs)
-                            for d, l in zip(datas, labels)])
+        """K whole steps one at a time (a demoted superstep): the
+        superstep's dispatch gauge reads about K."""
+        d0 = _metrics.step_dispatches()
+        out = torch.stack([self.step(d, l, batch_size=bs)
+                           for d, l in zip(datas, labels)])
+        if _metrics.ENABLED:
+            _metrics.SUPERSTEP_DISPATCHES.set(_metrics.step_dispatches() - d0)
+        return out
 
     @staticmethod
     def _normalize(datas, labels):
@@ -191,6 +205,7 @@ class SuperStepCompiler(WholeStepCompiler):
         tr = self.trainer
         # one fault site per superstep, before anything advances
         _fi_fire("trainer.step", step=tr._step_id)
+        d0 = _metrics.step_dispatches()
         self._ask_headroom(datas, labels, k)
         thr, scaler = self._prepare(built, policy, bs)
         upd = tr._updater
@@ -234,14 +249,24 @@ class SuperStepCompiler(WholeStepCompiler):
                                        step=tr._step_id, watch=True,
                                        mem=True, labels={"k": k}), \
                     _memory.oom_guard("superstep.step"):
-                losses = self._super_graph.run(key, body, device, gens)
+                losses = self._super_graph.run(
+                    key, body, device, gens,
+                    count=self._note(built, policy, thr, opt_, xs[:1] + ys[:1],
+                                     k=k))
         except Exception:
             rollback()
             raise
         upd.hyper_cache.commit(idx, device, counts0, steps=k)
+        self._super_ran = True
         upd.dtype_policy = policy
         tr._applied_ts = (idx, hyper.t)
         tr._step_id += k
+        if _metrics.ENABLED:
+            delta = _metrics.step_dispatches() - d0
+            _metrics.SUPERSTEP_DISPATCHES.set(delta)
+            _metrics.TRAINER_STEP_DISPATCHES.set(delta / float(k))
+        if _introspect.ENABLED:
+            _introspect.sentinel_tick("superstep")
         if _journal.ENABLED:
             _journal.maybe_milestone(tr._step_id, source="superstep")
         return losses.clone()

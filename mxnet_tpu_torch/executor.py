@@ -34,6 +34,7 @@ Not ported, and raising ``NotImplementedError`` that names the queue item
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, List, Optional
 
 import torch
@@ -42,10 +43,13 @@ from .base import MXNetError, getenv
 from .context import as_device
 from .faultinject import fire as _fi_fire
 from .ndarray import zeros
+from .observability import introspect as _introspect
 from .observability import memory as _memory
 from .observability.tracing import trace_span
 from .ndarray.register import write_back
 from .symbol.graph import GraphPlan
+
+_NULL = contextlib.nullcontext()
 
 
 def _as_tensor(v, like: torch.Tensor) -> torch.Tensor:
@@ -116,6 +120,15 @@ class Executor:
 
     def _forward(self, is_train):
         self._outputs = self._graph = None
+        count = self._count(is_train) if _introspect.ENABLED else None
+        with count if count is not None else _NULL:
+            self._run_forward(is_train)
+        if count is not None and not (is_train and self._grad_names):
+            _introspect.note_program("executor:fwd", counted=count,
+                                     signature=self._count_sig)
+        return self._outputs
+
+    def _run_forward(self, is_train):
         if is_train and self._grad_names:
             leaves = {n: self.arg_dict[n].detach().requires_grad_()
                       for n in self._grad_names}
@@ -129,7 +142,21 @@ class Executor:
                 outs, new_aux = self._plan.run(self.arg_dict, self.aux_dict,
                                                is_train=is_train)
         self._set_results(outs, new_aux)
-        return self._outputs
+
+    def _count(self, is_train):
+        """The introspector's count of this forward (and, in train mode,
+        of the backward that follows: ``executor:fwd_bwd``), the first
+        time each signature runs; None after."""
+        grads = bool(is_train and self._grad_names)
+        sig = _introspect.plan_signature(self.arg_dict, grads)
+        noted = self.__dict__.setdefault("_noted", set())
+        if sig in noted:
+            return None
+        noted.add(sig)
+        self._count_sig = sig
+        count = _introspect.Count()
+        self._pending_count = count if grads else None
+        return count
 
     def backward(self, out_grads=None, is_train: bool = True) -> None:
         """The gradients of the last train-mode forward, with ``out_grads``
@@ -153,9 +180,15 @@ class Executor:
                 cots.append(torch.ones_like(o) if g is None
                             else _as_tensor(g, o))
         names = list(leaves)
-        grads = torch.autograd.grad(heads, [leaves[n] for n in names], cots,
-                                    allow_unused=True) if heads else \
-            [None] * len(names)
+        count, self._pending_count = \
+            self.__dict__.get("_pending_count"), None
+        with count if count is not None else _NULL:
+            grads = torch.autograd.grad(
+                heads, [leaves[n] for n in names], cots,
+                allow_unused=True) if heads else [None] * len(names)
+        if count is not None:
+            _introspect.note_program("executor:fwd_bwd", counted=count,
+                                     signature=self._count_sig)
         with torch.no_grad():
             for name, g in zip(names, grads):
                 tgt = self.grad_dict.get(name)

@@ -34,6 +34,7 @@ from .. import ndarray as nd
 from .. import symbol as sym_mod
 from ..symbol import Symbol
 from ..ndarray.register import write_back
+from ..observability import introspect as _introspect
 from ..symbol.graph import GraphPlan, infer_shapes_types
 from .parameter import DeferredInitializationError, Parameter, ParameterDict
 
@@ -229,14 +230,34 @@ class CachedOp:
     def __init__(self, symbol: Symbol):
         self.symbol = symbol
         self.plan = GraphPlan(symbol)
+        self._noted = set()
 
     def __call__(self, arg_arrays: Dict[str, torch.Tensor],
                  aux_arrays: Dict[str, torch.Tensor] = None):
         aux_arrays = aux_arrays or {}
+        train = autograd.is_training()
+        if _introspect.ENABLED:
+            self._count(arg_arrays, aux_arrays, train)
         outs, new_aux = self.plan.run(arg_arrays, aux_arrays,
-                                      is_train=autograd.is_training())
+                                      is_train=train)
         write_back((tgt, new_aux[name]) for name, tgt in aux_arrays.items())
         return outs
+
+    def _count(self, arg_arrays, aux_arrays, train) -> None:
+        """The introspector's ``gluon:fwd`` (and, under ``record()``,
+        ``gluon:bwd``) programs, counted on meta copies at the first call
+        of each signature."""
+        rec = autograd.is_recording()
+        sig = _introspect.plan_signature(arg_arrays, train, rec)
+        if sig in self._noted:
+            return
+        self._noted.add(sig)
+        grads = [k for k, v in arg_arrays.items()
+                 if isinstance(v, torch.Tensor) and v.requires_grad] \
+            if rec else []
+        _introspect.count_plan(self.plan, arg_arrays, aux_arrays, train,
+                               grads, "gluon:fwd",
+                               "gluon:bwd" if grads else None, sig)
 
 
 class HybridBlock(Block):

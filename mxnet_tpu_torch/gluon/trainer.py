@@ -50,8 +50,9 @@ flight-recorder phase sampling the memory ledger), fires the
 journal milestone; the bucketed reduce is an ``allreduce`` phase.  The
 memory ledger tags the gradients (``grad``), the buckets
 (``grad_bucket``), the residuals (``compression_residual``) and the
-scaler (``optimizer_state``).  The program introspector's perf sentinel
-the JAX package ticks here is not ported yet (ROADMAP.md, item 5).
+scaler (``optimizer_state``).  Each step publishes the dispatches it
+issued (``TRAINER_STEP_DISPATCHES``) and ticks the introspector's perf
+sentinel for the ``trainer_step`` phase.
 
 Not ported yet, and raising ``NotImplementedError`` that names the item:
 a distributed kvstore (ROADMAP.md, queue item 6) and parameters on
@@ -71,8 +72,10 @@ from ..faultinject import fire as _fi_fire
 from ..model import _create_kvstore
 from ..ndarray import ndarray as _nd
 from ..observability import flight as _flight
+from ..observability import introspect as _introspect
 from ..observability import journal as _journal
 from ..observability import memory as _memory
+from ..observability import metrics as _metrics
 from ..observability.tracing import trace_span
 from .parameter import Parameter, ParameterDict
 
@@ -180,12 +183,18 @@ class Trainer:
     def step(self, batch_size, ignore_stale_grad=False):
         """One optimization step with the gradients scaled by
         1/batch_size."""
+        d0 = _metrics.step_dispatches()
         with trace_span("trainer_step", cat="optimizer"), \
                 _flight.phase_span("trainer_step", cat="step",
                                    step=self._step_id, watch=True,
                                    mem=True):
             self._step(batch_size, ignore_stale_grad)
         self._step_id += 1
+        if _metrics.ENABLED:
+            _metrics.TRAINER_STEP_DISPATCHES.set(
+                _metrics.step_dispatches() - d0)
+        if _introspect.ENABLED:
+            _introspect.sentinel_tick("trainer_step")
         if _journal.ENABLED:
             _journal.maybe_milestone(self._step_id, source="trainer")
 
@@ -265,7 +274,8 @@ class Trainer:
         with torch.no_grad(), trace_span("bucketed_allreduce",
                                          cat="kvstore"), \
                 _flight.phase_span("allreduce", cat="kvstore",
-                                   step=self._step_id, mem=True):
+                                   step=self._step_id, mem=True), \
+                _metrics.dispatch_unit("allreduce"):
             flats = bk.flatten(grads)
             if _memory.ENABLED:
                 for f in flats:

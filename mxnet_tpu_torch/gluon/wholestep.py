@@ -52,11 +52,17 @@ and a watched flight-recorder phase sampling the memory ledger) inside
 allocator's bytes across it as the ledger's compiled stats.  The run
 journal gets a milestone per step.
 
-Not ported: the mesh and its sharded step (ROADMAP item 6) and the
-program introspector's hooks (item 5).
+Each step publishes ``TRAINER_STEP_DISPATCHES`` (1: one replay) and
+ticks the perf sentinel; a configuration's first step is counted as the
+introspector's ``whole_step`` program, with the update and the reduce in
+the ``optimizer`` and ``allreduce`` layer scopes, and each replay is
+timed on the card by a CUDA event pair (``introspect.device_span_*``).
+
+Not ported: the mesh and its sharded step (ROADMAP item 6).
 """
 from __future__ import annotations
 
+import hashlib
 import logging
 import time
 from collections import OrderedDict
@@ -71,7 +77,9 @@ from ..faultinject import fire as _fi_fire
 from ..observability import flight as _flight
 from ..observability import goodput as _goodput
 from ..observability import journal as _journal
+from ..observability import introspect as _introspect
 from ..observability import memory as _memory
+from ..observability import metrics as _metrics
 from ..observability.tracing import trace_span
 from ..optimizer import _is_low_prec
 from ..symbol.graph import GraphPlan
@@ -222,8 +230,10 @@ class StepGraph:
     fields that changed.  ``where()`` names the op or stage that was
     running when a capture or replay failed."""
 
-    def __init__(self, name, where=None):
+    def __init__(self, name, where=None, program=None):
         self.name = name
+        #: the introspector's program and flight phase name
+        self.program = program or name
         self.where = where or (lambda: "the step")
         self._entries: "OrderedDict[tuple, dict]" = OrderedDict()
         self._last = None
@@ -247,11 +257,25 @@ class StepGraph:
                     len(v) == len(was) > 4:      # tensor addresses
                 n = sum(a != b for a, b in zip(was, v))
                 changed.append(f"{f}: {n} of {len(v)} moved")
+            elif f == "storage" and isinstance(v, tuple) \
+                    and isinstance(was, tuple):
+                changed.append(f"{f}: {len(was)} -> {len(v)} tensors")
             else:
                 changed.append(f"{f} {was!r} -> {v!r}")
         return "; ".join(changed) or "a configuration seen before"
 
-    def run(self, key, fn, device, generators=()):
+    def run(self, key, fn, device, generators=(), count=None):
+        """One step.  ``count`` (a signature string): count this call's
+        ops as the program ``self.name`` (the introspector's once-per-
+        configuration count; the caller passes it at a configuration's
+        first step, which runs eagerly)."""
+        with _metrics.dispatch_unit(self.program):
+            if count is not None:
+                with _introspect.counting(self.program, signature=count):
+                    return self._run(key, fn, device, generators)
+            return self._run(key, fn, device, generators)
+
+    def _run(self, key, fn, device, generators):
         if torch.device(device).type != "cuda":
             return fn()
         ent = self._entries.get(key)
@@ -261,7 +285,13 @@ class StepGraph:
             while len(self._entries) > _GRAPH_CACHE_MAX:
                 self._entries.popitem(last=False)
             self._last = key
-            return self._eager(fn, device)
+            timed = _introspect.ENABLED or _goodput.ENABLED
+            tok = _introspect.device_span_begin(self.program, ewma=False) \
+                if timed else None
+            out = self._eager(fn, device)
+            if tok is not None:
+                _introspect.device_span_end(tok)
+            return out
         self._entries.move_to_end(key)
         if ent["graph"] is None:
             t0 = time.perf_counter()
@@ -279,9 +309,13 @@ class StepGraph:
             self.captures.append(ent["why"])
             (logger.info if len(self.captures) == 1 else logger.warning)(
                 "%s: captured a CUDA graph (%s)", self.name, ent["why"])
+        timed = _introspect.ENABLED or _goodput.ENABLED
         try:
             t0 = time.perf_counter()
+            tok = _introspect.device_span_begin(self.program) if timed else None
             ent["graph"].replay()
+            if tok is not None:
+                _introspect.device_span_end(tok)
             self.replay_host_ms = (time.perf_counter() - t0) * 1e3
         except Exception as e:  # noqa: BLE001 — name the step, never retry
             raise MXNetError(f"{self.name}: replaying the captured step "
@@ -354,7 +388,9 @@ class WholeStepCompiler:
         self._static = {}
         self._amp_cache = {}
         self._groups = {}
-        self._graph = StepGraph("whole-step", self._where)
+        self._graph = StepGraph("whole-step", self._where,
+                                program="whole_step")
+        self._noted_keys = set()
 
     # -- public entry ----------------------------------------------------
     def step(self, data, label, batch_size=None):
@@ -597,6 +633,7 @@ class WholeStepCompiler:
         # failed without consuming state (a replay runs no Python, so the
         # sites fire here, on the host)
         _fi_fire("trainer.step", step=tr._step_id)
+        d0 = _metrics.step_dispatches()
         thr, scaler = self._prepare(built, policy, bs)
         upd = tr._updater
         opt_ = upd.optimizer
@@ -622,7 +659,8 @@ class WholeStepCompiler:
                     _memory.oom_guard("wholestep.step"):
                 loss = self._graph.run(
                     key, lambda: self._body(built, policy, thr, scaler, x,
-                                            y, hyper, *args), device, gens)
+                                            y, hyper, *args), device, gens,
+                    count=self._note(built, policy, thr, opt_, (x, y)))
         except Exception:
             rollback()
             raise
@@ -630,9 +668,29 @@ class WholeStepCompiler:
         upd.dtype_policy = policy
         tr._applied_ts = (idx, hyper.t)
         tr._step_id += 1
+        if _metrics.ENABLED:
+            _metrics.TRAINER_STEP_DISPATCHES.set(
+                _metrics.step_dispatches() - d0)
+        if _introspect.ENABLED:
+            _introspect.sentinel_tick("whole_step")
         if _journal.ENABLED:
             _journal.maybe_milestone(tr._step_id, source="whole_step")
         return loss.clone()
+
+    def _note(self, built, policy, thr, opt_, feeds, k=None):
+        """The introspector's signature of this step's program, the first
+        time this configuration runs (None after: counted once).  Data
+        shapes fold in, so a batch-size change selects its own perf
+        baseline."""
+        if not _introspect.ENABLED:
+            return None
+        conf = (type(opt_).__name__, policy, thr is not None, k,
+                tuple((tuple(t.shape), t.dtype) for t in feeds))
+        if (id(built), conf) in self._noted_keys:
+            return None
+        self._noted_keys.add((id(built), conf))
+        return hashlib.sha1(repr((built["sig"],) + conf[:4] + (tuple(
+            (s, str(d)) for s, d in conf[4]),)).encode()).hexdigest()[:16]
 
     def _feed(self, name, slot, value, device):
         """The batch on the device: on a card, copied into the static
@@ -641,6 +699,8 @@ class WholeStepCompiler:
             value = torch.as_tensor(value)
         if torch.device(device).type != "cuda":
             return value.to(device)
+        if value.device.type == "cpu":
+            _metrics.note_h2d()
         key = (name, slot, tuple(value.shape), value.dtype)
         buf = self._static.get(key)
         if buf is None:
@@ -732,16 +792,19 @@ class WholeStepCompiler:
                 from ..kvstore import reduce_buckets_inline
                 self._stage = "the bucketed 2-bit reduce"
                 bk = built["bk"]
-                red, new_res = reduce_buckets_inline(
-                    bk.flatten(grads), residuals, thr)
-                grads = bk.unflatten(red)
+                with _introspect.layer_scope("allreduce"):
+                    red, new_res = reduce_buckets_inline(
+                        bk.flatten(grads), residuals, thr)
+                    grads = bk.unflatten(red)
             mutable = []
             if scaler is not None:
                 mutable = list(weights) + [t for s in states
                                            for t in _leaves(s)]
                 old = [t.clone() for t in mutable]
             self._stage = "the fused update"
-            fused_update(opt_, idx, weights, grads, states, groups, hyper)
+            with _introspect.layer_scope("optimizer"):
+                fused_update(opt_, idx, weights, grads, states, groups,
+                             hyper)
             self._stage = "the write-back"
             if scaler is not None:
                 for t, o in zip(mutable, old):

@@ -40,6 +40,12 @@ A CPU tensor takes the plain version (``dense_reference``,
 ``bwd_reference``).  A CUDA tensor launches the kernel or raises: nothing
 falls back.  A meta tensor (shape inference) gets empty outputs of the
 right shape.
+
+While the program introspector counts a program (``introspect.COUNTING``)
+each call books the kernel's model flops, which its dispatch mode cannot
+see: 4*B*H*Tq*Tk*D forward, 8*B*H*Tq*Tk*D backward (no causal halving, no
+recompute), and the inputs read and outputs written once; the plain
+version's ops on the CPU are then not counted again.
 """
 from __future__ import annotations
 
@@ -48,6 +54,7 @@ import ctypes
 import torch
 
 from ..base import MXNetError
+from ..observability import introspect as _introspect
 from . import _build
 
 NEG_INF = -1e30
@@ -94,6 +101,10 @@ def _scores(q, k, scale, causal):
                 >= torch.arange(tk, device=q.device)[None, :])
         s = torch.where(mask, s, torch.full((), NEG_INF, device=q.device))
     return s
+
+
+def _nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
 
 
 def dense_reference(q, k, v, scale, causal, return_lse=False):
@@ -205,6 +216,15 @@ def flash_attention_fwd(q, k, v, scale, causal, return_lse=False):
     Meta tensors (shape inference) give an empty output of O's shape and
     dtype on the meta device: no numbers are computed, so nothing runs."""
     devices = {q.device.type, k.device.type, v.device.type}
+    if _introspect.COUNTING:
+        B, H, tq, D = q.shape
+        _introspect.note_kernel(
+            "flash_attention_fwd", 4.0 * B * H * tq * k.shape[2] * D,
+            _nbytes(q, k, v, q) + (4 * B * H * tq if return_lse else 0),
+            q.dtype)
+        if devices == {"cpu"}:
+            with _introspect.uncounted():
+                return dense_reference(q, k, v, scale, causal, return_lse)
     if devices == {"cpu"}:
         return dense_reference(q, k, v, scale, causal, return_lse)
     if devices == {"meta"}:
@@ -258,6 +278,15 @@ def flash_attention_bwd(q, k, v, o, do, scale, causal, lse=None):
 
     Meta tensors give empty outputs shaped like q, k and v."""
     devices = {t.device.type for t in (q, k, v, o, do)}
+    if _introspect.COUNTING:
+        B, H, tq, D = q.shape
+        _introspect.note_kernel(
+            "flash_attention_bwd", 8.0 * B * H * tq * k.shape[2] * D,
+            2 * _nbytes(q, k, v) + _nbytes(o, do)
+            + (4 * B * H * tq if lse is not None else 0), q.dtype)
+        if devices == {"cpu"}:
+            with _introspect.uncounted():
+                return bwd_reference(q, k, v, o, do, scale, causal, lse)
     if devices == {"cpu"}:
         return bwd_reference(q, k, v, o, do, scale, causal, lse)
     if devices == {"meta"}:

@@ -240,6 +240,7 @@ class BaseModule:
                 data_batch = next_data_batch
                 if monitor is not None:
                     monitor.tic()
+                d0 = _metrics.step_dispatches()
                 with step_span(global_step):
                     if sup is not None:
                         sup.step(data_batch)
@@ -247,6 +248,9 @@ class BaseModule:
                         self.forward_backward(data_batch)
                         with trace_span("update", cat="optimizer"):
                             self.update()
+                if _metrics.ENABLED:
+                    _metrics.FIT_STEP_DISPATCHES.set(
+                        _metrics.step_dispatches() - d0)
                 global_step += 1
                 # iterators that time their own wait (PrefetchingIter)
                 # are not counted again here

@@ -467,7 +467,8 @@ class Module(BaseModule):
         graph = self.__dict__.get("_fstep_graph")
         if graph is None:
             graph = self._fstep_graph = StepGraph("MXNET_FUSED_STEP",
-                                                  self._fused_where)
+                                                  self._fused_where,
+                                                  program="module_step")
         groups = update_groups(opt_, weights, device,
                                self.__dict__.setdefault("_fstep_groups", {}))
         rollback = count_snapshot(opt_, ukeys)

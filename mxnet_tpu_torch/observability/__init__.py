@@ -18,10 +18,11 @@
     crash-durable JSONL journal (``MXNET_RUN_DIR``); ``report`` reads the
     journal back (``python -m mxnet_tpu_torch.observability.report``).
 
-The program introspector (``introspect``: flops per program, MFU, the
-perf-regression sentinel) is not ported yet: on the card it needs flops
-counted from the graph plan and an H100 peak table (ROADMAP.md, queue
-item 5's last part).
+  - ``introspect`` — the program introspector: flops and bytes counted
+    per program by a ``TorchDispatchMode`` (there is no HLO), per-layer
+    attribution through ``layer_scope``, MFU against the H100's peak over
+    the card's step time (CUDA events around each replay), and the
+    persisted perf-regression sentinel.
 
 Every hot-path hook is one module-global boolean test when its layer is
 off (``MXNET_METRICS_ENABLED``, ``MXNET_FLIGHT``, ``MXNET_MEMORY_LEDGER``,
@@ -36,16 +37,17 @@ from . import journal
 from . import flight
 from . import timeline
 from . import memory
+from . import introspect
 from .metrics import (Counter, Gauge, Histogram, MetricsRegistry, REGISTRY,
                       enabled, enable, disable, snapshot, render_prometheus,
-                      render_json, hbm_stats)
+                      render_json, hbm_stats, dispatch_counts)
 from .tracing import trace_span, step_span, annotate
 from .flight import phase_span, trace_scope, new_trace_id
 from .memory import memory_scope, oom_guard, DeviceMemoryError, HBMBudgetError
 
 __all__ = [
     "metrics", "tracing", "flight", "timeline", "memory",
-    "goodput", "journal",
+    "goodput", "journal", "introspect", "dispatch_counts",
     "Counter", "Gauge", "Histogram", "MetricsRegistry", "REGISTRY",
     "enabled", "enable", "disable", "snapshot",
     "render_prometheus", "render_json", "hbm_stats",

@@ -9,7 +9,9 @@ small, fixed taxonomy:
   ==================  =====================================================
   ``compute``         useful work — flight's ``trainer_step`` /
                       ``whole_step`` / ``superstep`` / ``serve_dispatch``
-                      spans
+                      spans; for a replayed CUDA graph the card's time of
+                      the replay (the introspector's CUDA event pair),
+                      since the span times only the host's enqueue
   ``data_wait``       input starvation — prefetch/batch-wait spans
   ``checkpoint_block``  synchronous checkpoint save time
   ``retry_replay``    supervisor snapshot-restore + window replay after
@@ -117,6 +119,10 @@ _run_started: Optional[float] = None
 # watchdog worker thread while replay_scope is held on the caller)
 _replay_depth: int = 0
 _warned_unknown: set = set()
+#: compute spans whose seconds come from the card (CUDA events around a
+#: replay, read a step later): the host span of such a step is skipped,
+#: and ``observe_device`` books the card's time instead
+_device_deferred: Dict[str, int] = {}
 
 # SLO state: sliding serve-latency window + rate-limit timestamps.
 # None sentinels, never 0.0 — time.monotonic() can be < SLO_BURN_MIN_S
@@ -162,10 +168,38 @@ def observe_span(name: str, dur_s: float) -> None:
         return
     now = time.monotonic()
     with _lock:
+        if cls == "compute" and _device_deferred.get(name):
+            _device_deferred[name] -= 1
+            return
         _touch_clock_locked(now)
         b = _ledger.get(cls)
         if b is None:
             b = _ledger[cls] = {"seconds": 0.0, "events": 0}
+        b["seconds"] += dur_s
+        b["events"] += 1
+
+
+def defer_span(name: str) -> bool:
+    """The next ``name`` compute span is a replay that the card times:
+    skip its host seconds.  False (nothing deferred) when the ledger is off
+    or a replay scope owns the wall-clock."""
+    if not ENABLED or _replay_depth > 0:
+        return False
+    with _lock:
+        _device_deferred[name] = _device_deferred.get(name, 0) + 1
+    return True
+
+
+def observe_device(name: str, dur_s: float) -> None:
+    """Book the card's time of one deferred ``name`` replay as compute."""
+    if not ENABLED or dur_s <= 0.0:
+        return
+    now = time.monotonic()
+    with _lock:
+        _touch_clock_locked(now)
+        b = _ledger.get("compute")
+        if b is None:
+            b = _ledger["compute"] = {"seconds": 0.0, "events": 0}
         b["seconds"] += dur_s
         b["events"] += 1
 
@@ -248,6 +282,13 @@ def report() -> dict:
     means a subsystem is running untraced."""
     if not ENABLED:
         return {"enabled": False}
+    try:
+        # replays the card finished since the last step: their time is
+        # compute (lazy: the introspector times them)
+        from . import introspect as _int
+        _int.drain_device_times()
+    except Exception:  # noqa: BLE001 — the account must not fail
+        pass
     now = time.monotonic()
     with _lock:
         classes = {c: dict(b) for c, b in _ledger.items()}
@@ -448,6 +489,7 @@ def reset() -> None:
         _run_started = None
         _replay_depth = 0
         _warned_unknown.clear()
+        _device_deferred.clear()
         _serve_lat_ms.clear()
         _slo_last_fire.clear()
         _slo_burning.clear()

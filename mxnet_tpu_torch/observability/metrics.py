@@ -6,9 +6,17 @@ The same primitives and names as the JAX package: the serving metrics
 (``SERVE_*``), and those the observability and resilience hooks write —
 fault injection, checkpoints, the sanitizer, flight dumps, the memory
 ledger, the training supervisor, the prefetcher, data waits, goodput and
-SLO burn.  The JAX package's XLA dispatch counters and its
-introspection gauges (MFU, roofline) have no counterpart yet: the
-program introspector is not ported (ROADMAP.md, queue item 5).
+SLO burn; the dispatch gauges, the multi-model registry's and the
+continuous-batching decode's metrics, and the program introspector's
+gauges (MFU, roofline), computed at export.
+
+A **dispatch** in the port is one host entry into a compiled unit — a
+CUDA-graph replay (or, off the card, the eager step it stands for), a
+``GraphPlan.run``, a ``FusedUpdater.update_all`` — plus each
+host-to-device copy a step issues.  Units run inside another unit (the
+graph run and the update inside a whole step) do not count again, so a
+whole step reads 1, a captured superstep 1 per K steps and a demoted one
+about K, as the JAX package's XLA launches + device_puts do.
 
 Design rules:
 
@@ -433,6 +441,120 @@ SERVE_BUCKET_HBM_BYTES = Gauge(
     "warm-up forward (torch.cuda.max_memory_allocated, set once per "
     "bucket; labels are the bounded bucket-lattice set)")
 
+SERVE_EVICTIONS = Counter(
+    "mxnet_serve_evictions_total",
+    "LRU evictions by the multi-model budgeter (serving.ModelRegistry), "
+    "by kind (kv = a decode sequence's KV pages, bucket = one bucket's "
+    "entry and its placeholders, model = the device weights too; the "
+    "host payload is kept for readmission) and model")
+SERVE_RESIDENT_MODELS = Gauge(
+    "mxnet_serve_resident_models",
+    "Registered serving models whose device weights are resident "
+    "(ModelRegistry)")
+SERVE_MODEL_HBM_BYTES = Gauge(
+    "mxnet_serve_model_hbm_bytes",
+    "Tracked device bytes per registered serving model (weights and "
+    "bucket placeholders; 0 while weights-evicted), by model")
+SERVE_RELOAD_FAILURES = Counter(
+    "mxnet_serve_reload_failures_total",
+    "Serving auto-reload poll failures (missing or corrupt checkpoint "
+    "directory, a failed weight swap); each kept the old weights")
+DECODE_STEPS = Counter(
+    "mxnet_decode_steps_total",
+    "Continuous-batching decode steps (serving.DecodeEngine): each is ONE "
+    "CUDA-graph replay over the whole in-flight slot set on the card")
+DECODE_TOKENS = Counter(
+    "mxnet_decode_tokens_total",
+    "Tokens generated by continuous-batching decode (prompt-consuming "
+    "steps excluded)")
+DECODE_KV_EVICTIONS = Counter(
+    "mxnet_decode_kv_evictions_total",
+    "Sequences whose KV pages were reclaimed under memory pressure "
+    "(typed SequenceEvicted with retry-after to the caller)")
+DECODE_INFLIGHT = Gauge(
+    "mxnet_decode_inflight_sequences",
+    "Sequences holding a decode slot, refreshed every decode step")
+DECODE_KV_OCCUPANCY = Gauge(
+    "mxnet_decode_kv_page_occupancy",
+    "Fraction of the routed KV lattice key's token capacity holding live "
+    "sequence state")
+DECODE_TOKENS_PER_S = Gauge(
+    "mxnet_decode_tokens_per_second",
+    "Active sequences advanced by the most recent decode step / its "
+    "wall-clock")
+
+# -- dispatch accounting ----------------------------------------------------
+DISPATCHES = Counter(
+    "mxnet_dispatches_total",
+    "Host entries into a compiled unit (a CUDA-graph replay or the eager "
+    "step it stands for, a GraphPlan.run, a FusedUpdater.update_all), by "
+    "kind, plus host-to-device copies a step issues (kind h2d); units "
+    "nested in another unit are not counted again")
+FIT_STEP_DISPATCHES = Gauge(
+    "mxnet_fit_step_dispatches",
+    "Dispatches (compiled-unit entries + host-to-device copies) of the "
+    "most recent Module.fit step")
+TRAINER_STEP_DISPATCHES = Gauge(
+    "mxnet_trainer_step_dispatches",
+    "Dispatches of the most recent gluon training step: the fused path's "
+    "Trainer.step (reduce and update; forward and backward run outside "
+    "it); the whole step (MXNET_WHOLE_STEP=1) the whole step, one CUDA "
+    "graph replay, so it reads 1")
+SUPERSTEP_DISPATCHES = Gauge(
+    "mxnet_superstep_dispatches",
+    "Dispatches of the most recent superstep: 1 for K captured steps, "
+    "about K when it demoted to K sequential whole steps (what the perf "
+    "sentinel's superstep baseline trips on)")
+PERF_REGRESSIONS = Counter(
+    "mxnet_perf_regressions_total",
+    "Perf-regression sentinel firings (observability.introspect), by kind "
+    "(step_time = the warmed step time blew the persisted baseline p50 by "
+    "REGRESSION_FACTOR, dispatches = dispatches per step grew past the "
+    "baseline) and phase; once per episode, and the perf_regression "
+    "readyz() check fails until it clears or the baseline is refreshed")
+
+_unit_tls = threading.local()
+
+
+def step_dispatches() -> float:
+    """Dispatches so far (the gauges publish per-step deltas of this)."""
+    return DISPATCHES.value
+
+
+def dispatch_counts() -> Dict[str, float]:
+    out = {dict(k).get("kind", "other"): v
+           for k, v in list(DISPATCHES._children.items())}
+    out["total"] = DISPATCHES.value
+    return out
+
+
+class dispatch_unit:
+    """``with dispatch_unit(kind):`` one entry into a compiled unit:
+    counts 1 unless a unit is already open on this thread.  ``kind=None``
+    counts nothing and keeps the units inside from counting (the
+    introspector's counting runs on the meta device)."""
+    __slots__ = ("kind", "_outer")
+
+    def __init__(self, kind: str):
+        self.kind = kind
+
+    def __enter__(self):
+        d = getattr(_unit_tls, "depth", 0)
+        self._outer = d
+        if d == 0 and ENABLED and self.kind is not None:
+            DISPATCHES.inc(kind=self.kind)
+        _unit_tls.depth = d + 1
+        return self
+
+    def __exit__(self, *exc):
+        _unit_tls.depth = self._outer
+        return False
+
+
+def note_h2d() -> None:
+    """One host-to-device copy issued by a step."""
+    if ENABLED:
+        DISPATCHES.inc(kind="h2d")
 
 
 # -- the observability and resilience hooks' metrics ----------------------
@@ -576,6 +698,43 @@ SLO_BURN = Counter(
     "readyz() check until the window recovers")
 
 
+def _introspect_mfu(key: str) -> float:
+    """Export-time pull of one MFU/roofline field from the introspector
+    (0.0 until a counted step program and a step time exist)."""
+    try:
+        from . import introspect as _int
+        if not _int.ENABLED:
+            return 0.0
+        return float(_int.mfu().get(key) or 0.0)
+    except Exception:  # noqa: BLE001
+        return 0.0
+
+
+MFU = Gauge(
+    "mxnet_mfu",
+    "Model flops utilization of the training step, 0..1: counted flops "
+    "per step / the card's step time (CUDA events around the replay; the "
+    "flight recorder's EWMA off the card) / the peak for the card and "
+    "the step's compute dtype (MXNET_PEAK_FLOPS overrides).  Computed at "
+    "export",
+    fn=lambda: _introspect_mfu("mfu"))
+STEP_FLOPS_PER_S = Gauge(
+    "mxnet_step_flops_per_s",
+    "Achieved flops/s of the training step (counted flops / step time), "
+    "the roofline's y-axis.  Computed at export",
+    fn=lambda: _introspect_mfu("flops_per_s"))
+STEP_BYTES_PER_S = Gauge(
+    "mxnet_step_bytes_per_s",
+    "Counted bytes per step (each unfused op's inputs and outputs) / step "
+    "time.  Computed at export",
+    fn=lambda: _introspect_mfu("bytes_per_s"))
+STEP_ARITH_INTENSITY = Gauge(
+    "mxnet_step_arithmetic_intensity",
+    "Counted flops per counted byte of the training step, the roofline's "
+    "x-axis.  Computed at export",
+    fn=lambda: _introspect_mfu("arithmetic_intensity"))
+
+
 
 
 def _hbm_stats_all() -> List[dict]:
@@ -650,6 +809,16 @@ def _memory_snapshot() -> dict:
         return {"enabled": False}
 
 
+def _programs_snapshot() -> dict:
+    """snapshot()["programs"]: per-program flops/bytes, MFU and the perf
+    sentinel's state (lazy/guarded)."""
+    try:
+        from . import introspect as _int
+        return _int.snapshot_summary()
+    except Exception:  # noqa: BLE001
+        return {"enabled": False}
+
+
 def _goodput_snapshot() -> dict:
     """snapshot()["goodput"]: per-class seconds/events, goodput %,
     unattributed slack, SLO targets + burn state, and the run journal's
@@ -689,11 +858,16 @@ def _analysis_snapshot() -> dict:
 
 
 def snapshot() -> dict:
-    """One JSON-able dict: the serving numbers, and the flight, memory,
-    goodput, journal, analysis, supervisor, prefetch and checkpoint
-    sections (the JAX package's ``snapshot()`` keys for the parts the
+    """One JSON-able dict: dispatch counts and gauges, the serving
+    numbers (with the registry's and decode's), and the flight, memory,
+    goodput, journal, programs, analysis, supervisor, prefetch and
+    checkpoint sections (the JAX package's ``snapshot()`` keys for the parts the
     port has), with the CUDA allocator's numbers under ``hbm``."""
     return {
+        "dispatch_counts": dispatch_counts(),
+        "fit_step_dispatches": FIT_STEP_DISPATCHES.get(),
+        "trainer_step_dispatches": TRAINER_STEP_DISPATCHES.get(),
+        "superstep_dispatches": SUPERSTEP_DISPATCHES.get(),
         "serving": {
             "requests": SERVE_REQUESTS.value,
             "batches": SERVE_BATCHES.value,
@@ -710,8 +884,22 @@ def snapshot() -> dict:
             "ready": SERVE_READY.get(),
             "ready_transitions": SERVE_READY_TRANSITIONS.value,
             "readmissions": SERVE_READMITS.value,
+            "reload_failures": SERVE_RELOAD_FAILURES.value,
             "faults_injected": FAULTS_INJECTED.value,
+            "evictions": _sum_by_label(SERVE_EVICTIONS, "kind"),
+            "resident_models": SERVE_RESIDENT_MODELS.get(),
+            "model_hbm_bytes": {
+                dict(k).get("model", "_"): v for k, v in
+                sorted(list(SERVE_MODEL_HBM_BYTES._children.items()))},
             "latency_exemplars": SERVE_LATENCY_SECONDS.exemplars(),
+            "decode": {
+                "steps": DECODE_STEPS.value,
+                "tokens": DECODE_TOKENS.value,
+                "inflight": DECODE_INFLIGHT.get(),
+                "kv_page_occupancy": DECODE_KV_OCCUPANCY.get(),
+                "tokens_per_s": DECODE_TOKENS_PER_S.get(),
+                "kv_evictions": DECODE_KV_EVICTIONS.value,
+            },
         },
         "data_wait_ms_total": DATA_WAIT_SECONDS.sum * 1e3,
         "data_wait_ms_mean": DATA_WAIT_SECONDS.mean * 1e3,
@@ -720,6 +908,7 @@ def snapshot() -> dict:
         "goodput": _goodput_snapshot(),
         "journal": _journal_snapshot(),
         "memory": _memory_snapshot(),
+        "programs": _programs_snapshot(),
         "analysis": _analysis_snapshot(),
         "supervisor": {
             "snapshots": SUPERVISOR_SNAPSHOTS.value,

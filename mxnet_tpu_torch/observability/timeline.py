@@ -12,10 +12,12 @@ One format, merged on one timeline:
     ``profiler.dump_profile`` exported, shifted onto the same clock.
 
 All python-side producers stamp ``time.perf_counter()`` microseconds,
-so sorting by ``ts`` is globally consistent.  The JAX package's
-achieved-flops counter track reads its program introspector, which the
-port does not have yet (ROADMAP.md, queue item 5's introspect): the
-port's dump carries the badput and memory tracks only.
+so sorting by ``ts`` is globally consistent.  Counter tracks: cumulative
+badput per class, live ledger bytes per phase, and ``mxnet_flops_per_s``
+for the step phases with a counted program: the program's flops over the
+card's time for the phase where its replays are timed by CUDA events
+(a replay's span times the host's enqueue, not the step), else over the
+span.
 """
 from __future__ import annotations
 
@@ -26,6 +28,19 @@ __all__ = ["build_trace", "chrome_events", "summarize"]
 #: pid stamped on every python-side event — matches profiler._events so
 #: all sources group under one process row in the viewer
 PID = 0
+
+
+def _phase_flops() -> Dict[str, Tuple[float, Optional[float]]]:
+    """{step phase: (counted flops per span, the card's seconds per span or
+    None)} from the program introspector (lazy/guarded)."""
+    try:
+        from . import introspect as _int
+        if not _int.ENABLED:
+            return {}
+        return {ph: (f, _int.device_step_time(ph))
+                for ph, f in _int.phase_flops_map().items()}
+    except Exception:  # noqa: BLE001
+        return {}
 
 
 def _badput_map() -> Dict[str, str]:
@@ -48,6 +63,7 @@ def chrome_events(flight_records: List[tuple]) -> List[dict]:
     events: List[dict] = []
     seen_tids: Dict[int, str] = {}
     badput_map = _badput_map()
+    phase_flops = _phase_flops()
     badput_cum: Dict[str, float] = {}
     # cumulative badput must grow monotonically along the timeline, so
     # the counter walks records in span-end order regardless of which
@@ -87,6 +103,12 @@ def chrome_events(flight_records: List[tuple]) -> List[dict]:
             events.append({"name": "hbm_live_bytes", "ph": "C",
                            "ts": t1, "pid": PID,
                            "args": {"bytes": labels["mem_live_bytes"]}})
+        if name in phase_flops and t1 > t0:
+            flops, dev_s = phase_flops[name]
+            secs = dev_s if dev_s else (t1 - t0) / 1e6
+            events.append({"name": "mxnet_flops_per_s", "ph": "C",
+                           "ts": t1, "pid": PID,
+                           "args": {"flops_per_s": flops / secs}})
     for tid, tname in sorted(seen_tids.items()):
         events.append({"name": "thread_name", "ph": "M", "pid": PID,
                        "tid": tid, "args": {"name": tname}})

@@ -45,6 +45,8 @@ weight's device when it is first updated.
 """
 from __future__ import annotations
 
+import contextlib
+import hashlib
 import math
 from typing import Any, Dict, NamedTuple
 
@@ -54,7 +56,9 @@ from . import random as _random
 from .base import MXNetError, Registry
 from .faultinject import fire as _fi_fire
 from .ndarray import ndarray as _nd
+from .observability import introspect as _introspect
 from .observability import memory as _memory
+from .observability import metrics as _metrics
 from .observability.tracing import trace_span
 from .ops import optimizer_ops as _ops
 
@@ -765,7 +769,8 @@ class FusedUpdater(Updater):
         # the out-of-memory post-mortem chokepoint of the fused update,
         # with its two fault sites, fired before anything is written
         with trace_span("optimizer_update_all", cat="optimizer"), \
-                _memory.oom_guard("optimizer.update_all"):
+                _memory.oom_guard("optimizer.update_all"), \
+                _metrics.dispatch_unit("update"):
             _fi_fire("memory.oom", at="optimizer")
             _fi_fire("device.unavailable", at="optimizer")
             for i in indices:
@@ -775,11 +780,32 @@ class FusedUpdater(Updater):
                 mp = opt_.multi_precision and _is_low_prec(w.dtype)
                 groups.setdefault((w.device, w.dtype, mp),
                                   []).append((i, g, w))
-            for (_, _, mp), items in groups.items():
-                idx = [i for i, _, _ in items]
-                opt_.fused_step(idx, [w for _, _, w in items],
-                                [g for _, g, _ in items],
-                                [self.states[i] for i in idx], mp)
+            note = self._note_key(opt_, groups)
+            with _introspect.counting("fused_update", signature=note) \
+                    if note is not None else _NULL, \
+                    _introspect.layer_scope("optimizer"):
+                for (_, _, mp), items in groups.items():
+                    idx = [i for i, _, _ in items]
+                    opt_.fused_step(idx, [w for _, _, w in items],
+                                    [g for _, g, _ in items],
+                                    [self.states[i] for i in idx], mp)
+
+    def _note_key(self, opt_, groups):
+        """The introspector's signature of this update's program, the
+        first time this parameter layout runs (None after)."""
+        if not _introspect.ENABLED:
+            return None
+        key = (type(opt_).__name__, tuple(
+            (str(dt), mp, tuple((tuple(w.shape)) for _, _, w in items))
+            for (_, dt, mp), items in groups.items()))
+        noted = self.__dict__.setdefault("_noted_keys", set())
+        if key in noted:
+            return None
+        noted.add(key)
+        return hashlib.sha1(repr(key).encode()).hexdigest()[:16]
+
+
+_NULL = contextlib.nullcontext()
 
 
 def get_updater(optimizer: Optimizer) -> FusedUpdater:

@@ -16,9 +16,13 @@ Three composable layers over a Symbol graph:
     scheduling and load shedding (typed ``Overloaded`` /
     ``DeadlineExceeded``), ``healthz()`` / ``readyz()``.
 
-The multi-model ``ModelRegistry`` and the continuous-batching
-``DecodeEngine`` of the JAX package are not ported yet (ROADMAP.md, queue
-item 2).
+  - ``ModelRegistry`` — N predictors in one process under one
+    device-memory budget: LRU eviction (decode KV pages, then cold
+    buckets, then cold models' weights), readmission from the host
+    payload, the typed degradation ladder (``ModelUnavailable``);
+  - ``DecodeEngine`` — continuous-batching generative decode over a
+    paged KV lattice, one CUDA-graph replay per decode step
+    (``decode.ToyLM``), EDF shedding at step granularity (``StepEDF``).
 """
 from . import buckets
 from .buckets import (BucketSpec, covering_bucket, pad_to_shape,
@@ -27,11 +31,21 @@ from .predictor import BucketedPredictor, ModelEvictedError
 from .batcher import (BatcherClosedError, BatcherDeadError,
                       GenerativeRouteError, MicroBatcher, stack_requests)
 from . import resilience
-from .resilience import DeadlineExceeded, Overloaded, ResilientServer
+from .resilience import (DeadlineExceeded, Overloaded, ResilientServer,
+                         StepEDF)
+from . import decode
+from .decode import (DecodeClosedError, DecodeEngine, SequenceEvicted,
+                     ToyLM)
+from . import registry
+from .registry import (DEGRADATION_LADDER, EVICT_POLICIES, ModelRegistry,
+                       ModelUnavailable)
 
 __all__ = ["BucketSpec", "BucketedPredictor", "MicroBatcher",
            "ResilientServer", "Overloaded", "DeadlineExceeded",
            "BatcherClosedError", "BatcherDeadError", "GenerativeRouteError",
            "ModelEvictedError", "buckets", "resilience", "covering_bucket",
            "pad_to_shape", "parse_bucket_env", "pow2_buckets",
-           "stack_requests"]
+           "stack_requests", "StepEDF", "decode", "DecodeEngine", "ToyLM",
+           "SequenceEvicted", "DecodeClosedError", "registry",
+           "ModelRegistry", "ModelUnavailable", "EVICT_POLICIES",
+           "DEGRADATION_LADDER"]

@@ -23,6 +23,7 @@ dispatch: a raise there kills the worker, whose futures then fail typed.
 from __future__ import annotations
 
 import logging
+import os
 import queue
 import threading
 import time
@@ -31,6 +32,7 @@ from typing import Dict, List, Optional
 
 import numpy as _np
 
+from ..autotune import decisions as _decisions
 from ..base import MXNetError, getenv
 from ..faultinject import fire as _fi_fire
 from ..observability import flight as _flight
@@ -46,9 +48,8 @@ class GenerativeRouteError(MXNetError):
     request-coalescing tier.  Refused LOUDLY by design: one long
     generation would pin its whole coalesced micro-batch group for its
     full output length.  Generation belongs to a decode engine that
-    admits and retires sequences per decode step (the JAX package's
-    `serving.decode.DecodeEngine`, not ported yet) or to
-    `TransformerLM.generate`."""
+    admits and retires sequences per decode step
+    (`serving.decode.DecodeEngine`) or to `TransformerLM.generate`."""
 
 
 class BatcherClosedError(MXNetError):
@@ -135,7 +136,18 @@ class MicroBatcher:
                  max_batch: Optional[int] = None):
         self._pred = predictor
         if max_wait_ms is None:
-            max_wait_ms = getenv("MXNET_SERVE_MAX_WAIT_MS", 2.0)
+            # ctor arg > MXNET_SERVE_MAX_WAIT_MS env pin > the persisted
+            # decision (from the dispatch EWMA) > 2 ms
+            decided = None
+            if "MXNET_SERVE_MAX_WAIT_MS" not in os.environ \
+                    and _decisions.ENABLED:
+                sig = getattr(getattr(predictor, "spec", None),
+                              "signature", None)
+                if sig is not None:
+                    decided = _decisions.knob(sig, "serve_max_wait_ms",
+                                              None)
+            max_wait_ms = getenv("MXNET_SERVE_MAX_WAIT_MS", 2.0) \
+                if decided is None else float(decided)
         self._max_wait_s = max(0.0, float(max_wait_ms)) / 1e3
         # the default chain: ctor arg > MXNET_SERVE_MAX_BATCH > largest
         # bucket

@@ -11,21 +11,40 @@ Bucket derivation follows the pow2 rule (``1 << (n - 1).bit_length()``):
 ascending powers of two up to the pow2 ceiling of the declared maximum,
 overridable via ``MXNET_SERVE_BUCKETS`` (batch) and
 ``MXNET_SERVE_SEQ_BUCKETS`` (sequence).  Padding waste is below 50% per
-axis by construction; the number of buckets is O(log max) per axis.  The
-autotuned lattice of the JAX package (its ``autotune.decisions`` knob and
-the observed-traffic ring) is not ported (ROADMAP.md, queue item 7).
+axis by construction; the number of buckets is O(log max) per axis.
+
+The batch ladder's precedence: the constructor's ``batch_buckets`` >
+``MXNET_SERVE_BUCKETS`` > the persisted ``serve_buckets`` decision for
+the spec's ``signature`` (``autotune.tune`` derives it from observed
+traffic) > pow2.  While ``MXNET_AUTOTUNE`` is on, ``route`` records each
+request's batch size in a bounded ring (``observed_traffic``), the tuner's
+``lattice_from_traffic`` feed.
 """
 from __future__ import annotations
 
 import os
+from collections import deque
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as _np
 
+from ..autotune import decisions as _decisions
 from ..base import MXNetError
 
 __all__ = ["pow2_buckets", "parse_bucket_env", "covering_bucket",
-           "pad_to_shape", "BucketSpec", "page_lattice"]
+           "pad_to_shape", "BucketSpec", "observed_traffic",
+           "page_lattice"]
+
+#: bounded ring of request batch sizes seen by ``BucketSpec.route`` while
+#: ``MXNET_AUTOTUNE`` is on (one boolean on the route path otherwise)
+_TRAFFIC_MAX = 4096
+_traffic: deque = deque(maxlen=_TRAFFIC_MAX)
+
+
+def observed_traffic() -> Tuple[int, ...]:
+    """Request batch sizes routed since process start (newest last)."""
+    return tuple(_traffic)
+
 
 def pow2_buckets(max_n: int, lo: int = 1) -> List[int]:
     """Ascending powers of two from `lo` through the pow2 ceiling of
@@ -158,11 +177,22 @@ class BucketSpec:
                     f"{list(buckets)}")
             return out
 
+        # serving decisions key on the declared input surface
+        self.signature = _decisions.model_signature(
+            sorted(self.input_shapes.items()),
+            extra=("serving", tuple(sorted(self.seq_axes.items()))))
         # ladder precedence: ctor arg > MXNET_SERVE_BUCKETS env pin >
-        # pow2 ladder
+        # persisted autotune lattice > pow2 ladder
+        decided = None
+        if batch_buckets is None \
+                and "MXNET_SERVE_BUCKETS" not in os.environ \
+                and _decisions.ENABLED:
+            knob = _decisions.knob(self.signature, "serve_buckets", None)
+            if knob:
+                decided = [int(t) for t in str(knob).split(",")]
         self.batch_buckets = _checked(
             batch_buckets or parse_bucket_env("MXNET_SERVE_BUCKETS")
-            or pow2_buckets(self.max_batch_hint), "batch")
+            or decided or pow2_buckets(self.max_batch_hint), "batch")
         if self.seq_axes:
             max_seq = max(self.input_shapes[n][ax]
                           for n, ax in self.seq_axes.items())
@@ -192,6 +222,8 @@ class BucketSpec:
         if len(rows) != 1:
             raise MXNetError(f"inputs disagree on batch size: {shapes}")
         n = rows.pop()
+        if _decisions.ENABLED:
+            _traffic.append(int(n))
         b = covering_bucket(self.batch_buckets, n)
         if self.seq_buckets is None:
             return (b,)

@@ -33,7 +33,16 @@ Each dispatch is a ``serve_dispatch`` flight phase (with ``serve_pad`` and
 ``serve_slice`` around it) inside ``memory.oom_guard``, and fires the
 ``serving.dispatch`` and ``memory.oom`` fault sites; ``hot_reload`` fires
 ``serving.hot_reload``.  A bucket build's time is goodput's
-``recompile``; the served weights are the ledger's ``serve_weights``.
+``recompile``; the served weights are the ledger's ``serve_weights`` and
+their host copy its ``serve_host_params``, and each build's warm-up
+forward is counted as the introspector's ``serve_bucket:<label>`` program.
+
+The surface ``ModelRegistry`` schedules with: ``resident=False`` builds
+with the host payload alone (nothing on the device until ``readmit()``),
+``evict_weights``/``evict``/``evict_bucket`` (``blocking=False`` skips a
+predictor mid-build), ``resident_bucket_ages`` (the LRU clock, stamped at
+each build and dispatch), ``bucket_cost_estimate`` and
+``host_payload_bytes``.
 """
 from __future__ import annotations
 
@@ -51,6 +60,7 @@ from .. import ndarray as nd
 from ..faultinject import fire as _fi_fire
 from ..observability import flight as _flight
 from ..observability import goodput as _goodput
+from ..observability import introspect as _introspect
 from ..observability import memory as _memory
 from ..observability import metrics as _metrics
 from ..observability.tracing import trace_span
@@ -112,7 +122,7 @@ class BucketedPredictor:
                  dev=None, batch_buckets=None, seq_axes=None,
                  seq_buckets=None, input_dtypes=None,
                  output_names: Optional[Sequence[str]] = None,
-                 donate: bool = True):
+                 donate: bool = True, resident: bool = True):
         from ..predictor import load_param_payload, split_arg_aux
         sym = symbol if isinstance(symbol, Symbol) \
             else sym_mod.load_json(symbol)
@@ -137,14 +147,23 @@ class BucketedPredictor:
                     f"'{name}' is not a free input of the symbol; free "
                     f"inputs: {self._input_names}")
         self._host_payload = (arg_params, aux_params)
+        if _memory.ENABLED:
+            for d in self._host_payload:
+                for v in d.values():
+                    _memory.register_host(v, tag="serve_host_params")
         self._closed = False
         # a first admission is not a readmission: only an evict ->
         # readmit cycle counts in SERVE_READMITS
         self._was_evicted = False
         # one tuple holds the live (params, aux) pair, swapped by a single
-        # reference assignment
-        self._weights = self._upload()
-        self._resident = True
+        # reference assignment.  resident=False constructs straight onto
+        # the weights-evicted rung: the host payload only, nothing on the
+        # device, so a registry can admit a model that does not fit now
+        if resident:
+            self._weights = self._upload()
+        else:
+            self._weights = ({}, {})
+        self._resident = bool(resident)
         self._input_dtypes = {
             n: np_dtype((input_dtypes or {}).get(n, "float32"))
             for n in input_shapes}
@@ -156,15 +175,21 @@ class BucketedPredictor:
         # readmission, not an escape from the bucket set
         self._ever_compiled: set = set()
         self._mem_stats: Dict[tuple, dict] = {}
+        # LRU clock per bucket, stamped at the build and at every dispatch
+        self._bucket_used: Dict[tuple, float] = {}
         # builds may be triggered concurrently by the batcher and direct
         # callers; the lock keeps "build each bucket once" true and guards
         # the weights lifecycle (reentrant: evict() nests evict_bucket())
         self._compile_lock = threading.RLock()
 
     def _upload(self):
+        # copies, also on the CPU: the served weights are dropped on
+        # eviction while the host payload stays
         host_p, host_a = self._host_payload
-        return _served(({k: v.to(self._device) for k, v in host_p.items()},
-                        {k: v.to(self._device) for k, v in host_a.items()}))
+        return _served(({k: v.to(self._device, copy=True)
+                         for k, v in host_p.items()},
+                        {k: v.to(self._device, copy=True)
+                         for k, v in host_a.items()}))
 
     @property
     def _params(self) -> dict:
@@ -234,7 +259,8 @@ class BucketedPredictor:
                     "building or serving buckets")
             t_build = time.perf_counter()
             in_shapes = self.spec.bucket_input_shapes(key)
-            extra = {n: torch.zeros(s, device=self._device)
+            extra = {n: _memory.register(torch.zeros(s, device=self._device),
+                                         tag="serve_weights")
                      for n, s in self._placeholder_shapes(in_shapes).items()}
             # bucket padding is only sound for batch-major outputs (valid
             # rows slice back out on axis 0): reject scalar or
@@ -254,13 +280,22 @@ class BucketedPredictor:
             if cuda:
                 torch.cuda.reset_peak_memory_stats(self._device)
                 base = torch.cuda.memory_allocated(self._device)
-            self._run(zeros, extra, self._weights)
+            # the warm-up forward is counted as the introspector's
+            # serve_bucket:<label> program (once per build)
+            count = _introspect.Count() if _introspect.ENABLED else None
+            with count if count is not None else contextlib.nullcontext():
+                self._run(zeros, extra, self._weights)
             if cuda:
                 peak = torch.cuda.max_memory_allocated(self._device) - base
                 self._mem_stats[key] = {"peak_bytes": int(peak)}
                 if _metrics.ENABLED:
                     _metrics.SERVE_BUCKET_HBM_BYTES.set(
                         peak, bucket=bucket_label(key))
+            if count is not None:
+                _introspect.note_program(
+                    "serve_bucket", counted=count, label=bucket_label(key),
+                    memory_stats=self._mem_stats.get(key))
+            self._bucket_used[key] = time.monotonic()
             if _metrics.ENABLED:
                 _metrics.SERVE_COMPILES.inc()
                 if key in self._ever_compiled:
@@ -362,6 +397,7 @@ class BucketedPredictor:
         the outputs on the device."""
         self.precompile(key)
         extra = self._extra.get(key)
+        self._bucket_used[key] = time.monotonic()     # the LRU clock
         if extra is None:
             # a concurrent bucket eviction between build and here: one
             # rebuild keeps the failure typed
@@ -453,10 +489,39 @@ class BucketedPredictor:
         dropped; only the host param payload remains."""
         return self._resident
 
-    def evict_bucket(self, key: tuple) -> int:
-        """Drop one bucket's entry and zero placeholders.  Returns the
-        estimated device bytes freed; idempotent."""
-        with self._compile_lock:
+    def resident_bucket_ages(self) -> List[tuple]:
+        """``[(key, last_used_monotonic)]`` for every built bucket: the
+        registry's LRU candidates (stamped at the build and every
+        dispatch)."""
+        used = dict(self._bucket_used)
+        return [(k, used.get(k, 0.0)) for k in list(self._compiled)]
+
+    def bucket_cost_estimate(self, key: tuple) -> int:
+        """Expected peak device bytes of building ``key``: its own measured
+        peak when it was built before, else the largest known peak of this
+        model (0 when nothing is known; the ledger's budget stays the
+        backstop)."""
+        st = self._mem_stats.get(key)
+        if st:
+            return int(st.get("peak_bytes", 0))
+        return int(max((v.get("peak_bytes", 0)
+                        for v in dict(self._mem_stats).values()),
+                       default=0))
+
+    def host_payload_bytes(self) -> int:
+        """Bytes the device weights take on readmission (the host payload
+        mirrors their shapes and dtypes)."""
+        p, a = self._host_payload
+        return int(sum(_nbytes(v) for d in (p, a) for v in d.values()))
+
+    def evict_bucket(self, key: tuple, blocking: bool = True) -> int:
+        """Drop one bucket's entry and zero placeholders (its measured peak
+        is kept as the readmission estimate).  Returns the estimated device
+        bytes freed; idempotent.  ``blocking=False`` returns 0 when a build
+        holds the lock (a model mid-build is not a cold victim)."""
+        if not self._compile_lock.acquire(blocking=blocking):
+            return 0
+        try:
             if key not in self._compiled:
                 return 0
             freed = int(self._mem_stats.get(key, {}).get("peak_bytes", 0))
@@ -464,16 +529,28 @@ class BucketedPredictor:
                          for a in self._extra.get(key, {}).values())
             del self._compiled[key]
             self._extra.pop(key, None)
+            self._bucket_used.pop(key, None)
             if _metrics.ENABLED:
                 _metrics.SERVE_BUCKET_HBM_BYTES.remove(
                     bucket=bucket_label(key))
             return freed
+        finally:
+            self._compile_lock.release()
 
-    def evict(self) -> int:
+    def evict(self, blocking: bool = True) -> int:
         """Drop every bucket entry, every placeholder and the device
         weights; the host payload stays, so ``readmit()`` is a reload and
         a rebuild, never a restart.  Returns estimated device bytes freed.
-        New dispatches raise a typed ``ModelEvictedError``."""
+        New dispatches raise a typed ``ModelEvictedError``.
+        ``blocking=False`` returns 0 when a build holds the lock."""
+        if not self._compile_lock.acquire(blocking=blocking):
+            return 0
+        try:
+            return self._evict_locked()
+        finally:
+            self._compile_lock.release()
+
+    def _evict_locked(self) -> int:
         with self._compile_lock:
             # residency flips first: a racing dispatch sees either the
             # full old pair or the empty pair and the flag
@@ -486,6 +563,9 @@ class BucketedPredictor:
             self._weights = ({}, {})
             return freed
 
+    #: the ladder's name for a weights eviction
+    evict_weights = evict
+
     def readmit(self) -> None:
         """Upload the host payload again and mark the model servable.
         Bucket entries rebuild at the next dispatch per key (counted as
@@ -495,7 +575,8 @@ class BucketedPredictor:
                 return
             if self._closed:
                 raise MXNetError("predictor is closed")
-            self._weights = self._upload()
+            with _memory.oom_guard("serving.readmit"):
+                self._weights = self._upload()
             self._resident = True
             was_evicted = self._was_evicted
         if was_evicted and _metrics.ENABLED:

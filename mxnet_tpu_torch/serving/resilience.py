@@ -29,10 +29,16 @@ an ``slo_burn`` check when an SLO is declared).  Each request carries a
 flight-recorder trace id through its queue wait and stacking, and its
 latency feeds the slow-request watchdog.
 
-Not ported yet: the memory-budget readiness check and the OOM retry of
-the JAX package, and the compile-cache readiness check (there is no
-persistent compile cache).  ``StepEDF``, the decode-step deadline
-estimator, comes with the ``DecodeEngine`` that feeds it (queue item 2).
+A ``ModelRegistry`` hooks each model's server: ``extra_ready`` merges its
+degradation rung into ``readyz``, ``oom_retry`` is the OOM second chance
+(a dispatch that runs out of device memory asks the registry to evict and
+runs once more), and ``pending()`` is its is-this-model-idle question.
+``StepEDF`` is the decode-step deadline estimator ``DecodeEngine`` feeds.
+A perf regression the introspector's sentinel holds fails the
+``perf_regression`` check.
+
+Not ported: the memory-budget readiness check and the compile-cache
+readiness check (there is no persistent compile cache).
 """
 from __future__ import annotations
 
@@ -52,6 +58,7 @@ import numpy as _np
 from ..base import MXNetError, getenv
 from ..observability import flight as _flight
 from ..observability import goodput as _goodput
+from ..observability import memory as _memory
 from ..observability import metrics as _metrics
 from .batcher import (BatcherClosedError, BatcherDeadError,
                       GenerativeRouteError, group_trace_scope,
@@ -60,7 +67,7 @@ from .batcher import (BatcherClosedError, BatcherDeadError,
 log = logging.getLogger(__name__)
 
 __all__ = ["Overloaded", "DeadlineExceeded", "ResilientServer",
-           "SHED_POLICIES"]
+           "SHED_POLICIES", "StepEDF"]
 
 SHED_POLICIES = ("depth", "deadline")
 
@@ -81,6 +88,45 @@ class DeadlineExceeded(MXNetError):
     """An admitted request's deadline passed while it waited in queue.
     The work was dropped BEFORE padding/dispatch — the accelerator
     never burns a cycle on an answer nobody is waiting for."""
+
+
+class StepEDF:
+    """Earliest-deadline-first estimate at decode-step granularity (parity:
+    ``mxnet_tpu/serving/resilience.py:StepEDF``).
+
+    A generation costs remaining tokens x seconds per step.
+    ``DecodeEngine`` feeds every step's wall-clock into the EWMA and asks,
+    at admission, whether a deadline clears the ETA behind the queued token
+    backlog and, between steps, whether an in-flight sequence's remaining
+    tokens still fit (``unmeetable``)."""
+
+    #: the prior before any observation; the EWMA converges in ~10 steps
+    PRIOR_S = 0.01
+
+    def __init__(self, alpha: float = 0.2):
+        self._alpha = float(alpha)
+        self._ewma: Optional[float] = None
+
+    def observe(self, step_s: float) -> None:
+        step_s = max(0.0, float(step_s))
+        self._ewma = step_s if self._ewma is None else \
+            (1 - self._alpha) * self._ewma + self._alpha * step_s
+
+    def step_s(self) -> float:
+        return self.PRIOR_S if self._ewma is None else self._ewma
+
+    def eta_s(self, tokens: int, lanes: int = 1) -> float:
+        """Seconds to decode ``tokens`` more tokens with ``lanes`` slots
+        advancing one token per step each."""
+        return (max(0, int(tokens)) / max(1, int(lanes))) * self.step_s()
+
+    def unmeetable(self, deadline: Optional[float], now: float,
+                   remaining_tokens: int) -> bool:
+        """True when ``remaining_tokens`` more steps cannot finish before
+        ``deadline`` (absolute perf_counter time; None: no deadline)."""
+        if deadline is None:
+            return False
+        return now + self.eta_s(remaining_tokens) > deadline
 
 
 class _Request:
@@ -171,8 +217,13 @@ class ResilientServer:
                  unready_failure_rate: float = 0.5,
                  stall_timeout_s: float = 10.0,
                  reload_staleness_s: Optional[float] = None,
-                 max_tenants: int = 256):
+                 max_tenants: int = 256, extra_ready=None, oom_retry=None):
         self._pred = predictor
+        # extra_ready: () -> (checks, detail) merged into readyz;
+        # oom_retry: (DeviceMemoryError) -> bool, True when the handler
+        # freed device memory and the dispatch may run once more
+        self._extra_ready = extra_ready
+        self._oom_retry = oom_retry
         self.max_queue = int(getenv("MXNET_SERVE_MAX_QUEUE", 64)) \
             if max_queue is None else int(max_queue)
         if self.max_queue < 1:
@@ -539,6 +590,20 @@ class ResilientServer:
                 _metrics.SERVE_GOODPUT.set(t.served / t.admitted,
                                            tenant=t.name)
 
+    def _run_dispatch(self, stacked):
+        """One predictor dispatch with the registry's OOM second chance: a
+        ``DeviceMemoryError`` asks ``oom_retry``, and when it freed memory
+        the dispatch runs once more; a second one propagates."""
+        try:
+            return self._pred._predict_routed(stacked)
+        except _memory.DeviceMemoryError as e:
+            handler = self._oom_retry
+            if handler is None or not handler(e):
+                raise
+            log.warning("dispatch OOM handled by the budget arbiter — "
+                        "retrying once: %s", str(e))
+            return self._pred._predict_routed(stacked)
+
     def _dispatch_group(self, group: List[_Request]) -> None:
         t0 = time.perf_counter()
         # the authoritative expired-work gate, evaluated at dispatch
@@ -566,7 +631,7 @@ class ResilientServer:
                 for r in group:
                     if r.deadline is not None and t_start >= r.deadline:
                         self._expired_dispatches += 1
-                outs = self._pred._predict_routed(stacked)
+                outs = self._run_dispatch(stacked)
             lo = 0
             for r in group:
                 if not r.future.done():
@@ -703,10 +768,38 @@ class ResilientServer:
         # 6. the scheduler itself
         checks["scheduler_alive"] = (self._thread.is_alive()
                                      and self._fatal is None)
+        # 6b. the perf-regression sentinel: once a baseline is armed, an
+        # active step-time or dispatch regression takes the replica out
+        # of rotation (guarded: readiness never fails because of it)
+        try:
+            from ..observability import introspect as _int
+            if _int.ENABLED and _int.sentinel_armed():
+                active = _int.regression_active()
+                checks["perf_regression"] = not active
+                if active:
+                    detail["perf_sentinel"] = {
+                        p: {"kind": s["kind"],
+                            "baseline_p50_ms":
+                                (s["baseline"] or {}).get(
+                                    "step_time_p50_ms"),
+                            "current_p50_ms":
+                                (s["current"] or {}).get(
+                                    "step_time_p50_ms")}
+                        for p, s in _int.sentinel_state()["phases"].items()
+                        if s["active"]}
+        except Exception:  # noqa: BLE001 — the sentinel is best-effort here
+            pass
         # 7. declared SLOs (listed only when an operator declared one)
         if _goodput.ENABLED and _goodput.slo_armed():
             checks["slo_burn"] = not _goodput.slo_burning()
             detail["slo"] = _goodput.slo_state()
+        if self._extra_ready is not None:
+            try:
+                ec, ed = self._extra_ready()
+                checks.update(ec or {})
+                detail.update(ed or {})
+            except Exception:  # noqa: BLE001 — the hook is best-effort
+                pass
         ready = all(checks.values()) and not self._closed
         return ready, checks, detail
 

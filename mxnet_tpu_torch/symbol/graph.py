@@ -31,11 +31,13 @@ around the matrix products ride it); as in the JAX package, a run with
 overrides is not segmented.  ``running`` holds the index of the step
 being run, so a failure inside a captured step can name its op.
 
-Not ported: the channels-last layout pass (TPU only), the per-layer
-profiler scopes that the program introspector reads (``introspect``, the
-last part of ROADMAP item 5: the tracing, flight, memory and goodput
-layers are ported and wrap the runs from outside) and the RNN parameter
-hook (item 7).
+Each node runs inside ``introspect.layer_scope(node name)``: the
+introspector's counting pass books its flops (and, through the autograd
+nodes the scope tags, its backward's) under that layer, and a running
+profiler shows the range.  A run is one dispatch (``dispatch_unit``).
+
+Not ported: the channels-last layout pass (TPU only) and the RNN
+parameter hook (item 7).
 """
 from __future__ import annotations
 
@@ -49,6 +51,8 @@ import torch.utils.checkpoint
 
 from .. import random as _random
 from ..base import MXNetError, np_dtype, torch_dtype
+from ..observability import introspect as _introspect
+from ..observability import metrics as _metrics
 from ..ops import registry as _reg
 from .symbol import Symbol
 
@@ -213,12 +217,18 @@ class GraphPlan:
             si, oi = ref[1]
             return values[si][oi]
 
-        for si, step in enumerate(self.steps):
-            self.running = si
-            values[si] = self._call(
-                step, [resolve(r) for r in step.in_refs], is_train, device,
-                aux_values, step_overrides.get(si) if step_overrides
-                else None)
+        with _metrics.dispatch_unit("graph"):
+            for si, step in enumerate(self.steps):
+                self.running = si
+                ins = [resolve(r) for r in step.in_refs]
+                over = step_overrides.get(si) if step_overrides else None
+                if _introspect.ENABLED:
+                    with _introspect.layer_scope(step.node.name) as sc:
+                        values[si] = sc.tag(self._call(
+                            step, ins, is_train, device, aux_values, over))
+                else:
+                    values[si] = self._call(step, ins, is_train, device,
+                                            aux_values, over)
         self.running = None
         return [resolve(r) for r in self.out_refs], aux_values
 
@@ -302,7 +312,12 @@ class GraphPlan:
                     step = self.steps[si]
                     ins = [self._var(r[1], arg_values, aux) if r[0] == "var"
                            else local[r[1]] for r in step.in_refs]
-                    out = self._call(step, ins, is_train, device, aux)
+                    if _introspect.ENABLED:
+                        with _introspect.layer_scope(step.node.name) as sc:
+                            out = sc.tag(self._call(step, ins, is_train,
+                                                    device, aux))
+                    else:
+                        out = self._call(step, ins, is_train, device, aux)
                     for oi, v in enumerate(out):
                         local[(si, oi)] = v
                 return {kk: local[kk] for kk in live_out_keys}, aux
@@ -312,11 +327,12 @@ class GraphPlan:
                            if ref[0] == "val"})
         live: Dict[tuple, torch.Tensor] = {}
         aux = aux_values
-        for i, (b0, b1, _) in enumerate(segs):
-            nxt = segs[i + 1][2] if i + 1 < len(segs) else out_keys
-            live, aux = torch.utils.checkpoint.checkpoint(
-                make_seg(b0, b1, nxt), live, aux, use_reentrant=False,
-                preserve_rng_state=True)
+        with _metrics.dispatch_unit("graph"):
+            for i, (b0, b1, _) in enumerate(segs):
+                nxt = segs[i + 1][2] if i + 1 < len(segs) else out_keys
+                live, aux = torch.utils.checkpoint.checkpoint(
+                    make_seg(b0, b1, nxt), live, aux, use_reentrant=False,
+                    preserve_rng_state=True)
         return [self._var(r[1], arg_values, aux) if r[0] == "var"
                 else live[r[1]] for r in self.out_refs], aux
 

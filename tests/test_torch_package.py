@@ -35,7 +35,12 @@ def test_imports_with_jax_and_mxnet_tpu_blocked():
             "mxnet_tpu_torch.profiler, mxnet_tpu_torch.resilience, "
             "mxnet_tpu_torch.faultinject, "
             "mxnet_tpu_torch.gluon.supervisor, "
-            "mxnet_tpu_torch.gluon.data.prefetcher; "
+            "mxnet_tpu_torch.gluon.data.prefetcher, "
+            "mxnet_tpu_torch.observability.introspect, "
+            "mxnet_tpu_torch.autotune.sweep, "
+            "mxnet_tpu_torch.autotune.__main__, "
+            "mxnet_tpu_torch.serving.decode, "
+            "mxnet_tpu_torch.serving.registry; "
             "assert not any(m == 'jax' or m.startswith(('jax.', 'mxnet_tpu.')) "
             "for m in sys.modules if sys.modules[m] is not None); "
             "print(len(mx.nd.__dict__))")
