@@ -334,7 +334,30 @@ its plain version:
    requests from 4 tenant threads under a budget for two models, typed
    failures only, 12 sm90 K1 launches per dispatch and bucket build,
    counted;
-18. a ``kernels`` JSON line (the forward kernels' ``launches`` are phase
+18. RNN and sequences, which run none of the kernels above (the
+   recurrence is a loop over time of cuBLAS products and PyTorch's
+   pointwise kernels, as the JAX package leaves it to XLA): (a)
+   ``example/gluon/word_language_model.py``'s ``RNNModel`` at the upstream
+   example's large setting (``RNN_LM``: embed and hidden 1500, 2 LSTM
+   layers, dropout 0.65, untied, PTB's vocabulary of 10,000), hybridized,
+   float32, SGD lr 1.0 with ``clip_global_norm`` at 0.25 x bptt x batch,
+   B=32, bptt 35, ``RNN_STEPS`` steps over the example's synthetic Markov
+   corpus widened to 10,000 ids, with every kernel count set to 0 before
+   and read after (all 0): ms a step, tokens/s, one step's launches and
+   device-idle share under torch.profiler, a falling loss; then
+   ``RNN_GEN`` greedy tokens at B=1 carrying the state; (b) the ``RNN`` op
+   (lstm and gru, T=35, B=4, 2 x 1500) and ``_contrib_ctc_loss`` (T=64,
+   N=32, C=1500, with lengths, one row impossible) on the card against the
+   port's own CPU run in float64, outputs and gradients within
+   ``TOL_RECURRENT``; (c) ``example/rnn/lstm_bucketing.py`` at its defaults
+   through ``BucketingModule.fit`` (one epoch of its synthetic corpus):
+   the buckets bound, ms a batch per bucket, validation perplexity before
+   and after; then the same stack as a ``FusedRNNCell`` over one bucket
+   for ``FUSED_BATCHES`` batches against its ``unfuse()`` stack
+   (``TOL_UNFUSE``); (d) ``DecodeEngine`` over ``CellModel`` of two
+   ``LSTMCell(1500)`` (``CELL_DECODE``), 8 staggered requests of 32 tokens,
+   each equal to its solo run, tokens/s and a step's host clock;
+19. a ``kernels`` JSON line (the forward kernels' ``launches`` are phase
    8's, with phase 9's as ``training_launches``, phase 11's LM leg's as
    ``module_launches``, phase 12's bf16 ``MultiHeadAttention`` runs' as
    ``mha_launches``, its float32 runs' as ``mha_f32_launches`` and phase
@@ -347,7 +370,8 @@ its plain version:
    ``resume_launches``, phase 14's as ``mirror_launches`` and phase 15's
    as ``onestep_launches``, the f32 one's 0 on the main path; the f32
    kernels' ``bound_ms`` at 3xTF32's rate, ``fma_bound_ms`` at the CUDA
-   cores' float32 FMA rate),
+   cores' float32 FMA rate; every entry's ``recurrent_launches`` is phase
+   18 (a)'s count), after a ``recurrent`` JSON line of phase 18's figures,
    then the last line ``{"ok": true, "device": {...}}``.
 
 The language model is ``experiments/lm_mfu_probe.py``'s default width
@@ -524,16 +548,21 @@ def attention_bound_ms(B, H, T, D, causal, itemsize, flops_rate,
     return max(t_ops, t_bytes), ("operations" if t_ops > t_bytes else "bytes")
 
 
-def phase_setup(mx):
-    """Card, build, and the toolchain probe K0 against ``x + 1``."""
-    import torch
-    from mxnet_tpu_torch.kernels import _build, add_one
+def card_line():
+    """The card's name and power limit, as nvidia-smi gives them."""
     smi = subprocess.run(["nvidia-smi", "--id=0",
                           "--query-gpu=name,power.limit",
                           "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)
     check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr}")
-    print(smi.stdout.strip())
+    return smi.stdout.strip()
+
+
+def phase_setup(mx):
+    """Card, build, and the toolchain probe K0 against ``x + 1``."""
+    import torch
+    from mxnet_tpu_torch.kernels import _build, add_one
+    print(card_line())
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}")
     t0 = time.perf_counter()
@@ -883,11 +912,21 @@ def kernel_rows(fn):
         fn()
         torch.cuda.synchronize()
     # device-side events only: a CPU op's self device time repeats the
-    # time of the kernels it launched
-    return sorted(((a.self_device_time_total / 1e3, a.count, a.key)
-                   for a in prof.key_averages()
-                   if a.device_type != torch.autograd.DeviceType.CPU
-                   and a.self_device_time_total > 0), reverse=True)
+    # time of the kernels it launched, and so does the device span of a
+    # range a graph's layer scope annotates
+    rows, scopes = [], []
+    for a in prof.key_averages():
+        if a.device_type == torch.autograd.DeviceType.CPU \
+                or a.self_device_time_total <= 0:
+            continue
+        row = (a.self_device_time_total / 1e3, a.count, a.key)
+        (scopes if getattr(a, "is_user_annotation", False)
+         else rows).append(row)
+    if scopes:
+        print(f"      (torch.profiler: {sum(r[1] for r in scopes)} "
+              f"annotated ranges, {sum(r[0] for r in scopes):.3f} ms of "
+              f"device span, left out of the kernels)")
+    return sorted(rows, reverse=True)
 
 
 def phase_profile(mx, flash, prompt):
@@ -6230,6 +6269,705 @@ def phase_programs(mx, serve_obs):
     return reg["counts"]
 
 
+# ---------------------------------------------------------------------------
+# phase 18: RNN and sequences
+# ---------------------------------------------------------------------------
+# (a): example/gluon/word_language_model.py's RNNModel at the upstream
+# word_language_model README's large setting (embed and hidden 1500, 2
+# layers, dropout 0.65, untied), PTB's vocabulary, this repo's example's
+# batch, bptt, lr and clip
+RNN_LM = dict(vocab=10000, embed=1500, hidden=1500, layers=2, dropout=0.65)
+RNN_BATCH = 32
+RNN_BPTT = 35
+RNN_LR = 1.0
+RNN_CLIP = 0.25         # times bptt x batch, as the example clips
+RNN_STEPS = 20
+RNN_TIMED = 15          # the last 15 steps' median and spread
+RNN_GEN = 20            # greedy tokens at B=1, as the example's tail
+# (b): the RNN op and the CTC loss on the card against the CPU, float64
+RNN_CHECK = dict(T=35, B=4, hidden=1500, layers=2)
+CTC_CHECK = dict(T=64, N=32, C=1500, L=40)
+TOL_RECURRENT = 1e-4    # relative to each output's largest magnitude
+# (c): example/rnn/lstm_bucketing.py at its defaults, one epoch
+BUCKETS = [10, 20, 30, 40, 50, 60]
+BUCKET_LM = dict(layers=2, hidden=200, embed=200, batch=32, lr=0.01)
+FUSED_BUCKET = 30
+FUSED_BATCHES = 3
+TOL_UNFUSE = 1e-4
+# (d): CellModel over two LSTMCell(1500), PTB's vocabulary
+CELL_DECODE = dict(vocab=10000, hidden=1500, slots=16, page_tokens=16,
+                   pages=4, seqs=8, new=32, prompt=(4, 16), first=4, join=2)
+# (d)'s rate: a backlog that keeps the 16 slots full for seconds
+CELL_RATE = dict(seqs=256, new=(128, 384), prompt=(4, 16), pages=25)
+# (a): one step's gradients on the card against the CPU, float32, relative
+# to each gradient's largest magnitude
+TOL_LM_GRAD = 1e-4
+
+
+def markov_tokens(n, vocab, seed=0):
+    """``example/gluon/word_language_model.py``'s synthetic corpus: a
+    random transition per id, taken 9 times in 10."""
+    import numpy as np
+    rs = np.random.RandomState(seed)
+    trans = rs.randint(0, vocab, (vocab,))
+    toks = [int(rs.randint(0, vocab))]
+    for _ in range(n - 1):
+        toks.append(int(trans[toks[-1]]) if rs.rand() < 0.9
+                    else int(rs.randint(0, vocab)))
+    return toks
+
+
+def markov_sentences(n=2000, vocab=200, seed=0):
+    """``example/rnn/lstm_bucketing.py``'s synthetic corpus: sentences of
+    5 to 39 ids following one transition per id."""
+    import numpy as np
+    rs = np.random.RandomState(seed)
+    trans = rs.randint(1, vocab, (vocab,))
+    sents = []
+    for _ in range(n):
+        s = [int(rs.randint(1, vocab))]
+        for _ in range(rs.randint(5, 40) - 1):
+            s.append(int(trans[s[-1]]))
+        sents.append(s)
+    return sents
+
+
+def rnn_model(mx, **over):
+    """The example's ``RNNModel`` on the port: Embedding, dropout, the
+    fused 2-layer LSTM, dropout, Dense (``over`` replaces entries of
+    ``RNN_LM`` or passes the Block's ``prefix``)."""
+    from mxnet_tpu_torch import gluon
+    from mxnet_tpu_torch.gluon import nn, rnn
+
+    class RNNModel(gluon.Block):
+        def __init__(self, vocab, embed, hidden, layers, dropout, **kw):
+            super().__init__(**kw)
+            with self.name_scope():
+                self.drop = nn.Dropout(dropout)
+                self.encoder = nn.Embedding(vocab, embed)
+                self.rnn = rnn.LSTM(hidden, layers, dropout=dropout,
+                                    input_size=embed)
+                self.decoder = nn.Dense(vocab, in_units=hidden)
+                self.hidden = hidden
+
+        def forward(self, inputs, hidden):
+            emb = self.drop(self.encoder(inputs))
+            output, hidden = self.rnn(emb, hidden)
+            output = self.drop(output)
+            return self.decoder(output.reshape((-1, self.hidden))), hidden
+
+        def begin_state(self, *args, **kwargs):
+            return self.rnn.begin_state(*args, **kwargs)
+
+    return RNNModel(**dict(RNN_LM, **over))
+
+
+def lm_grad_check(mx, model, x, y):
+    """One hybridized step of the LM without dropout, on ``model``'s
+    weights and the batch (``x``, ``y``), from zero states: every
+    parameter's gradient on the card against the CPU's, float32.  Returns
+    {name: relative error}."""
+    import numpy as np
+    import torch
+    from mxnet_tpu_torch import autograd, gluon
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    xn, yn = mx.nd.asnumpy(x), mx.nd.asnumpy(y)
+    grads = []
+    for ctx in (mx.gpu(0), mx.cpu()):
+        net = rnn_model(mx, dropout=0.0, prefix="lmcheck_")
+        net.initialize(mx.init.Zero(), ctx=ctx)
+        names = list(model.collect_params().keys())
+        for p, src in zip(net.collect_params().values(),
+                          model.collect_params().values()):
+            p.set_data(src.data().detach())
+        net.hybridize()
+        hidden = net.begin_state(batch_size=xn.shape[1], ctx=ctx)
+        with autograd.record():
+            out, _ = net(mx.nd.array(xn, ctx=ctx), hidden)
+            L = loss_fn(out, mx.nd.array(yn, ctx=ctx))
+        L.backward()
+        grads.append([p.grad().detach().cpu() for p in
+                      net.collect_params().values()])
+        del net
+    check(all(bool(torch.isfinite(g).all()) and float(g.abs().max()) > 0
+              for g in grads[0]), "a gradient on the card is zero or not "
+          "finite")
+    return {n: rel_err(a, b) for n, a, b in zip(names, *grads)}
+
+
+def phase_rnn_lm(mx):
+    """(a) the full-width LSTM language model: training steps, one step
+    under torch.profiler, and stateful greedy decoding."""
+    import numpy as np
+    import torch
+    from mxnet_tpu_torch import autograd, gluon
+    ctx = mx.gpu(0)
+    B, T = RNN_BATCH, RNN_BPTT
+    toks = markov_tokens(T * B * (RNN_STEPS + 4) + 1, RNN_LM["vocab"])
+    n = len(toks) // B
+    data = mx.nd.array(np.asarray(toks[:n * B], np.float32).reshape(B, n).T,
+                       ctx=ctx)
+    mx.random.seed(0)
+    model = rnn_model(mx)
+    model.initialize(mx.init.Xavier(), ctx=ctx)
+    model.hybridize()
+    params = model.collect_params()
+    n_params = sum(int(np.prod(p.shape)) for p in params.values())
+    start = {n: p.data().detach().clone() for n, p in params.items()}
+    trainer = gluon.Trainer(params, "sgd", {"learning_rate": RNN_LR,
+                                            "momentum": 0, "wd": 0})
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    live = [p for p in params.values() if p.grad_req != "null"]
+    state = {"hidden": model.begin_state(batch_size=B, ctx=ctx), "i": 0}
+
+    def step():
+        i = state["i"] * T
+        state["i"] += 1
+        x = data[i:i + T]
+        y = data[i + 1:i + 1 + T].reshape((-1,))
+        hidden = [h.detach() for h in state["hidden"]]
+        with autograd.record():
+            out, hidden = model(x, hidden)
+            L = loss_fn(out, y)
+        L.backward()
+        gluon.utils.clip_global_norm([p.grad() for p in live],
+                                     RNN_CLIP * T * B)
+        trainer.step(T * B)
+        state["hidden"] = hidden
+        return float(L.detach().mean())
+
+    losses, walls = [], []
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(RNN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(step())
+        walls.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    timed = walls[-RNN_TIMED:]
+    step_ms = statistics.median(timed)
+    rows = kernel_rows(step)
+    launches = sum(r[1] for r in rows)
+    busy = sum(r[0] for r in rows)
+    print(f"  (a) RNNModel (vocab {RNN_LM['vocab']}, embed "
+          f"{RNN_LM['embed']}, 2-layer LSTM {RNN_LM['hidden']}, dropout "
+          f"{RNN_LM['dropout']}; {n_params / 1e6:.1f} M parameters, "
+          f"float32, TF32 off), hybridized, SGD lr {RNN_LR}, clip "
+          f"{RNN_CLIP} x bptt x batch, B={B}, bptt {T}: {RNN_STEPS} steps")
+    print(f"      a step (last {RNN_TIMED}, host clock, synchronized): "
+          f"median {step_ms:.2f} ms (min {min(timed):.2f}, max "
+          f"{max(timed):.2f}); first step {walls[0]:.1f} ms; "
+          f"{T * B / step_ms * 1e3:.0f} tokens/s; peak {peak:.2f} GiB")
+    if rows:
+        print(f"      one profiled step: {launches} kernel launches, "
+              f"{busy:.2f} ms of kernels, device idle "
+              f"{100 * max(0.0, 1 - busy / step_ms):.1f} % of the median "
+              f"step")
+        for ms, count, key in rows[:6]:
+            print(f"        {ms:8.3f} ms  x{count:<5d} {key[:90]}")
+    else:
+        print("      launches and idle share not measured: torch.profiler "
+              "saw no device time")
+    print(f"      loss first {losses[0]:.4f}, last {losses[-1]:.4f}, "
+          f"all: {[round(v, 3) for v in losses]}")
+    check(all(math.isfinite(v) for v in losses), "LM loss not finite")
+    check(losses[-1] < losses[0], f"LM loss did not fall: {losses}")
+    # every parameter took its share of the steps, the LSTM's too
+    moved = {n: float((p.data().detach() - start[n]).abs().max())
+             for n, p in params.items()}
+    del start
+    least = min(moved, key=moved.get)
+    print(f"      {sum(v > 0 for v in moved.values())} of {len(moved)} "
+          f"parameters moved over the {RNN_STEPS + 1} steps (the least: "
+          f"{least}, by {moved[least]:.3e} at most)")
+    check(all(v > 0 for v in moved.values()),
+          f"parameters that did not move: "
+          f"{[n for n, v in moved.items() if v == 0]}")
+    t0 = time.perf_counter()
+    grad_errs = lm_grad_check(mx, model, data[:T], data[1:T + 1].reshape(
+        (-1,)))
+    worst = max(grad_errs, key=grad_errs.get)
+    print(f"      one hybridized step without dropout on the trained "
+          f"weights and the first batch: the gradients of all "
+          f"{len(grad_errs)} parameters on the card against the CPU, "
+          f"float32: max relative error {grad_errs[worst]:.3e} ({worst}; "
+          f"{time.perf_counter() - t0:.1f} s)")
+    check(grad_errs[worst] <= TOL_LM_GRAD,
+          f"LM gradients on the card against the CPU: {grad_errs}")
+    # stateful greedy decoding at B=1, as the example's tail
+    hidden = model.begin_state(batch_size=1, ctx=ctx)
+    cur, gen, tok_ms = [float(toks[0])], [], []
+    for _ in range(RNN_GEN):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, hidden = model(mx.nd.array([cur], ctx=ctx), hidden)
+        nxt = int(torch.argmax(logits[-1]))
+        tok_ms.append((time.perf_counter() - t0) * 1e3)
+        gen.append(nxt)
+        cur = [float(nxt)]
+    print(f"      {RNN_GEN} greedy tokens at B=1 carrying the state: "
+          f"median {statistics.median(tok_ms[1:]):.2f} ms a token; {gen}")
+    check(len(gen) == RNN_GEN and all(0 <= t < RNN_LM["vocab"]
+                                      for t in gen), "decode malformed")
+    out = {"step_ms": step_ms, "step_min": min(timed),
+           "step_max": max(timed), "tokens_s": T * B / step_ms * 1e3,
+           "launches": launches if rows else None,
+           "busy_ms": busy if rows else None, "loss0": losses[0],
+           "loss1": losses[-1], "token_ms": statistics.median(tok_ms[1:]),
+           "peak_gib": peak, "grad_err": grad_errs[worst]}
+    del model, trainer, data
+    return out
+
+
+def rel_err(got, want):
+    """max |got - want| over max |want| (or 1 when that is 0)."""
+    import torch
+    got, want = got.detach().double().cpu(), want.detach().double().cpu()
+    scale = float(want.abs().max()) or 1.0
+    return float((got - want).abs().max()) / scale
+
+
+def card_and_cpu(mx, fn, arrays):
+    """``fn`` on the card and on the CPU over the same float64 arrays:
+    (outputs and input gradients of sum(out * w), for each device)."""
+    import numpy as np
+    import torch
+    res = []
+    for ctx in (mx.gpu(0), mx.cpu()):
+        xs = [mx.nd.attach_grad(mx.nd.array(a, ctx=ctx, dtype="float64"))
+              if a.dtype == np.float64 else mx.nd.array(a, ctx=ctx)
+              for a in arrays]
+        with mx.autograd.record():
+            outs = fn(*xs)
+            rs = np.random.RandomState(3)
+            head = sum((o * torch.as_tensor(rs.uniform(
+                0.5, 1.5, tuple(o.shape)), device=o.device)).sum()
+                for o in outs)
+        head.backward()
+        res.append([o.detach() for o in outs] +
+                   [mx.nd.grad(x) for x in xs if x.requires_grad])
+    return res
+
+
+def phase_recurrent_card(mx):
+    """(b) the RNN op (lstm, gru) and the CTC loss on the card against the
+    port's CPU run of the same function, float64."""
+    import numpy as np
+    import torch
+    from mxnet_tpu_torch.ops.sequence import rnn_param_size
+    c = RNN_CHECK
+    H, L = c["hidden"], c["layers"]
+    errs = {}
+    for mode in ("lstm", "gru"):
+        rs = np.random.RandomState(18)
+        n = rnn_param_size(L, H, H, False, mode)
+        arrays = [rs.normal(size=(c["T"], c["B"], H)),
+                  rs.uniform(-1, 1, n) / math.sqrt(H),
+                  rs.normal(size=(L, c["B"], H)) * 0.5]
+        if mode == "lstm":
+            arrays.append(rs.normal(size=(L, c["B"], H)) * 0.5)
+
+        def fn(*xs, mode=mode):
+            return mx.nd.RNN(*xs, state_size=H, num_layers=L, mode=mode,
+                             state_outputs=True)
+        t0 = time.perf_counter()
+        card, cpu = card_and_cpu(mx, fn, arrays)
+        errs[mode] = max(rel_err(a, b) for a, b in zip(card, cpu))
+        print(f"  (b) RNN {mode}, T={c['T']}, B={c['B']}, {L}x{H}, float64: "
+              f"outputs and the gradients of data, parameters and states, "
+              f"card against CPU: max relative error {errs[mode]:.3e} "
+              f"({time.perf_counter() - t0:.1f} s)")
+    k = CTC_CHECK
+    rs = np.random.RandomState(19)
+    data_len = rs.randint(48, k["T"] + 1, k["N"]).astype(np.float32)
+    label_len = rs.randint(10, k["L"] + 1, k["N"]).astype(np.float32)
+    data_len[0], label_len[0] = 20, 30          # an impossible alignment
+    label = rs.randint(1, k["C"], (k["N"], k["L"])).astype(np.float32)
+    arrays = [rs.normal(size=(k["T"], k["N"], k["C"])), label, data_len,
+              label_len]
+
+    def ctc(x, lab, dl, ll):
+        return [mx.nd.contrib.ctc_loss(x, lab, dl, ll, use_data_lengths=True,
+                                       use_label_lengths=True)]
+    card, cpu = card_and_cpu(mx, ctc, arrays)
+    errs["ctc"] = max(rel_err(a, b) for a, b in zip(card, cpu))
+    print(f"      _contrib_ctc_loss, T={k['T']}, N={k['N']}, C={k['C']}, "
+          f"with lengths (row 0 impossible: {float(card[0][0]):.2f}), "
+          f"float64: loss and its gradient, card against CPU: max relative "
+          f"error {errs['ctc']:.3e}")
+    check(max(errs.values()) <= TOL_RECURRENT,
+          f"recurrent ops on the card against the CPU: {errs}")
+    check(1e5 < float(card[0][0]) < 2e5, "the impossible row's loss")
+    # the op's forward and backward in float32, beside torch's ctc_loss on
+    # the same inputs: with (b)'s impossible row (torch's kernel and the
+    # recursion), then with row 0 made possible (torch's kernel alone),
+    # its labels and lengths on the card and on the host
+    dev = card[0][0].device
+    x = torch.tensor(arrays[0], dtype=torch.float32, device=dev,
+                     requires_grad=True)
+    fit = [a.copy() for a in arrays[1:]]
+    fit[1][0], fit[2][0] = k["T"], 10
+    cases = {"odd row": [torch.tensor(a, device=dev) for a in arrays[1:]],
+             "card": [torch.tensor(a, device=dev) for a in fit],
+             "host": [torch.tensor(a) for a in fit]}
+
+    def op(lab, dl, ll):
+        mx.nd.contrib.ctc_loss(x, lab, dl, ll, use_data_lengths=True,
+                               use_label_lengths=True).sum().backward()
+
+    def library():
+        lab, dl, ll = cases["card"]
+        torch.nn.functional.ctc_loss(
+            torch.log_softmax(x, -1), lab.long(), dl.long(), ll.long(),
+            reduction="none", zero_infinity=True).sum().backward()
+    ctc_ms = {name: host_clock_ms(lambda a=a: op(*a))
+              for name, a in cases.items()}
+    ctc_ms["torch"] = host_clock_ms(library)
+    print(f"      CTC forward and backward, float32, host clock "
+          f"(synchronized, median of 5): the op {ctc_ms['odd row']:.3f} ms "
+          f"with the impossible row (torch's kernel and optax's "
+          f"recursion), {ctc_ms['card']:.3f} ms without it (labels on the "
+          f"card: one wait to find the odd rows), {ctc_ms['host']:.3f} ms "
+          f"with labels and lengths on the host; torch's ctc_loss alone "
+          f"{ctc_ms['torch']:.3f} ms")
+    cap_err, ctc_ms["captured"] = ctc_capture(mx, arrays)
+    print(f"      CTC forward captured in a CUDA graph (optax's recursion "
+          f"for every row, float64, (b)'s inputs): each row within "
+          f"{cap_err:.3e} of the eager op, a replay "
+          f"{ctc_ms['captured']:.3f} ms of device time")
+    check(cap_err <= TOL_RECURRENT, f"the captured CTC differs: {cap_err}")
+    return errs, ctc_ms
+
+
+def ctc_capture(mx, arrays):
+    """The CTC op's forward captured in a CUDA graph on the card against
+    the eager op, row by row: (largest relative error, ms a replay)."""
+    import torch
+    x, lab, dl, ll = (torch.tensor(a, device="cuda") for a in arrays)
+
+    def fwd():
+        return mx.nd.contrib.ctc_loss(x, lab, dl, ll, use_data_lengths=True,
+                                      use_label_lengths=True)
+    want = fwd()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fwd()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = fwd()
+    graph.replay()
+    torch.cuda.synchronize()
+    err = float(((got - want).abs() / want.abs()).max())
+    return err, device_ms(graph.replay)
+
+
+class KeyedIter:
+    """A ``BucketSentenceIter`` that records the bucket of each batch it
+    hands out (the fit loop's per-bucket times), and stops after ``limit``
+    batches when given."""
+
+    def __init__(self, it, limit=None):
+        self.it, self.keys, self.limit, self.count = it, [], limit, 0
+        self.provide_data, self.provide_label = it.provide_data, \
+            it.provide_label
+        self.default_bucket_key = it.default_bucket_key
+        self.batch_size = it.batch_size
+
+    def __iter__(self):
+        return self
+
+    def reset(self):
+        self.it.reset()
+        self.count = 0
+
+    def __next__(self):
+        if self.limit is not None and self.count >= self.limit:
+            raise StopIteration
+        b = self.it.next()
+        self.count += 1
+        self.keys.append(b.bucket_key)
+        return b
+
+    next = __next__
+
+
+def bucket_sym_gen(mx, cell, vocab, fused=False):
+    """``example/rnn/lstm_bucketing.py``'s ``sym_gen`` over ``cell``."""
+    c = BUCKET_LM
+
+    def sym_gen(seq_len):
+        data = mx.sym.Variable("data")
+        label = mx.sym.Variable("softmax_label")
+        embed = mx.sym.Embedding(data, input_dim=vocab,
+                                 output_dim=c["embed"], name="embed")
+        cell.reset()
+        outputs, _ = cell.unroll(seq_len, inputs=embed, merge_outputs=True)
+        pred = mx.sym.Reshape(outputs, shape=(-1, c["hidden"]))
+        pred = mx.sym.FullyConnected(pred, num_hidden=vocab, name="pred")
+        label = mx.sym.Reshape(label, shape=(-1,))
+        pred = mx.sym.SoftmaxOutput(pred, label, name="softmax")
+        return pred, ("data",), ("softmax_label",)
+    return sym_gen
+
+
+def phase_bucketing(mx):
+    """(c) ``BucketingModule.fit`` at ``lstm_bucketing.py``'s defaults,
+    then the same stack as a ``FusedRNNCell`` against its ``unfuse()``."""
+    import random
+    import numpy as np
+    import torch
+    from mxnet_tpu_torch.ops.sequence import _unpack_rnn_params
+    c = BUCKET_LM
+    random.seed(0)
+    np.random.seed(0)
+    corpus = markov_sentences()
+    split = int(0.9 * len(corpus))
+    train = mx.rnn.BucketSentenceIter(corpus[:split], c["batch"],
+                                      buckets=list(BUCKETS), invalid_label=0)
+    val = mx.rnn.BucketSentenceIter(corpus[split:], c["batch"],
+                                    buckets=list(BUCKETS), invalid_label=0)
+    vocab = max(max(s) for s in corpus) + 1
+    vocab = max(vocab, 201)        # the example's len(vocab) + 1
+    stack = mx.rnn.SequentialRNNCell()
+    for i in range(c["layers"]):
+        stack.add(mx.rnn.LSTMCell(num_hidden=c["hidden"],
+                                  prefix=f"lstm_l{i}_"))
+    mod = mx.mod.BucketingModule(bucket_sym_gen(mx, stack, vocab),
+                                 default_bucket_key=train.default_bucket_key,
+                                 context=mx.gpu(0))
+    mod.bind(train.provide_data, train.provide_label)
+    mod.init_params(mx.init.Xavier(factor_type="in", magnitude=2.34))
+    ppl0 = dict(mod.score(val, mx.metric.Perplexity(ignore_label=0)))
+    keyed = KeyedIter(train)
+    marks, per_bucket = [], {}
+
+    def on_batch(param):
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        if len(marks) > 1:
+            key = keyed.keys[len(marks) - 1]
+            per_bucket.setdefault(key, []).append(
+                (marks[-1] - marks[-2]) * 1e3)
+
+    t0 = time.perf_counter()
+    mod.fit(keyed, eval_metric=mx.metric.Perplexity(ignore_label=0),
+            kvstore="local", optimizer="adam",
+            optimizer_params={"learning_rate": c["lr"]},
+            initializer=mx.init.Xavier(factor_type="in", magnitude=2.34),
+            num_epoch=1, batch_end_callback=on_batch)
+    t_fit = time.perf_counter() - t0
+    ppl1 = dict(mod.score(val, mx.metric.Perplexity(ignore_label=0)))
+    bound = sorted(mod._buckets)
+    print(f"  (c) BucketingModule.fit, lstm_bucketing.py's defaults (2 "
+          f"LSTMCell of {c['hidden']}, embed {c['embed']}, vocab {vocab}, "
+          f"B={c['batch']}, Adam lr {c['lr']}): one epoch of "
+          f"{len(keyed.keys)} batches in {t_fit:.2f} s; buckets bound "
+          f"{bound}")
+    print("      ms a batch by bucket (median, host clock, synchronized; "
+          "a bucket's first batch binds the next one): " + ", ".join(
+              f"{k}: {statistics.median(v):.1f} ({len(v)})"
+              for k, v in sorted(per_bucket.items())))
+    print(f"      validation perplexity before {ppl0['perplexity']:.2f}, "
+          f"after {ppl1['perplexity']:.2f}")
+    check(ppl1["perplexity"] < ppl0["perplexity"],
+          f"perplexity did not fall: {ppl0} -> {ppl1}")
+    # the same stack as one FusedRNNCell, one bucket, a few batches
+    random.seed(0)
+    np.random.seed(0)
+    one = mx.rnn.BucketSentenceIter(corpus[:split], c["batch"],
+                                    buckets=[FUSED_BUCKET], invalid_label=0)
+    fused = mx.rnn.FusedRNNCell(c["hidden"], num_layers=c["layers"],
+                                mode="lstm", prefix="lstm_")
+    fmod = mx.mod.BucketingModule(bucket_sym_gen(mx, fused, vocab),
+                                  default_bucket_key=FUSED_BUCKET,
+                                  context=mx.gpu(0))
+    fmod.bind(one.provide_data, one.provide_label)
+    rs = np.random.RandomState(20)
+    size = mx.ops.sequence.rnn_param_size(c["layers"], c["embed"],
+                                          c["hidden"], False, "lstm")
+    # the FusedRNN initializer (init None) fails in both packages: draw
+    # the packed vector here
+    fmod.init_params(mx.init.Xavier(factor_type="in", magnitude=2.34),
+                     arg_params={"lstm_parameters": mx.nd.array(
+                         rs.uniform(-0.08, 0.08, size).astype(np.float32),
+                         ctx=mx.cpu())}, allow_missing=True)
+    fmod.fit(KeyedIter(one, FUSED_BATCHES), kvstore="local",
+             optimizer="adam", optimizer_params={"learning_rate": c["lr"]},
+             eval_metric=mx.metric.Perplexity(ignore_label=0), num_epoch=1)
+    args, _ = fmod.get_params()
+    one.reset()
+    batch = one.next()
+    fmod.forward(batch, is_train=False)
+    want = fmod.get_outputs()[0]
+    unfused = fused.unfuse()
+    umod = mx.mod.Module(bucket_sym_gen(mx, unfused, vocab)(FUSED_BUCKET)[0],
+                         context=mx.gpu(0))
+    umod.bind(one.provide_data, one.provide_label, for_training=False)
+    ws, rws, bws, brs = _unpack_rnn_params(
+        args["lstm_parameters"], c["layers"], c["embed"], c["hidden"],
+        False, "lstm")
+    uargs = {k: v for k, v in args.items() if k != "lstm_parameters"}
+    for i in range(c["layers"]):
+        for name, v in (("i2h_weight", ws[i][0]), ("h2h_weight", rws[i][0]),
+                        ("i2h_bias", bws[i][0]), ("h2h_bias", brs[i][0])):
+            uargs[f"lstm_l{i}_{name}"] = v.clone()
+    umod.set_params(uargs, {})
+    umod.forward(batch, is_train=False)
+    got = umod.get_outputs()[0]
+    err = rel_err(got, want)
+    print(f"      FusedRNNCell (2 x {c['hidden']}, one bucket of "
+          f"{FUSED_BUCKET}, {FUSED_BATCHES} Adam batches) against its "
+          f"unfuse() stack on the trained weights: max relative error "
+          f"{err:.3e}")
+    check(err <= TOL_UNFUSE, f"unfuse() differs by {err:.3e}")
+    return {"batches": len(keyed.keys), "fit_s": t_fit, "buckets": bound,
+            "ms": {k: statistics.median(v) for k, v in per_bucket.items()},
+            "ppl0": ppl0["perplexity"], "ppl1": ppl1["perplexity"],
+            "unfuse_err": err}
+
+
+def phase_cell_decode(mx):
+    """(d) ``DecodeEngine`` over ``CellModel`` of two ``LSTMCell(1500)``:
+    staggered requests, each against its solo run."""
+    import gc
+    import numpy as np
+    import torch
+    from mxnet_tpu_torch.serving.decode import CellModel, DecodeEngine
+    gc.collect()
+    torch.cuda.empty_cache()
+    d = CELL_DECODE
+    stack = mx.rnn.SequentialRNNCell()
+    for i in range(2):
+        stack.add(mx.rnn.LSTMCell(num_hidden=d["hidden"],
+                                  prefix=f"lstm_l{i}_"))
+    model = CellModel(stack, vocab=d["vocab"], seed=0)
+    params = model.init_params()
+    kw = dict(params=params, slots=d["slots"], page_tokens=d["page_tokens"],
+              max_pages=d["pages"])
+    eng = DecodeEngine(model, warmup=False, name="cell", **kw)
+    t0 = time.perf_counter()
+    n_keys = eng.warmup()
+    t_warm = time.perf_counter() - t0
+    rs = np.random.RandomState(21)
+    seqs = [([int(t) for t in rs.randint(0, d["vocab"], rs.randint(
+        d["prompt"][0], d["prompt"][1] + 1))], d["new"])
+        for _ in range(d["seqs"])]
+    st0 = eng.stats()
+    futs = [eng.submit(*s) for s in seqs[:d["first"]]]
+    nxt, k, walls = d["first"], 0, []
+    t0 = time.perf_counter()
+    while nxt < d["seqs"] or eng.pending():
+        ts = time.perf_counter()
+        eng.step()
+        walls.append((time.perf_counter() - ts) * 1e3)
+        k += 1
+        if nxt < d["seqs"] and k % d["join"] == 0:
+            futs.append(eng.submit(*seqs[nxt]))
+            nxt += 1
+    t_traffic = time.perf_counter() - t0
+    outs = [f.result(timeout=60) for f in futs]
+    st = eng.stats()
+    steps, replays = st["steps"] - st0["steps"], st["replays"] - st0[
+        "replays"]
+    tokens = sum(len(o) for o in outs)
+    eng.close()
+    solo = DecodeEngine(model, warmup=False, name="cell-solo", **kw)
+    same = sum(solo.generate(*s) == o for s, o in zip(seqs, outs))
+    solo.close()
+    print(f"  (d) DecodeEngine(CellModel(2 x LSTMCell({d['hidden']})), vocab "
+          f"{d['vocab']}, {d['slots']} slots, pages of {d['page_tokens']}, "
+          f"{d['pages']} pages): {n_keys} keys captured in {t_warm:.2f} s; "
+          f"{d['seqs']} staggered requests of {d['new']} tokens: {steps} "
+          f"steps, {replays} replays, {tokens} tokens, a step's host clock "
+          f"median {statistics.median(walls):.3f} ms; tokens equal to the "
+          f"solo run for {same} of {d['seqs']}")
+    check(replays == steps, f"{replays} replays for {steps} steps")
+    check(all(len(o) == d["new"] for o in outs), "a request ended short")
+    check(same == d["seqs"], f"{d['seqs'] - same} requests differ from "
+          "their solo runs")
+    rate = cell_decode_rate(model, params, d["slots"], d["page_tokens"])
+    return dict(rate, step_ms=statistics.median(walls), same=same)
+
+
+def cell_decode_rate(model, params, slots, page_tokens):
+    """(d)'s rate: ``CELL_RATE["seqs"]`` sequences queued at once on an
+    engine with room for them, so that its slots stay full for seconds
+    while sequences leave and join."""
+    import collections
+    import numpy as np
+    from mxnet_tpu_torch.serving.decode import DecodeEngine
+    r = CELL_RATE
+    eng = DecodeEngine(model, params=params, slots=slots,
+                       page_tokens=page_tokens, max_pages=r["pages"],
+                       max_queue=r["seqs"], warmup=False, name="cell-rate")
+    n_keys = eng.warmup()
+    rs = np.random.RandomState(22)
+    seqs = [([int(t) for t in rs.randint(0, model.vocab, rs.randint(
+        r["prompt"][0], r["prompt"][1] + 1))],
+        int(rs.randint(r["new"][0], r["new"][1] + 1))) for _ in range(
+            r["seqs"])]
+    st0 = eng.stats()
+    futs = [eng.submit(*s) for s in seqs]
+    walls, live, keys = [], [], collections.Counter()
+    t0 = time.perf_counter()
+    while True:
+        ts = time.perf_counter()
+        n = eng.step()
+        if n == 0:
+            break
+        walls.append((time.perf_counter() - ts) * 1e3)
+        live.append(n)
+        keys[eng._key] += 1
+    t_traffic = time.perf_counter() - t0
+    outs = [f.result(timeout=60) for f in futs]
+    st = eng.stats()
+    steps, replays = st["steps"] - st0["steps"], st["replays"] - st0[
+        "replays"]
+    tokens = sum(len(o) for o in outs)
+    top = max(keys, key=keys.get)
+    dev_ms = device_ms(lambda: eng._compiled[top]["graph"].replay())
+    eng.close()
+    mean_live = statistics.mean(live)
+    print(f"      the rate: {r['seqs']} sequences of {r['new'][0]}-"
+          f"{r['new'][1]} new tokens queued at once ({r['pages']} pages, "
+          f"{n_keys} keys captured): {steps} steps, {replays} replays, "
+          f"{tokens} tokens in {t_traffic:.2f} s ({tokens / t_traffic:.1f} "
+          f"tokens/s), {mean_live:.2f} of {slots} slots live a step on "
+          f"average; a step's host clock median {statistics.median(walls):.3f}"
+          f" ms (p90 {percentile(walls, 90):.3f}); the most used key {top} "
+          f"({keys[top]} steps) replays in {dev_ms:.4f} ms of device time")
+    check(replays == steps, f"{replays} replays for {steps} steps")
+    check(all(len(o) == s[1] for o, s in zip(outs, seqs)),
+          "a sequence ended short")
+    check(mean_live >= 0.9 * slots, f"the backlog kept {mean_live:.2f} of "
+          f"{slots} slots live")
+    return {"tokens_s": tokens / t_traffic, "rate_s": t_traffic,
+            "rate_tokens": tokens, "live": mean_live,
+            "rate_step_ms": statistics.median(walls), "device_ms": dev_ms}
+
+
+def phase_recurrent(mx):
+    """Phase 18: the recurrent slice, every kernel count set to 0 before
+    its main path (a), read after it: the path runs no flash kernel."""
+    import torch
+    card = card_line()
+    print(f"  {card}")
+    torch.cuda.synchronize()
+    reset_counts()
+    lm = phase_rnn_lm(mx)
+    counts = read_counts()
+    print(f"      kernel launches counted on (a)'s path: {counts}")
+    check(all(v == 0 for v in counts.values()),
+          "the recurrent path launched a counted kernel")
+    errs, ctc_ms = phase_recurrent_card(mx)
+    bucket = phase_bucketing(mx)
+    dec = phase_cell_decode(mx)
+    return counts, {"card": card, "lm": lm, "errs": errs,
+                    "ctc_ms": ctc_ms, "bucketing": bucket, "decode": dec}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -6346,6 +7084,25 @@ def main():
         t_prog = time.perf_counter()
         registry_counts = phase_programs(mx, serve_obs)
         print(f"phase 17: {time.perf_counter() - t_prog:.1f} s")
+        print("== phase 18: RNN and sequences (the fused RNN op, CTC, "
+              "gluon.rnn, mx.rnn, BucketingModule, CellModel)")
+        t_rnn = time.perf_counter()
+        recurrent_counts, recurrent = phase_recurrent(mx)
+        print(f"phase 18: {time.perf_counter() - t_rnn:.1f} s")
+        print(json.dumps({"recurrent": {
+            "card": recurrent["card"],
+            "lm_step_ms": recurrent["lm"]["step_ms"],
+            "lm_tokens_s": recurrent["lm"]["tokens_s"],
+            "lm_launches_a_step": recurrent["lm"]["launches"],
+            "lm_loss": [recurrent["lm"]["loss0"], recurrent["lm"]["loss1"]],
+            "card_vs_cpu_rel_err": recurrent["errs"],
+            "bucketing_ppl": [recurrent["bucketing"]["ppl0"],
+                              recurrent["bucketing"]["ppl1"]],
+            "lm_grad_card_vs_cpu_rel_err": recurrent["lm"]["grad_err"],
+            "ctc_fwd_bwd_ms": recurrent["ctc_ms"],
+            "decode_tokens_s": recurrent["decode"]["tokens_s"],
+            "decode_live_slots": recurrent["decode"]["live"],
+            "decode_rate_s": recurrent["decode"]["rate_s"]}}))
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -6472,6 +7229,11 @@ def main():
             f"flash_attention.{variant}", 0)
         entry["registry_launches"] = registry_counts[
             f"flash_attention.{variant}"]
+    # phase 18's recurrent path (a), counted: it runs none of them
+    for entry, key in zip(kernels_line["kernels"], (
+            "add_one", "flash_attention.sm90", "flash_attention.f32",
+            "flash_attention.bwd.sm90", "flash_attention.bwd.f32")):
+        entry["recurrent_launches"] = recurrent_counts[key]
     for entry, variant in zip(kernels_line["kernels"][3:5], ("sm90", "f32")):
         entry["module_launches"] = module_counts[
             f"flash_attention.bwd.{variant}"]

@@ -25,8 +25,10 @@ iterators read ``.rec`` files, the raw-tensor ones through the native
 host runtime (``_native``, built from ``src/runtime`` with g++ on first
 use).  ``mx.checkpoint`` writes atomic, validated checkpoint
 directories (async, with retention) that resume a Trainer or a
-``Module.fit`` and hot-reload a served predictor.  It imports torch and
-numpy, never jax or the JAX package.
+``Module.fit`` and hot-reload a served predictor.  ``gluon.rnn``,
+``mx.rnn``, ``mx.mod.BucketingModule``, the sequence ops and the CTC loss
+train and serve recurrent models.  It imports torch and numpy, never jax
+or the JAX package.
 """
 
 __version__ = "1.0.0.torch0"
@@ -39,6 +41,7 @@ from . import autograd
 from . import ops  # registers all operators
 from . import ndarray
 from . import ndarray as nd
+from .ndarray import NDArray
 from . import attribute
 from .attribute import AttrScope
 from . import symbol
@@ -46,11 +49,13 @@ from . import symbol as sym
 from .symbol import Symbol
 from . import random
 from . import name
+from .name import NameManager
 from . import initializer
 from .initializer import init
 from . import kernels
 from . import lr_scheduler
 from . import optimizer
+from .optimizer import Optimizer
 from . import metric
 from . import gluon
 from . import convert
@@ -60,14 +65,21 @@ from . import serving
 from . import executor
 from . import kvstore
 from . import kvstore as kv
+from .kvstore import KVStore
 from . import io
 from . import recordio
 from . import image
 from . import model
 from . import module
 from . import module as mod
+from . import rnn
+from . import contrib
+nd.contrib = contrib.ndarray
+sym.contrib = contrib.symbol
 from . import callback
 from . import monitor
+from . import monitor as mon
+from .monitor import Monitor
 from . import checkpoint
 from . import autotune
 from . import analysis

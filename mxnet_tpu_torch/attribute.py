@@ -20,12 +20,20 @@ class AttrScope:
     def get(self, attr: Optional[Dict[str, str]]) -> Dict[str, str]:
         return current_attrs(attr)
 
+    @staticmethod
+    def current() -> "AttrScope":
+        """The innermost scope entered, else an empty default one."""
+        return AttrScope._stack.top() or _DEFAULT
+
     def __enter__(self):
         AttrScope._stack.push(self)
         return self
 
     def __exit__(self, *exc):
         AttrScope._stack.pop()
+
+
+_DEFAULT = AttrScope()
 
 
 def current_attrs(attr=None) -> Dict[str, str]:

@@ -6,11 +6,12 @@ The counterpart of ``mxnet_tpu/callback.py``: the epoch-end checkpointers
 ``LogValidationMetricsCallback``).  Batch-end callbacks receive a
 ``BatchEndParam`` (``epoch``, ``nbatch``, ``eval_metric``); epoch-end
 callbacks are called as ``cb(epoch, symbol, arg_params, aux_params)``.
+With ``MXNET_CHECKPOINT_DIR`` set (read at each call), the checkpointers
+save through ``checkpoint.env_manager()``'s atomic manager, the epoch
+number as the step, as the JAX package's do.
 
-Not ported: the JAX package's ``MXNET_CHECKPOINT_DIR`` route through its
-checkpoint manager (ROADMAP.md, queue item 4), and
-``do_checkpoint(reference_format=True)``, the reference-era binary
-container (item 6).
+Not ported: ``do_checkpoint(reference_format=True)``, the reference-era
+binary container (item 6).
 """
 from __future__ import annotations
 
@@ -32,11 +33,20 @@ def _metric_pairs(param):
     return m.get_name_value() if m else []
 
 
-def _checkpointer(save_fn, period):
+def _checkpointer(save_fn, period, managed_fn):
+    """Every ``period`` epochs: ``managed_fn(manager, n, ...)`` when
+    ``MXNET_CHECKPOINT_DIR`` names a managed directory, else
+    ``save_fn(n, ...)``'s prefix files."""
     period = max(1, int(period))
 
     def on_epoch_end(epoch, sym=None, arg=None, aux=None):
-        if _due(epoch + 1, period):
+        if not _due(epoch + 1, period):
+            return
+        from .checkpoint import env_manager
+        mgr = env_manager()
+        if mgr is not None:
+            managed_fn(mgr, epoch + 1, sym, arg, aux)
+        else:
             save_fn(epoch + 1, sym, arg, aux)
 
     return on_epoch_end
@@ -44,22 +54,40 @@ def _checkpointer(save_fn, period):
 
 def do_checkpoint(prefix, period=1, reference_format=False):
     """Save the symbol and parameters to ``prefix``-NNNN.params every
-    ``period`` epochs."""
+    ``period`` epochs (with ``MXNET_CHECKPOINT_DIR``, to the manager)."""
     from .model import save_checkpoint
     if reference_format:
         raise NotImplementedError(
             "do_checkpoint(reference_format=True): the reference-era binary "
             ".params format is not ported yet (ROADMAP.md, queue item 6)")
+
+    def _managed(mgr, n, sym, arg, aux):
+        from .checkpoint import pack_module_state
+        mgr.save(n, pack_module_state(sym, arg or {}, aux or {}),
+                 meta={"prefix": prefix, "source": "do_checkpoint"})
+
     return _checkpointer(
         lambda n, sym, arg, aux: save_checkpoint(prefix, n, sym, arg, aux),
-        period)
+        period, _managed)
 
 
 def module_checkpoint(mod, prefix, period=1, save_optimizer_states=False):
-    """Save a Module's checkpoint every ``period`` epochs."""
+    """Save a Module's checkpoint every ``period`` epochs (with
+    ``MXNET_CHECKPOINT_DIR``, to the manager, the optimizer states in the
+    same commit)."""
+
+    def _managed(mgr, n, *_):
+        from .checkpoint import pack_module_state
+        arg, aux = mod.get_params()
+        opt_states = mod.get_optimizer_states_bytes() \
+            if save_optimizer_states and mod.optimizer_initialized else None
+        mgr.save(n, pack_module_state(mod.symbol, arg, aux,
+                                      optimizer_states=opt_states),
+                 meta={"prefix": prefix, "source": "module_checkpoint"})
+
     return _checkpointer(
         lambda n, *_: mod.save_checkpoint(prefix, n, save_optimizer_states),
-        period)
+        period, _managed)
 
 
 def log_train_metric(period, auto_reset=False):

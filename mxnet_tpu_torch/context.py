@@ -2,7 +2,8 @@
 
 The counterpart of ``mxnet_tpu/context.py``.  ``gpu(i)`` is CUDA device i
 and is the default context.  ``cpu()`` is honoured only when the caller asks
-for it.  There is no fallback: resolving ``gpu(i)`` on a machine without
+for it; ``cpu_pinned()`` is host memory that the constructors of ``nd`` pin
+(page-locked, for asynchronous copies to the card) when CUDA is present.  There is no fallback: resolving ``gpu(i)`` on a machine without
 that CUDA device raises ``MXNetError`` instead of running on the CPU.
 """
 from __future__ import annotations
@@ -11,7 +12,7 @@ import torch
 
 from .base import MXNetError, _ThreadLocalStack
 
-_DEVICE_TYPES = ("cpu", "gpu")
+_DEVICE_TYPES = ("cpu", "cpu_pinned", "gpu")
 
 
 class Context:
@@ -29,7 +30,7 @@ class Context:
     def torch_device(self) -> torch.device:
         """Resolve to a torch.device; raises when a gpu context names a CUDA
         device this process cannot see."""
-        if self.device_type == "cpu":
+        if self.device_type in ("cpu", "cpu_pinned"):
             return torch.device("cpu")
         n = torch.cuda.device_count() if torch.cuda.is_available() else 0
         if self.device_id >= n:
@@ -66,6 +67,28 @@ Context.default_ctx = Context("gpu", 0)
 
 def cpu(device_id: int = 0) -> Context:
     return Context("cpu", device_id)
+
+
+def cpu_pinned(device_id: int = 0) -> Context:
+    """Pinned host memory (``pin`` below)."""
+    return Context("cpu_pinned", device_id)
+
+
+def num_gpus() -> int:
+    """The number of CUDA devices this process sees."""
+    return torch.cuda.device_count() if torch.cuda.is_available() else 0
+
+
+def pin(t: torch.Tensor, ctx) -> torch.Tensor:
+    """``t`` page-locked when ``ctx`` (None: the current context) is
+    ``cpu_pinned`` and CUDA is present (without CUDA there is nothing to
+    pin for)."""
+    if ctx is None:
+        ctx = current_context()
+    if isinstance(ctx, Context) and ctx.device_type == "cpu_pinned" \
+            and torch.cuda.is_available():
+        return t.pin_memory()
+    return t
 
 
 def gpu(device_id: int = 0) -> Context:

@@ -78,6 +78,9 @@ class Executor:
         self.grad_req = dict(grad_req)
         self.aux_dict = dict(aux_states or {})
         self._plan = GraphPlan(symbol)
+        self._plan.specialize_init_shapes(
+            {n: tuple(a.shape) for n, a in self.arg_dict.items()
+             if a is not None})
         self._grad_names = [n for n in self._plan.arg_names
                             if self.grad_req.get(n, "null") != "null"]
         # MXNET_BACKWARD_DO_MIRROR: the train-mode forward runs in
@@ -235,6 +238,9 @@ class Executor:
     @property
     def output_dict(self) -> Dict[str, torch.Tensor]:
         return dict(zip(self._symbol.list_outputs(), self.outputs))
+
+    def debug_str(self) -> str:
+        return self._symbol.debug_str()
 
     # -- utilities ------------------------------------------------------------
     def copy_params_from(self, arg_params, aux_params=None,

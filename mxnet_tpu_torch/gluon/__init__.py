@@ -4,6 +4,7 @@ from .parameter import (Constant, DeferredInitializationError, Parameter,
 from .block import Block, CachedOp, HybridBlock, SymbolBlock
 from . import nn
 from . import loss
+from . import rnn
 from . import data
 from . import utils
 from . import model_zoo

@@ -32,6 +32,10 @@ def default_batchify_fn(data):
     return nd.array(data, dtype=data.dtype)
 
 
+# the reference's multiprocessing batchify stacks the same way
+default_mp_batchify_fn = default_batchify_fn
+
+
 class DataLoader:
     def __init__(self, dataset, batch_size=None, shuffle=False, sampler=None,
                  last_batch=None, batch_sampler=None, batchify_fn=None,

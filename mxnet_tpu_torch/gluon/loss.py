@@ -2,9 +2,9 @@
 
 The counterpart of ``mxnet_tpu/gluon/loss.py``, the same HybridBlocks over
 ``F`` ops: L2, L1, SigmoidBinaryCrossEntropy, SoftmaxCrossEntropy, KLDiv,
-Huber, Hinge, SquaredHinge, Logistic and Triplet.  Each returns one loss
-per sample, the mean over every axis but ``batch_axis``.  ``CTCLoss``
-waits for ``ops/sequence.py`` (ROADMAP.md, queue item 7).  ``HuberLoss``
+Huber, Hinge, SquaredHinge, Logistic, Triplet and CTC.  Each returns one
+loss per sample, the mean over every axis but ``batch_axis`` (``CTCLoss``:
+the ``_contrib_ctc_loss`` op's per-sequence loss).  ``HuberLoss``
 compares with ``>``, which a Symbol does not have (nor in the JAX
 package), so it runs eagerly only.
 """
@@ -134,10 +134,35 @@ class KLDivLoss(Loss):
 
 
 class CTCLoss(Loss):
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "CTCLoss needs the CTC op of ops/sequence.py, which is not "
-            "ported yet (ROADMAP.md, queue item 7: RNN and sequences)")
+    """Connectionist temporal classification loss over the registered
+    ``_contrib_ctc_loss`` op, blank the last class (parity: gluon/loss.py's
+    ``CTCLoss``)."""
+
+    def __init__(self, layout="NTC", label_layout="NT", weight=None,
+                 **kwargs):
+        assert layout in ("NTC", "TNC")
+        assert label_layout in ("NT", "TN")
+        self._layout = layout
+        self._label_layout = label_layout
+        batch_axis = label_layout.find("N")
+        super().__init__(weight, batch_axis, **kwargs)
+
+    def hybrid_forward(self, F, pred, label, pred_lengths=None,
+                       label_lengths=None, sample_weight=None):
+        if self._layout == "NTC":
+            pred = F.swapaxes(pred, 0, 1)  # the op takes (T, N, C)
+        if self._label_layout == "TN":
+            label = F.swapaxes(label, 0, 1)
+        kw = {}
+        if pred_lengths is not None:
+            kw["data_lengths"] = pred_lengths
+        if label_lengths is not None:
+            kw["label_lengths"] = label_lengths
+        loss = F.CTCLoss(pred, label,
+                         use_data_lengths=pred_lengths is not None,
+                         use_label_lengths=label_lengths is not None,
+                         blank_label="last", **kw)
+        return _apply_weighting(F, loss, self._weight, sample_weight)
 
 
 class HuberLoss(Loss):

@@ -46,6 +46,14 @@ class InitDesc(str):
 class Initializer:
     def __init__(self, **kwargs):
         self._kwargs = kwargs
+        self._verbose = False
+        self._print_func = None
+
+    def set_verbosity(self, verbose=False, print_func=None):
+        """Kept as the JAX package keeps it: stored, nothing prints."""
+        self._verbose = verbose
+        self._print_func = print_func
+        return self
 
     def dumps(self) -> str:
         """The JSON a Symbol variable's ``__init__`` attribute carries."""

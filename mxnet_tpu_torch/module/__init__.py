@@ -1,7 +1,7 @@
-"""`mx.mod` namespace (parity: python/mxnet/module/__init__.py).
-``BucketingModule`` waits for the RNN toolkit (ROADMAP.md, queue item 7)."""
+"""`mx.mod` namespace (parity: python/mxnet/module/__init__.py)."""
 from .base_module import BaseModule
 from .module import Module
+from .bucketing_module import BucketingModule
 from .sequential_module import SequentialModule
 from .python_module import PythonModule, PythonLossModule
 from . import executor_group

@@ -309,10 +309,13 @@ class BaseModule:
             train_data.reset()
 
     def _adopt_existing_bind(self, data_shapes, label_shapes, for_training,
-                             inputs_need_grad=False, grad_req="write"):
+                             inputs_need_grad=False, grad_req="write",
+                             against=None):
         """A re-bind that matches the current one (data/label names,
         shapes and dtypes, training mode, inputs_need_grad, grad_req) is a
-        no-op; one that conflicts raises (use ``force_rebind=True``)."""
+        no-op; one that conflicts raises (use ``force_rebind=True``).
+        ``against`` is the module whose bind is compared (a
+        ``BucketingModule`` compares its default bucket's)."""
         from ..base import np_dtype
         from ..io import DataDesc
 
@@ -325,9 +328,10 @@ class BaseModule:
 
         req = (norm(data_shapes), norm(label_shapes), bool(for_training),
                bool(inputs_need_grad), grad_req)
-        cur = (norm(self.data_shapes), norm(self.label_shapes),
-               bool(self.for_training), bool(self.inputs_need_grad),
-               getattr(self, "_grad_req", grad_req))
+        ref = against if against is not None else self
+        cur = (norm(ref.data_shapes), norm(ref.label_shapes),
+               bool(ref.for_training), bool(ref.inputs_need_grad),
+               getattr(ref, "_grad_req", grad_req))
         if req != cur:
             raise ValueError(
                 "Module is already bound with (data, label, for_training, "

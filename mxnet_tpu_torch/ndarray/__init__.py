@@ -1,6 +1,8 @@
 """`mx.nd` namespace: tensor constructors and free functions, one function
 per registered operator, and the ``random`` and ``linalg`` namespaces
 (parity: python/mxnet/ndarray/__init__.py)."""
+import torch
+
 from .. import ops  # registers all operators
 from .register import invoke, populate
 
@@ -15,3 +17,6 @@ from .ndarray import (add, arange, array, asnumpy, asscalar, attach_grad,
                       ones, pow, power, save, subtract, true_divide, waitall,
                       zeros)
 from . import linalg, random
+
+#: the port's arrays are ``torch.Tensor``s: ``isinstance(x, nd.NDArray)``
+NDArray = torch.Tensor

@@ -34,7 +34,7 @@ import torch.utils.dlpack
 
 from ..analysis import sanitizer as _san
 from ..base import MXNetError, bfloat16, np_dtype, torch_dtype
-from ..context import as_device
+from ..context import as_device, pin
 
 
 _RAW_BF16 = _np.dtype("V2")
@@ -57,31 +57,34 @@ def array(source_array, ctx=None, dtype=None) -> torch.Tensor:
     device = as_device(ctx)
     if isinstance(source_array, torch.Tensor):
         dt = source_array.dtype if dtype is None else torch_dtype(dtype)
-        return source_array.detach().to(device=device, dtype=dt, copy=True)
+        return pin(source_array.detach().to(device=device, dtype=dt,
+                                            copy=True), ctx)
     src = _np.asarray(source_array)
     if dtype is None:
         dtype = src.dtype if isinstance(source_array, _np.ndarray) \
             else _np.float32
-    return _from_numpy(src.astype(np_dtype(dtype))).to(device)
+    return pin(_from_numpy(src.astype(np_dtype(dtype))).to(device), ctx)
 
 
 def _shape(shape):
     return (shape,) if isinstance(shape, int) else tuple(shape)
 
 
-def zeros(shape, ctx=None, dtype=None) -> torch.Tensor:
-    return torch.zeros(_shape(shape), dtype=torch_dtype(dtype),
-                       device=as_device(ctx))
+def zeros(shape, ctx=None, dtype=None, **kw) -> torch.Tensor:
+    """Zeros; keywords the JAX package's ``zeros`` ignores (``name``,
+    ``stype``, a cell's ``__layout__``) are ignored here too."""
+    return pin(torch.zeros(_shape(shape), dtype=torch_dtype(dtype),
+                           device=as_device(ctx)), ctx)
 
 
-def ones(shape, ctx=None, dtype=None) -> torch.Tensor:
-    return torch.ones(_shape(shape), dtype=torch_dtype(dtype),
-                      device=as_device(ctx))
+def ones(shape, ctx=None, dtype=None, **kw) -> torch.Tensor:
+    return pin(torch.ones(_shape(shape), dtype=torch_dtype(dtype),
+                          device=as_device(ctx)), ctx)
 
 
-def full(shape, val, ctx=None, dtype=None) -> torch.Tensor:
-    return torch.full(_shape(shape), val, dtype=torch_dtype(dtype),
-                      device=as_device(ctx))
+def full(shape, val, ctx=None, dtype=None, **kw) -> torch.Tensor:
+    return pin(torch.full(_shape(shape), val, dtype=torch_dtype(dtype),
+                          device=as_device(ctx)), ctx)
 
 
 def empty(shape, ctx=None, dtype=None) -> torch.Tensor:

@@ -136,7 +136,8 @@ class _CbrtFn(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x):
-        out = torch.sign(x) * torch.abs(x) ** (1.0 / 3.0)
+        # copysign keeps -0's sign, so 1 / cbrt(-0.0) is -inf as in jnp
+        out = torch.copysign(torch.abs(x) ** (1.0 / 3.0), x)
         ctx.save_for_backward(out)
         return out
 
@@ -148,6 +149,26 @@ class _CbrtFn(torch.autograd.Function):
 
 def _cbrt(x):
     return _CbrtFn.apply(x)
+
+
+class _LgammaFn(torch.autograd.Function):
+    """``lgamma`` with ``jsp.gammaln``'s gradient: digamma, but NaN at ±0
+    where ``torch.digamma`` gives -inf."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return torch.lgamma(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, = ctx.saved_tensors
+        d = torch.digamma(x)
+        return g * torch.where(x == 0, torch.full_like(d, float("nan")), d)
+
+
+def _lgamma(x):
+    return _LgammaFn.apply(x) if x.is_floating_point() else torch.lgamma(x)
 
 
 def _logical_not(x):
@@ -179,8 +200,8 @@ _UNARY = {
     "log2": torch.log2,
     "log1p": torch.log1p,
     "expm1": torch.expm1,
-    "gamma": lambda x: torch.exp(torch.lgamma(x)),
-    "gammaln": torch.lgamma,
+    "gamma": lambda x: torch.exp(_lgamma(x)),
+    "gammaln": _lgamma,
     "erf": torch.erf,
     "erfinv": torch.erfinv,
     "sin": torch.sin,

@@ -43,8 +43,10 @@ key with every graph on views of it would cost only that key and make
 growth free, but could never give memory back.  On the CPU only the
 current key's state exists, as in the JAX package.
 
-``ToyLM`` plugs into the engine's model protocol.  ``CellModel`` waits
-for the port of ``rnn/`` (ROADMAP.md, queue item 7).
+``ToyLM`` (self-contained) and ``CellModel`` (a steppable ``mx.rnn`` cell's
+one-step Symbol run as a ``GraphPlan`` inside the step, so inside the same
+CUDA graph) plug into the engine's model protocol;
+``BucketingModule.generate`` routes here.
 """
 from __future__ import annotations
 
@@ -211,13 +213,98 @@ class ToyLM:
 
 
 class CellModel:
-    """An ``rnn.BaseRNNCell`` as a decode model: waits for the port of
-    ``rnn/`` (ROADMAP.md, queue item 7)."""
+    """A *steppable* ``rnn.BaseRNNCell`` as a decode model: the cell's
+    one-step Symbol (``cell(x, states)``) becomes a ``GraphPlan`` run inside
+    the engine's step (on the card, inside its CUDA graph), between a token
+    embedding and a vocab projection, with a paged KV log of the cell's
+    outputs.  This is how ``rnn/`` and ``BucketingModule`` generation route
+    through continuous batching.  The weights are the JAX package's draws:
+    uniform(±0.2) in its order, biases zero.
+
+    Non-steppable cells (``FusedRNNCell``, ``BidirectionalCell``) are
+    refused with a typed ``GenerativeRouteError``: ``unfuse()`` a fused
+    stack first."""
 
     def __init__(self, cell, vocab: int, seed: int = 0):
-        raise NotImplementedError(
-            "serving.decode.CellModel needs the rnn/ cells, which are not "
-            "ported yet (ROADMAP.md, queue item 7: RNN and bucketing)")
+        if not getattr(cell, "steppable", False):
+            raise GenerativeRouteError(
+                f"{type(cell).__name__} cannot emit a one-token decode "
+                f"step (fused/bidirectional cells consume whole "
+                f"sequences): unfuse() it, or build the engine on a "
+                f"steppable cell")
+        from .. import symbol as _symbol
+        from ..symbol.graph import GraphPlan
+        self.vocab = int(vocab)
+        self._infos = list(cell.state_info)
+        x = _symbol.Variable("decode_x")
+        states = [_symbol.Variable(f"decode_state{i}")
+                  for i in range(len(self._infos))]
+        out, new_states = cell(x, states)
+        self._plan = GraphPlan(_symbol.Group([out] + list(new_states)))
+        self._state_names = [f"decode_state{i}"
+                             for i in range(len(self._infos))]
+        # one-step shape inference at batch 1 sizes every cell parameter
+        # and the cell's output width (the KV log's and the projection's)
+        self.dim = int(self._infos[0]["shape"][-1])
+        known = {"decode_x": (1, self.dim)}
+        for n, info in zip(self._state_names, self._infos):
+            known[n] = (1,) + tuple(info["shape"][1:])
+        arg_shapes, out_shapes, _aux = self._plan.symbol.infer_shape(**known)
+        self._arg_shapes = dict(zip(self._plan.symbol.list_arguments(),
+                                    arg_shapes))
+        self.out_dim = int(out_shapes[0][-1])
+        self._seed = int(seed)
+
+    @property
+    def state_capacity_axes(self):
+        return {"kv": 1}
+
+    def init_params(self, seed: Optional[int] = None):
+        rng = _np.random.RandomState(self._seed if seed is None else seed)
+        s = 0.2
+        params = {
+            "decode_emb": rng.uniform(-s, s, (self.vocab, self.dim))
+            .astype(_np.float32),
+            "decode_out": rng.uniform(-s, s, (self.out_dim, self.vocab))
+            .astype(_np.float32),
+        }
+        skip = {"decode_x"} | set(self._state_names)
+        for name, shp in self._arg_shapes.items():
+            if name in skip:
+                continue
+            if name.endswith("_bias"):
+                params[name] = _np.zeros(shp, dtype=_np.float32)
+            else:
+                params[name] = rng.uniform(-s, s, shp).astype(_np.float32)
+        return params
+
+    def state_shapes(self, slots: int, capacity: int) -> Dict[str, tuple]:
+        out = {"kv": ((slots, capacity, self.out_dim), _np.float32)}
+        for n, info in zip(self._state_names, self._infos):
+            out[n] = ((slots,) + tuple(info["shape"][1:]), _np.float32)
+        return out
+
+    def step(self, params, state, tokens, pos):
+        x = params["decode_emb"][tokens]                       # (S, D)
+        args = {n: v for n, v in params.items()
+                if n not in ("decode_emb", "decode_out")}
+        args["decode_x"] = x
+        for n in self._state_names:
+            args[n] = state[n]
+        outs, _aux = self._plan.run(args, {}, is_train=False)
+        cell_out, new_states = outs[0], outs[1:]
+        kv = state["kv"]
+        slots, cap, _ = kv.shape
+        rows = torch.arange(slots, device=kv.device)
+        col = pos.clamp(0, cap - 1)
+        # a position past the capacity writes nothing (the JAX where)
+        kv[rows, col] = torch.where((pos < cap)[:, None], cell_out,
+                                    kv[rows, col])
+        logits = cell_out @ params["decode_out"]
+        new_state = {"kv": kv}
+        for n, ns in zip(self._state_names, new_states):
+            new_state[n] = ns
+        return logits, new_state
 
 
 # ---------------------------------------------------------------------------

@@ -36,8 +36,12 @@ introspector's counting pass books its flops (and, through the autograd
 nodes the scope tags, its backward's) under that layer, and a running
 profiler shows the range.  A run is one dispatch (``dispatch_unit``).
 
-Not ported: the channels-last layout pass (TPU only) and the RNN
-parameter hook (item 7).
+Init ops (``_zeros``/``_ones``/``_full``) whose ``shape`` has 0-dims (an
+``mx.rnn`` cell's begin state, ``(0, H)``) are unknown until shape
+inference substitutes the batch, as for 0-dim variable hints; an executor
+fixes them at bind (``specialize_init_shapes``).
+
+Not ported: the channels-last layout pass (TPU only).
 """
 from __future__ import annotations
 
@@ -124,6 +128,21 @@ def _regression_hook(p, shp):
     return {1: tuple(shp[0])}
 
 
+def _rnn_hook(p, shp):
+    """The fused RNN's packed parameters and its states
+    (``ops/sequence.py:rnn_param_size``)."""
+    from ..ops.sequence import rnn_param_size
+    T, B, I = shp[0]
+    L, H = p["num_layers"], p["state_size"]
+    d = 2 if p.get("bidirectional") else 1
+    out = {1: (rnn_param_size(L, I, H, bool(p.get("bidirectional")),
+                              p["mode"]),),
+           2: (L * d, B, H)}
+    if p["mode"] == "lstm":
+        out[3] = (L * d, B, H)
+    return out
+
+
 PARAM_SHAPE_HOOKS: Dict[str, Callable] = {
     "SoftmaxOutput": _softmax_output_hook,
     "LinearRegressionOutput": _regression_hook,
@@ -136,8 +155,19 @@ PARAM_SHAPE_HOOKS: Dict[str, Callable] = {
     "InstanceNorm": _in_hook,
     "LayerNorm": _ln_hook,
     "Embedding": _emb_hook,
+    "RNN": _rnn_hook,
     "LeakyReLU": _prelu_hook,
 }
+
+_INIT_OPS = ("_zeros", "_ones", "_full")
+
+
+def _partial_init_steps(plan) -> Dict[int, tuple]:
+    """{step index: shape} of the init ops whose static shape has 0-dims."""
+    return {si: tuple(int(d) for d in s.params["shape"])
+            for si, s in enumerate(plan.steps)
+            if s.op.name in _INIT_OPS and s.params.get("shape") is not None
+            and any(int(d) == 0 for d in s.params["shape"])}
 
 
 class _Step:
@@ -190,6 +220,20 @@ class GraphPlan:
                                  else ("val", (ref[1], oi)))
 
     running: Optional[int] = None
+
+    def specialize_init_shapes(self, known_shapes: Dict[str, tuple]) -> None:
+        """Resolve the 0-dims of init ops' shapes (an ``mx.rnn`` begin
+        state) against the bound argument shapes, in place."""
+        if not known_shapes or not _partial_init_steps(self):
+            return
+        try:
+            plan2, _, _ = infer_shapes_types(
+                self.symbol, {k: tuple(v) for k, v in known_shapes.items()
+                              if v is not None}, {})
+        except MXNetError:
+            return
+        for si, p in getattr(plan2, "init_overrides", {}).items():
+            self.steps[si].params.update(p)
 
     def run(self, arg_values: Dict[str, torch.Tensor],
             aux_values: Optional[Dict[str, torch.Tensor]] = None,
@@ -389,8 +433,9 @@ def infer_shapes_types(symbol: Symbol, known_shapes: Dict[str, tuple],
             partial_hints[nm] = tuple(int(d) for d in shp)
             shp = None  # 0-dims mean "unknown" until substitution
         info[nm] = None if shp is None else meta_tensor(shp, np_dtype(dt))
+    partial_steps = _partial_init_steps(plan)
 
-    if partial_hints and known_shapes:
+    if (partial_hints or partial_steps) and known_shapes:
         candidates: List[int] = []
         for s in known_shapes.values():
             for d in s:
@@ -408,15 +453,23 @@ def infer_shapes_types(symbol: Symbol, known_shapes: Dict[str, tuple],
                     trial[nm] = meta_tensor(
                         tuple(c if d == 0 else d for d in hint),
                         np_dtype(known_types.get(nm, _np.float32)))
+            overrides = {si: {"shape": tuple(c if d == 0 else d
+                                             for d in hint)}
+                         for si, hint in partial_steps.items()}
             try:
-                res = _infer_forward(plan, trial, partial=False)
+                res = _infer_forward(plan, trial, partial=False,
+                                     overrides=overrides)
             except MXNetError:
                 continue
+            # the winning substitution sizes the init ops of this plan
+            plan.init_overrides = overrides
+            for si, p in overrides.items():
+                plan.steps[si].params.update(p)
             return res
     return _infer_forward(plan, info, partial=partial)
 
 
-def _infer_forward(plan, info, partial):
+def _infer_forward(plan, info, partial, overrides=None):
     step_out: List[Optional[tuple]] = [None] * len(plan.steps)
 
     def ref_struct(ref):
@@ -448,7 +501,10 @@ def _infer_forward(plan, info, partial):
                 f"infer_shape: cannot infer input(s) {missing} of node "
                 f"'{step.node.name}' ({step.op.name}); provide their shapes")
         try:
-            step_out[si] = _node_eval_shape(step, step.params, structs)
+            p = step.params
+            if overrides and si in overrides:
+                p = {**p, **overrides[si]}
+            step_out[si] = _node_eval_shape(step, p, structs)
         except Exception as e:  # a shape error inside the op
             raise MXNetError(f"infer_shape failed at node '{step.node.name}' "
                              f"({step.op.name}): {e}") from None

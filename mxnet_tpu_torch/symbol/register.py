@@ -26,6 +26,12 @@ def _auto_input_names(op, params):
             no_bias = op.schema.args["no_bias"].default
         if _truthy(no_bias):
             names.remove("bias")
+    if op.name == "_contrib_ctc_loss":
+        p = dict(params)
+        if not _truthy(p.get("use_data_lengths")):
+            names.remove("data_lengths")
+        if not _truthy(p.get("use_label_lengths")):
+            names.remove("label_lengths")
     return names
 
 
@@ -59,8 +65,9 @@ def invoke_symbol(op_name: str, sym_inputs, kwargs, name=None,
         if op.name == "LeakyReLU" and params.get("act_type") == "prelu" \
                 and len(inputs) == 1 and "gamma" not in named_inputs:
             inputs.append(Variable(f"{node_name}_gamma")._entries[0])
-        if "gamma" in named_inputs:
-            inputs.append(named_inputs["gamma"]._entries[0])
+        for k in ("gamma", "sequence_length"):
+            if k in named_inputs:
+                inputs.append(named_inputs[k]._entries[0])
         if "num_args" in op.schema.args:
             params["num_args"] = len(inputs)
     else:

@@ -38,6 +38,8 @@ class _Node:
         op = _reg.get_op(self.op)
         if op.name == "SliceChannel":
             return int(dict(self.params).get("num_outputs", 1))
+        if op.name == "RNN":
+            return 3 if _truthy(self.params.get("state_outputs")) else 1
         if op.name in ("BatchNorm", "LayerNorm"):
             return 1  # mean/var exposed only via output_mean_var
         return max(op.num_outputs, 1)
@@ -86,6 +88,24 @@ class Symbol:
             for i in range(node.num_outputs()):
                 entries.append((node, i))
         return Symbol(entries)
+
+    def get_children(self) -> Optional["Symbol"]:
+        """The inputs of this symbol's first output's node (None for a
+        variable)."""
+        node = self._entries[0][0]
+        if not node.inputs:
+            return None
+        return Symbol(list(node.inputs))
+
+    def debug_str(self) -> str:
+        """One line per node in topological order: its op (or
+        ``Variable``), name and input entries."""
+        lines = []
+        for n in self._topo():
+            kind = "Variable" if n.is_var else n.op
+            ins = ", ".join(f"{s.name}[{i}]" for s, i in n.inputs)
+            lines.append(f"{kind} {n.name}({ins})")
+        return "\n".join(lines)
 
     # -- graph traversal ----------------------------------------------------
     def _topo(self) -> List[_Node]:

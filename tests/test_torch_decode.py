@@ -8,8 +8,9 @@ dispatch per decode step and no build after ``warmup()``, page growth
 without a rebuild, typed admission, EDF shedding, KV eviction, the fault
 sites and the closed engine.  Against the JAX engine on the same
 ``ToyLM.init_params(seed)``: the same greedy tokens (exact), under churn
-too.  ``CellModel`` and ``BucketingModule.generate`` wait for the port of
-``rnn/`` (item 7); the program-audit case has no counterpart (no HLO).
+too.  ``CellModel`` and ``BucketingModule.generate`` are held against the
+JAX package in ``tests/test_torch_rnn.py``; the program-audit case has no
+counterpart (no HLO).
 """
 import gc
 import time
@@ -411,8 +412,15 @@ def test_request_tiers_refuse_generative_submits():
 
 
 def test_cell_model_waits_for_item_7():
-    with pytest.raises(NotImplementedError, match="item 7"):
+    """Ported since (ROADMAP item 7a): a cell without a one-token step is
+    refused with the typed route error, a steppable one is served."""
+    with pytest.raises(GenerativeRouteError):
         decode.CellModel(object(), vocab=16)
+    cell = mx.rnn.GRUCell(4, prefix="g_")
+    with DecodeEngine(decode.CellModel(cell, vocab=16), slots=2,
+                      page_tokens=4, max_pages=2, dev=CPU,
+                      warmup=False) as eng:
+        assert len(eng.generate([1, 2], 3)) == 3
 
 
 # -- observability -----------------------------------------------------------

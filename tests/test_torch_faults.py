@@ -6,6 +6,9 @@ they return: values (float32, 1e-6, the same arithmetic), dtypes, names.
 Where the two packages differed the port now follows the JAX package
 (ROADMAP.md §3).
 """
+import os
+import tempfile
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -251,11 +254,101 @@ def _conv_transpose_deferred_channels(api):
                                for p in net.collect_params().values()]
 
 
+def _nd_keywords_out_and_numpy(api):
+    """F6: the generated ``nd`` functions take tensors by input name, write
+    ``out=``, and convert numpy arrays (on the current context)."""
+    nd = api.mx.nd
+    rs = np.random.RandomState(0)
+    x, w, b = (rs.normal(size=s).astype(np.float32)
+               for s in ((2, 3), (4, 3), (4,)))
+    fc = nd.FullyConnected(data=api.array(x), weight=api.array(w),
+                           bias=api.array(b), num_hidden=4)
+    a = api.array(x)
+    o = api.array(np.zeros((2, 3), np.float32))
+    ret = nd.elemwise_add(a, a, out=o)
+    with api.mx.cpu():
+        relu = nd.relu(x)
+        badd = nd.broadcast_add(x, b[:3].reshape(1, 3))
+        dot = nd.dot(x, w.T)
+    return [api.numpy(fc), api.numpy(o), ret is o, api.numpy(relu),
+            api.numpy(badd), api.numpy(dot)]
+
+
+def _checkpoint_dir_env(api):
+    """F7: with ``MXNET_CHECKPOINT_DIR`` set, ``do_checkpoint`` and
+    ``module_checkpoint`` save through the managed directory, not to
+    prefix files."""
+    mx = api.mx
+    sym = mx.sym.FullyConnected(mx.sym.var("data"), num_hidden=2, name="fc")
+    rs = np.random.RandomState(0)
+    arg = {"fc_weight": api.array(rs.normal(size=(2, 3)).astype(np.float32)),
+           "fc_bias": api.array(np.zeros(2, np.float32))}
+    with tempfile.TemporaryDirectory() as tmp:
+        root, pre = os.path.join(tmp, "managed"), os.path.join(tmp, "pre")
+        os.makedirs(pre)
+        old = os.environ.get("MXNET_CHECKPOINT_DIR")
+        os.environ["MXNET_CHECKPOINT_DIR"] = root
+        try:
+            mx.callback.do_checkpoint(os.path.join(pre, "m"))(0, sym, arg,
+                                                              {})
+            mx.checkpoint.env_manager().wait()
+        finally:
+            if old is None:
+                del os.environ["MXNET_CHECKPOINT_DIR"]
+            else:
+                os.environ["MXNET_CHECKPOINT_DIR"] = old
+        return [sorted(n for n in os.listdir(root) if n.startswith("step_")),
+                sorted(os.listdir(pre))]
+
+
+def _public_names(api):
+    """F8: the JAX package's public names the port lacked, each present
+    and, where callable, giving the same result."""
+    mx = api.mx
+    x = api.array(np.ones((2, 3), np.float32))
+    sym = mx.sym.FullyConnected(mx.sym.var("data"), num_hidden=2, name="fc")
+    ex = sym.simple_bind(mx.cpu(), data=(2, 3))
+    with mx.AttrScope(group="a"):
+        scope_attr = dict(mx.attribute.AttrScope.current()._attr)
+    init = mx.init.Uniform(0.1)
+    with mx.cpu():
+        batch = mx.gluon.data.dataloader.default_mp_batchify_fn(
+            [np.ones(2, np.float32), np.zeros(2, np.float32)])
+    return [isinstance(x, mx.nd.NDArray), mx.NDArray is mx.nd.NDArray,
+            mx.Optimizer is mx.optimizer.Optimizer,
+            mx.KVStore is mx.kvstore.KVStore,
+            mx.Monitor is mx.monitor.Monitor, mx.mon is mx.monitor,
+            mx.NameManager is mx.name.NameManager,
+            str(mx.context.cpu_pinned()), str(mx.context.cpu_pinned(1)),
+            isinstance(mx.context.num_gpus(), int),
+            sym.get_children().list_outputs(),
+            mx.sym.var("v").get_children() is None, sym.debug_str(),
+            ex.debug_str(), scope_attr,
+            init.set_verbosity(True) is init, api.numpy(batch)]
+
+
+def _signed_zero(api):
+    """F9: ``rcbrt(-0.0)`` is -inf; the gradients of ``gamma`` and
+    ``gammaln`` at ±0 are NaN (``jsp.gammaln``'s digamma)."""
+    nd = api.mx.nd
+    out = [api.numpy(nd.rcbrt(api.array(np.array([-0.0, 0.0, -8.0],
+                                                  np.float32))))]
+    for f in (nd.gamma, nd.gammaln):
+        x = api.attach(api.array(np.array([-0.0, 0.0, 1.5, -2.5],
+                                          np.float32)))
+        with api.mx.autograd.record():
+            y = f(x).sum()
+        y.backward()
+        out += [api.grad(x)]
+    return out
+
+
 _CASES = [_non_differentiable_op, _relu_tie, _abs_at_zero, _integer_inputs,
           _take_wrap, _collect_params_select, _gluon_methods,
           _sort_axis_none, _backward_on_a_vector, _hypot_at_zero,
           _power_zero_to_the_zero, _cbrt_at_zero,
-          _conv_transpose_deferred_channels]
+          _conv_transpose_deferred_channels, _nd_keywords_out_and_numpy,
+          _checkpoint_dir_env, _public_names, _signed_zero]
 
 
 @pytest.mark.parametrize("case", _CASES, ids=[c.__name__[1:] for c in _CASES])

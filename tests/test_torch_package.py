@@ -40,7 +40,11 @@ def test_imports_with_jax_and_mxnet_tpu_blocked():
             "mxnet_tpu_torch.autotune.sweep, "
             "mxnet_tpu_torch.autotune.__main__, "
             "mxnet_tpu_torch.serving.decode, "
-            "mxnet_tpu_torch.serving.registry; "
+            "mxnet_tpu_torch.serving.registry, "
+            "mxnet_tpu_torch.ops.sequence, mxnet_tpu_torch.ops.contrib, "
+            "mxnet_tpu_torch.gluon.rnn, mxnet_tpu_torch.rnn, "
+            "mxnet_tpu_torch.contrib, "
+            "mxnet_tpu_torch.module.bucketing_module; "
             "assert not any(m == 'jax' or m.startswith(('jax.', 'mxnet_tpu.')) "
             "for m in sys.modules if sys.modules[m] is not None); "
             "print(len(mx.nd.__dict__))")
@@ -84,6 +88,33 @@ def test_gpu_is_the_default_and_raises_without_cuda(no_cuda):
                         max_len=8, attn_type="flash")
     with pytest.raises(MXNetError):
         net.initialize()
+
+
+def test_recurrent_entry_points_raise_without_cuda_or_cpu(no_cuda):
+    """The recurrent surface defaults to ``gpu(0)`` as the rest does:
+    without CUDA and without ``cpu()`` each entry point raises."""
+    from mxnet_tpu_torch.serving.decode import CellModel, DecodeEngine
+    x = np.zeros((3, 2, 4), np.float32)
+    calls = [lambda: mxt.gluon.rnn.LSTM(5, input_size=4).initialize(),
+             lambda: mxt.gluon.rnn.GRUCell(5, input_size=4).initialize(),
+             lambda: mxt.nd.RNN(x, np.zeros(rnn_size, np.float32),
+                                state_size=5, num_layers=1, mode="lstm")]
+    rnn_size = mxt.ops.sequence.rnn_param_size(1, 4, 5, False, "lstm")
+    stack = mxt.rnn.SequentialRNNCell()
+    stack.add(mxt.rnn.LSTMCell(5, prefix="l0_"))
+    out, _ = stack.unroll(3, mxt.sym.var("data"), merge_outputs=True)
+
+    def bucketing():
+        mod = mxt.mod.BucketingModule(
+            lambda key: (out, ("data",), None), default_bucket_key=3)
+        mod.bind([("data", (2, 3, 4))], for_training=False)
+    calls += [lambda: mxt.mod.Module(out, label_names=None).bind(
+                  [("data", (2, 3, 4))], for_training=False),
+              bucketing,
+              lambda: DecodeEngine(CellModel(stack, vocab=8), warmup=False)]
+    for call in calls:
+        with pytest.raises(MXNetError):
+            call()
 
 
 def test_explicit_cpu_runs(no_cuda):

@@ -142,8 +142,13 @@ def test_train_mode_reaches_the_cached_graph():
 
 
 def test_ctc_loss_names_its_roadmap_item():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        mxt.gluon.loss.CTCLoss()
+    """Ported since (ROADMAP item 7a): ``CTCLoss`` runs, on the CPU when
+    asked, and gives one finite loss per sequence."""
+    loss = mxt.gluon.loss.CTCLoss()
+    pred = mxt.nd.array(np.zeros((2, 5, 4), np.float32), ctx=CPU)
+    label = mxt.nd.array([[0, 1], [2, -1]], ctx=CPU)
+    out = loss(pred, label)
+    assert out.shape == (2,) and bool(torch.isfinite(out).all())
 
 
 # -- update ops -------------------------------------------------------------
