@@ -9,8 +9,9 @@ trains ResNet-50 v1 through the port's own entry points (Gluon, and the
 symbolic path of ``Module.fit``) and the DCGAN example's two nets, runs
 the core op surface and ``MultiHeadAttention``, checkpoints, resumes and
 hot-reloads the LM, feeds ``Module.fit`` from a record file, mirrors the
-backward, serves an exported decode cell, and holds every kernel against
-its plain version:
+backward, serves an exported decode cell, trains Faster R-CNN at VGG16's
+width and the SSD example through ``Module``, and holds every kernel
+against its plain version:
 
 1. setup: the card's name and power limit; build every kernel from
    ``mxnet_tpu_torch/csrc`` (one nvcc per source, in parallel); launch the
@@ -357,7 +358,30 @@ its plain version:
    (``TOL_UNFUSE``); (d) ``DecodeEngine`` over ``CellModel`` of two
    ``LSTMCell(1500)`` (``CELL_DECODE``), 8 staggered requests of 32 tokens,
    each equal to its solo run, tokens/s and a step's host clock;
-19. a ``kernels`` JSON line (the forward kernels' ``launches`` are phase
+19. detection, the slice of the rest of the op registry, whose two
+   hand-written kernels are N (greedy NMS, ``csrc/nms.cu``) and R (ROI
+   pooling forward and backward, ``csrc/roi_pooling.cu``), with every
+   kernel count set to 0 before (a) and before (b) and read after each:
+   (a) ``example/rcnn/train_end2end.py``'s Faster R-CNN loop at VGG16's
+   width (``RCNN``: ``vgg16``'s features to conv5_3 + ReLU, a 512-wide RPN,
+   fc 4096-4096, 21 classes, 600x1000, B=1, ``Proposal`` at its defaults,
+   128 ROIs to ``ROIPooling`` 7x7, SGD momentum 0.9 wd 5e-4, float32,
+   ``RCNN["steps"]`` steps on one synthetic batch): ms a step, one profiled
+   step's device-idle share, peak memory, the four losses (finite, the
+   total falling), exactly 1 N, 1 R forward and 1 R backward a step; (b)
+   ``example/ssd/train_ssd.py``'s ``build_ssd`` through ``Module`` at its
+   own configuration (``SSD``), one step against the CPU (outputs and
+   gradients within ``TOL_SSD_CPU``), then ``SSD["batches"]`` batches with
+   1 N launch a forward; (c) the SSD ops at SSD-300's shapes
+   (``SSD300``: 8,732 anchors, B=32, 21 classes) on the card against the
+   CPU (anchors, masks, class targets, class ids and scores exact, loc
+   targets and boxes within ``TOL_BOX_CPU``), their kernels' time; (d) N at
+   (a)'s and (c)'s shapes and R at (a)'s against their plain versions,
+   bitwise and repeatable, with device, call and plain times beside the
+   bound; (e) the slice's ops on the card against the CPU
+   (``TOL_CONTRIB``), ``Custom`` on CUDA tensors and refused inside
+   ``MXNET_FUSED_STEP``'s capture; then a ``detection`` JSON line;
+20. a ``kernels`` JSON line (the forward kernels' ``launches`` are phase
    8's, with phase 9's as ``training_launches``, phase 11's LM leg's as
    ``module_launches``, phase 12's bf16 ``MultiHeadAttention`` runs' as
    ``mha_launches``, its float32 runs' as ``mha_f32_launches`` and phase
@@ -371,8 +395,12 @@ its plain version:
    as ``onestep_launches``, the f32 one's 0 on the main path; the f32
    kernels' ``bound_ms`` at 3xTF32's rate, ``fma_bound_ms`` at the CUDA
    cores' float32 FMA rate; every entry's ``recurrent_launches`` is phase
-   18 (a)'s count), after a ``recurrent`` JSON line of phase 18's figures,
-   then the last line ``{"ok": true, "device": {...}}``.
+   18 (a)'s count and ``detection_launches`` phase 19 (a) and (b)'s; ``nms``
+   has (a)'s launches as ``launches`` and (b)'s as ``ssd_launches``, its
+   times at (a)'s shape and (c)'s under ``multibox``; ``roi_pooling`` has
+   (a)'s forward and backward launches and times), after the
+   ``recurrent`` and ``detection`` JSON lines, then the last line
+   ``{"ok": true, "device": {...}}``.
 
 The language model is ``experiments/lm_mfu_probe.py``'s default width
 (vocab 32768, dim 1024, 16 heads, ffn 4096, 12 layers, max_len 1024;
@@ -393,7 +421,9 @@ more as supersteps), its fp16 block 7, its LM ``Module`` leg 4.  Phase
 16's LM runs take 8 steps, its ``Module`` leg 3.  Phase 17's LM step takes
 7 steps and 12 interleaved, its ResNet-50 ``Module`` 3, the tuner's sweep 6
 pairs per K; its decode traffic is 128 sequences, its registry flood 64
-requests.  The host has no image
+requests.  Phase 19's R-CNN takes 8 steps on one batch of synthetic
+boxes (no VOC images or pretrained VGG16 in the repository), the SSD
+example 20 batches.  The host has no image
 decoder (no cv2, no PIL), so the records carry ``.npy`` and raw
 payloads.
 
@@ -831,8 +861,10 @@ def reset_counts():
     """Every kernel launch count set to 0."""
     from mxnet_tpu_torch import kernels
     from mxnet_tpu_torch.kernels import flash_attention as kfa
+    from mxnet_tpu_torch.kernels import roi_pooling as kroi
     for mod in kernels.ALL:
         mod.LAUNCHES = 0
+    kroi.FWD_LAUNCHES = kroi.BWD_LAUNCHES = 0
     for variant in kfa.VARIANT_LAUNCHES:
         kfa.VARIANT_LAUNCHES[variant] = 0
     for variant in kfa.BWD_VARIANT_LAUNCHES:
@@ -841,15 +873,19 @@ def reset_counts():
 
 
 def read_counts():
-    """{kernel module: launches}, with the flash forward also by variant
-    and the flash backward (K1b) on its own, in all and by variant."""
+    """{kernel module: launches}, with the flash forward also by variant,
+    the flash backward (K1b) on its own, in all and by variant, and ROI
+    pooling's forward and backward."""
     from mxnet_tpu_torch import kernels
     from mxnet_tpu_torch.kernels import flash_attention as kfa
+    from mxnet_tpu_torch.kernels import roi_pooling as kroi
     counts = {mod.__name__.rsplit(".", 1)[1]: mod.LAUNCHES
               for mod in kernels.ALL}
     counts.update({f"flash_attention.{v}": n
                    for v, n in kfa.VARIANT_LAUNCHES.items()})
     counts["flash_attention.bwd"] = kfa.BWD_LAUNCHES
+    counts["roi_pooling.fwd"] = kroi.FWD_LAUNCHES
+    counts["roi_pooling.bwd"] = kroi.BWD_LAUNCHES
     counts.update({f"flash_attention.bwd.{v}": n
                    for v, n in kfa.BWD_VARIANT_LAUNCHES.items()})
     return counts
@@ -5082,11 +5118,12 @@ def phase_retry(mx, start, batches):
     return got, objs
 
 
-def profile_replays(mx, stepper, batches, path):
+def profile_replays(mx, stepper, batches, path, want):
     """(f) two replayed steps under ``profiler`` (a torch.profiler session
     with the spans merged), up to PROFILE_TRIES sessions until CUPTI
-    records device events: the dumped trace, its events, and the flash
-    kernels inside ``whole_step`` spans."""
+    records device events and a record of each of the ``want`` launches
+    of every flash kernel (CUPTI may drop records of a session): the
+    dumped trace, its events, and the session's number."""
     import torch
     from mxnet_tpu_torch import profiler
     from mxnet_tpu_torch.observability import flight
@@ -5099,9 +5136,15 @@ def profile_replays(mx, stepper, batches, path):
                 stepper.step(x, y)
         torch.cuda.synchronize()
         profiler.dump_profile()
-        if profiler.device_event_count():
+        if not profiler.device_event_count():
+            print(f"      profiler session {attempt}: no device events")
+            continue
+        with open(path) as f:
+            total = kernels_in_spans(json.load(f)["traceEvents"])[1]
+        if all(v >= want for v in total.values()):
             break
-        print(f"      profiler session {attempt}: no device events")
+        print(f"      profiler session {attempt}: records of {total} flash "
+              f"kernel launches, {want} of each launched")
     with open(path) as f:
         trace = json.load(f)
     check(isinstance(trace.get("traceEvents"), list),
@@ -5168,7 +5211,7 @@ def phase_traces(mx, objs, batches, tmp):
     check(v1 == v0 and armed, "no_sync: a replay synced, or the region "
           "was not armed")
     path = os.path.join(tmp, "profile.json")
-    trace, evs, tries = profile_replays(mx, stepper, batches, path)
+    trace, evs, tries = profile_replays(mx, stepper, batches, path, 2 * L)
     inside, total, nspans = kernels_in_spans(evs)
     host = sum(1 for e in evs if e.get("name") == "whole_step")
     kern = sum(1 for e in evs if e.get("cat") == "kernel")
@@ -6968,6 +7011,962 @@ def phase_recurrent(mx):
                     "ctc_ms": ctc_ms, "bucketing": bucket, "decode": dec}
 
 
+# -- phase 19: detection ---------------------------------------------------
+RCNN = dict(height=600, width=1000, classes=21, rois=128, pooled=(7, 7),
+            stride=16, scales=(2.0, 4.0, 8.0), ratios=(0.5, 1.0, 2.0),
+            steps=8, lr=0.003, box_scale=4, backbone="vgg16")
+SSD = dict(classes=3, size=32, batch=16, lr=0.005, batches=20)
+# upstream example/ssd's ssd_300 over VGG16-reduced: 6 maps, 8,732 anchors
+SSD300 = dict(maps=(38, 19, 10, 5, 3, 1),
+              sizes=((.1, .141), (.2, .272), (.37, .447), (.54, .619),
+                     (.71, .79), (.88, .961)),
+              ratios=((1, 2, .5), (1, 2, .5, 3, 1 / 3), (1, 2, .5, 3, 1 / 3),
+                      (1, 2, .5, 3, 1 / 3), (1, 2, .5), (1, 2, .5)),
+              steps=(8, 16, 32, 64, 100, 300), batch=32, classes=21,
+              gts=8, anchors=8732)
+TOL_SSD_CPU = 1e-4      # (b): outputs and gradients, of each one's largest
+SSD_BN_FED_BIASES = ("c1_bias", "c2_bias", "c3_bias", "c4_bias")
+TOL_BOX_CPU = 1e-6      # (c): decoded boxes and log targets, card vs CPU
+TOL_CONTRIB = 1e-5      # (e): the op surface, card vs CPU, float32
+IOU_OPS = {"corner": 23, "pixel": 25}   # float operations in one pair IoU
+
+
+def rcnn_make_batch(rs, n, H, W, classes, scale):
+    """``example/rcnn/train_end2end.py``'s ``make_batch`` at H x W: bright
+    rectangles on noise, up to 2 an image, the example's widths times
+    ``scale``, aspect by class (tall, wide, square)."""
+    import numpy as np
+    imgs = rs.normal(0, 0.1, (n, 3, H, W)).astype(np.float32)
+    gt = np.zeros((n, 2, 5), np.float32)
+    for i in range(n):
+        for b in range(rs.randint(1, 3)):
+            cls = rs.randint(1, classes)
+            w = rs.randint(24, 64) * scale
+            h = min({0: w * 2, 1: w // 2, 2: w}[cls % 3], H - 2)
+            x1 = rs.randint(0, W - w)
+            y1 = rs.randint(0, H - h)
+            imgs[i, :, y1:y1 + h, x1:x1 + w] += rs.uniform(0.8, 1.2)
+            gt[i, b] = [cls, x1, y1, x1 + w - 1, y1 + h - 1]
+    return imgs, gt
+
+
+def rcnn_anchors(fh, fw, stride, scales, ratios):
+    """The example's ``gen_anchors``: (fh*fw*A, 4) pixel corners."""
+    import numpy as np
+    base = []
+    ctr = (stride - 1) / 2.0
+    for r in ratios:
+        for s in scales:
+            w = stride * s * np.sqrt(1.0 / r)
+            h = stride * s * np.sqrt(r)
+            base.append([ctr - 0.5 * (w - 1), ctr - 0.5 * (h - 1),
+                         ctr + 0.5 * (w - 1), ctr + 0.5 * (h - 1)])
+    base = np.asarray(base, np.float32)
+    sxx, syy = np.meshgrid(np.arange(fw) * stride, np.arange(fh) * stride)
+    shifts = np.stack([sxx, syy, sxx, syy], -1).reshape(-1, 1, 4)
+    return (base[None] + shifts).reshape(-1, 4)
+
+
+def rcnn_iou(a, b):
+    import numpy as np
+    iw = np.maximum(np.minimum(a[:, None, 2], b[None, :, 2])
+                    - np.maximum(a[:, None, 0], b[None, :, 0]) + 1, 0)
+    ih = np.maximum(np.minimum(a[:, None, 3], b[None, :, 3])
+                    - np.maximum(a[:, None, 1], b[None, :, 1]) + 1, 0)
+    inter = iw * ih
+    aa = (a[:, 2] - a[:, 0] + 1) * (a[:, 3] - a[:, 1] + 1)
+    bb = (b[:, 2] - b[:, 0] + 1) * (b[:, 3] - b[:, 1] + 1)
+    return inter / np.maximum(aa[:, None] + bb[None] - inter, 1e-9)
+
+
+def rcnn_bbox_transform(anchors, gt):
+    import numpy as np
+    aw = anchors[:, 2] - anchors[:, 0] + 1
+    ah = anchors[:, 3] - anchors[:, 1] + 1
+    acx = anchors[:, 0] + 0.5 * (aw - 1)
+    acy = anchors[:, 1] + 0.5 * (ah - 1)
+    gw = gt[:, 2] - gt[:, 0] + 1
+    gh = gt[:, 3] - gt[:, 1] + 1
+    gcx = gt[:, 0] + 0.5 * (gw - 1)
+    gcy = gt[:, 1] + 0.5 * (gh - 1)
+    return np.stack([(gcx - acx) / aw, (gcy - acy) / ah,
+                     np.log(gw / aw), np.log(gh / ah)], -1).astype(np.float32)
+
+
+def rcnn_anchor_targets(anchors, gt_boxes, H, W, fg_iou=0.5, bg_iou=0.3):
+    """The example's ``anchor_targets`` (RPN labels 1/0/-1 and deltas)."""
+    import numpy as np
+    K = anchors.shape[0]
+    labels = -np.ones(K, np.float32)
+    targets = np.zeros((K, 4), np.float32)
+    inside = ((anchors[:, 0] >= -8) & (anchors[:, 1] >= -8) &
+              (anchors[:, 2] < W + 8) & (anchors[:, 3] < H + 8))
+    valid = gt_boxes[gt_boxes[:, 0] > 0][:, 1:]
+    if len(valid) == 0:
+        labels[inside] = 0
+        return labels, targets
+    iou = rcnn_iou(anchors, valid)
+    best, argbest = iou.max(1), iou.argmax(1)
+    labels[inside & (best < bg_iou)] = 0
+    labels[inside & (best >= fg_iou)] = 1
+    labels[iou.argmax(0)] = 1
+    fg = labels == 1
+    targets[fg] = rcnn_bbox_transform(anchors[fg], valid[argbest[fg]])
+    return labels, targets
+
+
+def rcnn_proposal_targets(rois, gt_boxes, per_img, classes, fg_iou=0.5):
+    """The example's ``proposal_targets``: ``per_img`` sampled ROIs, their
+    classes and per-class box targets."""
+    import numpy as np
+    valid = gt_boxes[gt_boxes[:, 0] > 0]
+    n = rois.shape[0]
+    labels = np.zeros(n, np.float32)
+    targets = np.zeros((n, 4 * classes), np.float32)
+    weights = np.zeros((n, 4 * classes), np.float32)
+    if len(valid):
+        iou = rcnn_iou(rois[:, 1:], valid[:, 1:])
+        best, arg = iou.max(1), iou.argmax(1)
+        fg = best >= fg_iou
+        labels[fg] = valid[arg[fg], 0]
+        t = rcnn_bbox_transform(rois[fg, 1:], valid[arg[fg], 1:])
+        for j, cls in enumerate(labels[fg].astype(int)):
+            row = np.where(fg)[0][j]
+            targets[row, 4 * cls:4 * cls + 4] = t[j]
+            weights[row, 4 * cls:4 * cls + 4] = 1.0
+    fg_idx = np.where(labels > 0)[0]
+    bg_idx = np.where(labels == 0)[0]
+    keep = np.concatenate([fg_idx[:per_img // 2], bg_idx])[:per_img]
+    if len(keep) < per_img:
+        keep = np.concatenate([keep, np.zeros(per_img - len(keep), np.int64)])
+    return keep, labels[keep], targets[keep], weights[keep]
+
+
+def rcnn_nets(mx, ctx):
+    """VGG16's ``features`` up to conv5_3 + ReLU (stride 16), the RPN head
+    (a 512-wide 3x3 conv, 2A scores, 4A deltas) and the ROI head (fc 4096,
+    4096, classes, 4 x classes), Xavier from seed 0."""
+    from mxnet_tpu_torch.gluon import nn
+    c = RCNN
+    A = len(c["scales"]) * len(c["ratios"])
+    mx.random.seed(0)
+    vgg = mx.gluon.model_zoo.vision.get_model(c["backbone"])
+    backbone = nn.HybridSequential(prefix="backbone_")
+    backbone.add(*vgg.features[:30])   # 13 convs, 13 ReLUs, 4 pools
+    ph, pw = c["pooled"]
+    layers = [backbone,
+              nn.Conv2D(512, 3, padding=1, activation="relu",
+                        in_channels=512, prefix="rpn_conv_"),
+              nn.Conv2D(2 * A, 1, in_channels=512, prefix="rpn_cls_"),
+              nn.Conv2D(4 * A, 1, in_channels=512, prefix="rpn_reg_"),
+              nn.Dense(4096, activation="relu", in_units=512 * ph * pw,
+                       prefix="fc6_"),
+              nn.Dense(4096, activation="relu", in_units=4096, prefix="fc7_"),
+              nn.Dense(c["classes"], in_units=4096, prefix="cls_"),
+              nn.Dense(4 * c["classes"], in_units=4096, prefix="reg_")]
+    params = {}
+    for blk in layers:
+        blk.initialize(mx.init.Xavier(magnitude=2.0), ctx=ctx)
+        params.update(blk.collect_params())
+    return layers, params
+
+
+def rcnn_step(mx, layers, trainer, x, gt, anchors, keep):
+    """One step of the example's loop at ``RCNN``'s width: returns the
+    four losses (tensors) and keeps the Proposal inputs, the feature map
+    and the pooled ROIs of the step in ``keep``."""
+    import numpy as np
+    from mxnet_tpu_torch import autograd
+    c = RCNN
+    nd, ctx = mx.nd, x.device
+    bb, rpn_conv, rpn_cls, rpn_reg, fc6, fc7, hcls, hreg = layers
+    B, H, W = x.shape[0], c["height"], c["width"]
+    A = len(c["scales"]) * len(c["ratios"])
+    pairs = [rcnn_anchor_targets(anchors, gt[i], H, W) for i in range(B)]
+    rpn_label = nd.array(np.stack([p[0] for p in pairs]), ctx=ctx)
+    rpn_tgt = nd.array(np.stack([p[1] for p in pairs]), ctx=ctx)
+    im_info = nd.array(np.tile([H, W, 1.0], (B, 1)).astype(np.float32),
+                       ctx=ctx)
+    with autograd.record():
+        feat = bb(x)
+        fh, fw = feat.shape[2], feat.shape[3]
+        h = rpn_conv(feat)
+        cls_raw, reg_raw = rpn_cls(h), rpn_reg(h)
+        cls_sm = nd.reshape(nd.transpose(nd.reshape(
+            cls_raw, shape=(B, 2, A, fh, fw)), axes=(0, 3, 4, 2, 1)),
+            shape=(B, -1, 2))
+        reg = nd.reshape(nd.transpose(nd.reshape(
+            reg_raw, shape=(B, A, 4, fh, fw)), axes=(0, 3, 4, 1, 2)),
+            shape=(B, -1, 4))
+        logp = nd.log_softmax(cls_sm, axis=-1)
+        mask_fg = nd.equal(rpn_label, 1)
+        mask_val = nd.greater_equal(rpn_label, 0)
+        picked = nd.pick(logp, nd.maximum(rpn_label, 0), axis=2)
+        rpn_cls_loss = -nd.sum(picked * mask_val) / \
+            nd.maximum(nd.sum(mask_val), 1)
+        diff = nd.smooth_l1(reg - rpn_tgt, scalar=3.0)
+        rpn_reg_loss = nd.sum(nd.sum(diff, axis=2) * mask_fg) / \
+            nd.maximum(nd.sum(mask_fg), 1)
+        with autograd.pause():
+            probs = nd.reshape(nd.softmax(nd.reshape(
+                cls_raw, shape=(B, 2, A * fh, fw)), axis=1),
+                shape=(B, 2 * A, fh, fw))
+            # Proposal at its defaults: 6000 before NMS, 300 after, 0.7
+            rois = nd.Proposal(probs, reg_raw, im_info, scales=c["scales"],
+                               ratios=c["ratios"], feature_stride=c["stride"])
+            rois_np = nd.asnumpy(rois)
+            keep_all, lab_l, tgt_l, wt_l = [], [], [], []
+            for i in range(B):
+                r = rois_np[rois_np[:, 0] == i]
+                k, lab, t, w = rcnn_proposal_targets(r, gt[i], c["rois"],
+                                                     c["classes"])
+                base = np.where(rois_np[:, 0] == i)[0]
+                keep_all.append(base[np.minimum(k, len(base) - 1)])
+                lab_l.append(lab)
+                tgt_l.append(t)
+                wt_l.append(w)
+            keep_idx = nd.array(np.concatenate(keep_all).astype(np.int32),
+                                ctx=ctx)
+            roi_label = nd.array(np.concatenate(lab_l), ctx=ctx)
+            roi_tgt = nd.array(np.concatenate(tgt_l), ctx=ctx)
+            roi_wt = nd.array(np.concatenate(wt_l), ctx=ctx)
+            sel_rois = nd.take(rois, keep_idx)
+        pooled = nd.ROIPooling(feat, sel_rois, pooled_size=c["pooled"],
+                               spatial_scale=1.0 / c["stride"])
+        hid = fc7(fc6(pooled))
+        cls_pred, reg_pred = hcls(hid), hreg(hid)
+        cls_loss = -nd.mean(nd.pick(nd.log_softmax(cls_pred, axis=-1),
+                                    roi_label, axis=1))
+        reg_loss = nd.sum(nd.smooth_l1(reg_pred - roi_tgt, scalar=1.0)
+                          * roi_wt) / nd.maximum(nd.sum(roi_wt) / 4, 1)
+        loss = rpn_cls_loss + rpn_reg_loss + cls_loss + reg_loss
+    loss.backward()
+    trainer.step(B)
+    keep.update(probs=probs, reg_raw=reg_raw.detach(), im_info=im_info,
+                feat=feat.detach(), sel_rois=sel_rois, n_rois=len(rois_np))
+    return rpn_cls_loss, rpn_reg_loss, cls_loss, reg_loss
+
+
+def phase_rcnn(mx):
+    """(a) Faster R-CNN end to end at VGG16's width, 600x1000, B=1."""
+    import numpy as np
+    import torch
+    from mxnet_tpu_torch import gluon
+    from mxnet_tpu_torch.kernels import nms as knms
+    from mxnet_tpu_torch.kernels import roi_pooling as kroi
+    c = RCNN
+    ctx = mx.gpu(0)
+    layers, params = rcnn_nets(mx, ctx)
+    n_params = sum(int(np.prod(p.shape)) for p in params.values())
+    trainer = gluon.Trainer(params, "sgd", {"learning_rate": c["lr"],
+                                            "momentum": 0.9, "wd": 5e-4})
+    rs = np.random.RandomState(0)
+    fh, fw = c["height"], c["width"]
+    for _ in range(4):           # VGG's four 2x2 pools floor the map
+        fh, fw = fh // 2, fw // 2
+    anchors = rcnn_anchors(fh, fw, c["stride"], c["scales"], c["ratios"])
+    # one resident batch, as phase 10 trains ResNet-50 on one: the loss
+    # then falls by what the step learns, not by what the batch holds
+    imgs, gt = rcnn_make_batch(rs, 1, c["height"], c["width"], c["classes"],
+                               c["box_scale"])
+    x = mx.nd.array(imgs, ctx=ctx)
+    keep, losses, walls, counts = {}, [], [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(c["steps"]):
+        n0, f0, b0 = knms.LAUNCHES, kroi.FWD_LAUNCHES, kroi.BWD_LAUNCHES
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ls = rcnn_step(mx, layers, trainer, x, gt, anchors, keep)
+        vals = [float(v.detach()) for v in ls]
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        losses.append(vals)
+        counts.append((knms.LAUNCHES - n0, kroi.FWD_LAUNCHES - f0,
+                       kroi.BWD_LAUNCHES - b0))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    step_ms = statistics.median(walls[1:])
+    rows = kernel_rows(lambda: rcnn_step(mx, layers, trainer, x, gt,
+                                         anchors, {}))
+    busy = sum(r[0] for r in rows)
+    totals = [sum(v) for v in losses]
+    print(f"  (a) Faster R-CNN, {c['backbone']} features to conv5_3 + ReLU "
+          f"(stride 16, map {fh}x{fw}), RPN 512 wide, A={len(anchors) // (fh * fw)}, "
+          f"ROI head fc 4096-4096, {c['classes']} classes; "
+          f"{n_params / 1e6:.1f} M parameters, float32, TF32 off; "
+          f"{c['height']}x{c['width']}, B=1, Proposal 6000 -> 300 at 0.7, "
+          f"{c['rois']} ROIs to ROIPooling {c['pooled']} at 1/16, SGD lr "
+          f"{c['lr']} momentum 0.9 wd 5e-4: {c['steps']} steps on one "
+          f"batch of the example's synthetic boxes ({int((gt[0, :, 0] > 0).sum())} "
+          f"ground truths)")
+    print(f"      a step (2-{c['steps']}, host clock, synchronized): median "
+          f"{step_ms:.2f} ms (min {min(walls[1:]):.2f}, max "
+          f"{max(walls[1:]):.2f}); first {walls[0]:.1f} ms; peak "
+          f"{peak:.2f} GiB")
+    if rows:
+        print(f"      one profiled step: {sum(r[1] for r in rows)} kernel "
+              f"launches, {busy:.2f} ms of kernels, device idle "
+              f"{100 * max(0.0, 1 - busy / step_ms):.1f} % of the median "
+              f"step")
+        for ms, count, key in rows[:6]:
+            print(f"        {ms:8.3f} ms  x{count:<5d} {key[:90]}")
+    else:
+        print("      idle share not measured: torch.profiler saw no device "
+              "time")
+    for i, (v, n) in enumerate(zip(losses, counts)):
+        print(f"      step {i + 1}: rpn_cls {v[0]:.4f} rpn_reg {v[1]:.4f} "
+              f"rcnn_cls {v[2]:.4f} rcnn_reg {v[3]:.4f} total "
+              f"{sum(v):.4f}; launches N {n[0]}, R forward {n[1]}, R "
+              f"backward {n[2]}")
+    check(all(math.isfinite(v) for ls in losses for v in ls),
+          "R-CNN losses not finite")
+    check(totals[-1] < totals[0], f"R-CNN loss did not fall: {totals}")
+    check(all(n == (1, 1, 1) for n in counts),
+          f"R-CNN kernel launches per step {counts}: want 1 N, 1 R forward, "
+          f"1 R backward")
+    check(keep["n_rois"] == 300, f"Proposal gave {keep['n_rois']} ROIs")
+    return {"step_ms": step_ms, "step_min": min(walls[1:]),
+            "step_max": max(walls[1:]), "first_ms": walls[0],
+            "peak_gib": peak, "losses": [losses[0], losses[-1]],
+            "busy_ms": busy if rows else None,
+            "launches": sum(r[1] for r in rows) if rows else None,
+            "idle": (1 - busy / step_ms) if rows else None,
+            "n_params": n_params}, keep
+
+
+def ssd_conv_act(mx, data, num_filter, name, stride=(1, 1)):
+    c = mx.sym.Convolution(data, num_filter=num_filter, kernel=(3, 3),
+                           stride=stride, pad=(1, 1), name=name)
+    b = mx.sym.BatchNorm(c, name=name + "_bn")
+    return mx.sym.Activation(b, act_type="relu", name=name + "_relu")
+
+
+def build_ssd(mx, num_classes, ratios=(1.0, 2.0, 0.5)):
+    """``example/ssd/train_ssd.py``'s ``build_ssd``: the 4-conv body,
+    heads at 16x16 and 8x8 with priors, ``MultiBoxTarget``, the masked
+    losses and ``MultiBoxDetection``."""
+    data = mx.sym.Variable("data")
+    label = mx.sym.Variable("label")
+    body = ssd_conv_act(mx, data, 16, "c1")
+    body = ssd_conv_act(mx, body, 32, "c2", stride=(2, 2))
+    scale1 = ssd_conv_act(mx, body, 32, "c3")
+    scale2 = ssd_conv_act(mx, scale1, 64, "c4", stride=(2, 2))
+    cls_preds, loc_preds, anchors = [], [], []
+    for i, (feat, sizes) in enumerate([(scale1, (0.2, 0.35)),
+                                       (scale2, (0.5, 0.75))]):
+        na = len(sizes) + len(ratios) - 1
+        cp = mx.sym.Convolution(feat, num_filter=na * (num_classes + 1),
+                                kernel=(3, 3), pad=(1, 1), name=f"clspred{i}")
+        cp = mx.sym.transpose(cp, axes=(0, 2, 3, 1))
+        cls_preds.append(mx.sym.Reshape(cp, shape=(0, -1, num_classes + 1)))
+        lp = mx.sym.Convolution(feat, num_filter=na * 4, kernel=(3, 3),
+                                pad=(1, 1), name=f"locpred{i}")
+        lp = mx.sym.transpose(lp, axes=(0, 2, 3, 1))
+        loc_preds.append(mx.sym.Reshape(lp, shape=(0, -1)))
+        anchors.append(mx.sym.MultiBoxPrior(feat, sizes=sizes, ratios=ratios,
+                                            clip=True))
+    cls_pred = mx.sym.transpose(mx.sym.Concat(*cls_preds, dim=1),
+                                axes=(0, 2, 1))
+    loc_pred = mx.sym.Concat(*loc_preds, dim=1)
+    anchor = mx.sym.Concat(*anchors, dim=1)
+    loc_t, loc_m, cls_t = mx.sym.MultiBoxTarget(
+        anchor, label, cls_pred, overlap_threshold=0.5,
+        negative_mining_ratio=3, variances=(0.1, 0.1, 0.2, 0.2))
+    cls_prob = mx.sym.SoftmaxOutput(cls_pred, cls_t, multi_output=True,
+                                    use_ignore=True, ignore_label=-1,
+                                    normalization="valid", name="cls_prob")
+    loc_loss = mx.sym.MakeLoss(
+        mx.sym.smooth_l1(loc_m * (loc_pred - loc_t), scalar=1.0,
+                         name="loc_loss_"),
+        grad_scale=1.0, normalization="valid", name="loc_loss")
+    cls_label = mx.sym.MakeLoss(cls_t, grad_scale=0, name="cls_label")
+    det = mx.sym.MultiBoxDetection(cls_prob, loc_pred, anchor,
+                                   name="detection", nms_threshold=0.5)
+    det = mx.sym.MakeLoss(det, grad_scale=0, name="det_out")
+    return mx.sym.Group([cls_prob, loc_loss, cls_label, det])
+
+
+def ssd_batch(rs, batch, num_classes, size):
+    """The example's ``synthetic_detection_batch``: one bright rectangle
+    an image; labels (N, 1, 5) [cls, x1, y1, x2, y2] in [0, 1]."""
+    import numpy as np
+    imgs = rs.normal(0, 0.1, (batch, 3, size, size)).astype("f")
+    labels = np.zeros((batch, 1, 5), "f")
+    for i in range(batch):
+        cls = rs.randint(num_classes)
+        w, h = rs.uniform(0.3, 0.6, 2)
+        x1 = rs.uniform(0, 1 - w)
+        y1 = rs.uniform(0, 1 - h)
+        xi1, yi1 = int(x1 * size), int(y1 * size)
+        xi2, yi2 = int((x1 + w) * size), int((y1 + h) * size)
+        imgs[i, cls % 3, yi1:yi2, xi1:xi2] += 1.0 + 0.5 * cls
+        labels[i, 0] = [cls, x1, y1, x1 + w, y1 + h]
+    return imgs, labels
+
+
+def ssd_module(mx, ctx, arg=None, aux=None):
+    c = SSD
+    mod = mx.mod.Module(build_ssd(mx, c["classes"]), data_names=("data",),
+                        label_names=("label",), context=ctx)
+    mod.bind(data_shapes=[("data", (c["batch"], 3, c["size"], c["size"]))],
+             label_shapes=[("label", (c["batch"], 1, 5))])
+    if arg is None:
+        mx.random.seed(0)
+        mod.init_params(mx.init.Xavier(magnitude=2))
+    else:
+        mod.init_params(arg_params=arg, aux_params=aux)
+    mod.init_optimizer(optimizer="adam",
+                       optimizer_params={"learning_rate": c["lr"]})
+    return mod
+
+
+def matched_nll(cls_prob, cls_t):
+    """The example's metric: mean -log p of the matched anchors' class."""
+    import numpy as np
+    matched = cls_t > 0
+    if not matched.any():
+        return float("nan")
+    idx = np.where(matched)
+    probs = cls_prob[idx[0], cls_t[matched].astype(int), idx[1]]
+    return float(-np.log(np.maximum(probs, 1e-8)).mean())
+
+
+def phase_ssd_module(mx):
+    """(b) the example's SSD through ``Module`` on the card: one step held
+    against the CPU, then ``SSD["batches"]`` counted batches."""
+    import numpy as np
+    import torch
+    from mxnet_tpu_torch.kernels import nms as knms
+    c = SSD
+    mod = ssd_module(mx, mx.gpu(0))
+    arg, aux = mod.get_params()
+    cpu = ssd_module(mx, mx.cpu(),
+                     {k: mx.nd.array(v, ctx=mx.cpu()) for k, v in arg.items()},
+                     {k: mx.nd.array(v, ctx=mx.cpu()) for k, v in aux.items()})
+    rs = np.random.RandomState(0)
+    imgs, labels = ssd_batch(rs, c["batch"], c["classes"], c["size"])
+    for m, ctx in ((mod, mx.gpu(0)), (cpu, mx.cpu())):
+        m.forward_backward(mx.io.DataBatch(
+            data=[mx.nd.array(imgs, ctx=ctx)],
+            label=[mx.nd.array(labels, ctx=ctx)]))
+    errs = {}
+    for i, (a, b) in enumerate(zip(mod.get_outputs()[:3],
+                                   cpu.get_outputs()[:3])):
+        errs[f"output {i}"] = rel_err(a, b)
+    grads = {n: g for n, g in mod._exec.grad_dict.items() if g is not None}
+    top = max(float(g.abs().max()) for g in grads.values())
+    for name, g in grads.items():
+        want = cpu._exec.grad_dict[name]
+        # a convolution's bias in front of BatchNorm has a gradient of 0
+        # but for rounding: held against the net's largest gradient
+        errs[name] = float((g.cpu() - want).abs().max()) / top \
+            if name in SSD_BN_FED_BIASES else rel_err(g, want)
+    worst = max(errs, key=errs.get)
+    det, det_cpu = (mx.nd.asnumpy(m.get_outputs()[3]) for m in (mod, cpu))
+    ids_differ = int((det[..., 0] != det_cpu[..., 0]).sum())
+    print(f"  (b) example/ssd's build_ssd ({c['classes']} classes, "
+          f"{c['size']}x{c['size']}, B={c['batch']}, Adam lr {c['lr']}) "
+          f"through Module: one step on the card against the CPU, float32: "
+          f"outputs 0-2 and {len(errs) - 3} gradients, max relative error "
+          f"{errs[worst]:.3e} ({worst}; the biases in front of BatchNorm, "
+          f"whose gradient is rounding, against the largest gradient: "
+          f"{max(errs[n] for n in SSD_BN_FED_BIASES):.3e}); detections: "
+          f"{ids_differ} of "
+          f"{det.shape[0] * det.shape[1]} rows' class ids differ (inputs "
+          f"that differ in the last bits)")
+    check(errs[worst] <= TOL_SSD_CPU,
+          f"SSD step on the card against the CPU: {errs}")
+    del cpu
+    mod = ssd_module(mx, mx.gpu(0), arg, aux)
+    nlls, walls = [], []
+    torch.cuda.synchronize()
+    reset_counts()
+    for _ in range(c["batches"]):
+        imgs, labels = ssd_batch(rs, c["batch"], c["classes"], c["size"])
+        batch = mx.io.DataBatch(data=[mx.nd.array(imgs, ctx=mx.gpu(0))],
+                                label=[mx.nd.array(labels, ctx=mx.gpu(0))])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mod.forward_backward(batch)
+        mod.update()
+        outs = mod.get_outputs()
+        nlls.append(matched_nll(mx.nd.asnumpy(outs[0]),
+                                mx.nd.asnumpy(outs[2])))
+        walls.append((time.perf_counter() - t0) * 1e3)
+    counts = read_counts()
+    step_ms = statistics.median(walls[1:])
+    print(f"      {c['batches']} batches on the card: median "
+          f"{step_ms:.2f} ms a batch (host clock, synchronized by the "
+          f"metric's copy; first {walls[0]:.1f} ms); matched-anchor NLL "
+          f"first {nlls[0]:.3f}, last {nlls[-1]:.3f}; N launches "
+          f"{counts['nms']} ({counts['nms'] / c['batches']:.0f} a forward)")
+    check(all(math.isfinite(v) for v in nlls), f"SSD NLL: {nlls}")
+    check(counts["nms"] == c["batches"],
+          f"SSD: {counts['nms']} N launches in {c['batches']} forwards")
+    return counts, {"step_ms": step_ms, "nll": [nlls[0], nlls[-1]],
+                    "card_vs_cpu": errs[worst], "det_ids_differ": ids_differ}
+
+
+def ssd300_inputs(mx, ctx):
+    """SSD-300's anchors (``MultiBoxPrior`` over the six maps), labels of
+    1-8 ground truths an image (the rest padded) and random class
+    probabilities and offsets at B=32, 21 classes."""
+    import numpy as np
+    c = SSD300
+    priors = []
+    for s, sizes, ratios, step in zip(c["maps"], c["sizes"], c["ratios"],
+                                      c["steps"]):
+        feat = mx.nd.zeros((1, 1, s, s), ctx=ctx)
+        priors.append(mx.nd.MultiBoxPrior(feat, sizes=sizes, ratios=ratios,
+                                          steps=(step / 300, step / 300)))
+    anchor = mx.nd.concat(*priors, dim=1)
+    rs = np.random.RandomState(300)
+    B, M = c["batch"], c["gts"]
+    label = -np.ones((B, M, 5), np.float32)
+    for i in range(B):
+        for j in range(rs.randint(1, M + 1)):
+            x1, y1 = rs.uniform(0, 0.7, 2)
+            w, h = rs.uniform(0.05, 0.3, 2)
+            label[i, j] = [rs.randint(c["classes"] - 1), x1, y1,
+                           x1 + w, y1 + h]
+    logits = rs.normal(0, 2, (B, c["classes"], c["anchors"]))
+    probs = np.exp(logits - logits.max(1, keepdims=True))
+    probs = (probs / probs.sum(1, keepdims=True)).astype(np.float32)
+    loc = (rs.normal(0, 0.5, (B, c["anchors"] * 4))).astype(np.float32)
+    return anchor, label, probs, loc
+
+
+def phase_ssd300(mx):
+    """(c) the SSD ops at SSD-300's shapes, the card against the CPU."""
+    import numpy as np
+    import torch
+    c = SSD300
+    anchor, label, probs, loc = ssd300_inputs(mx, mx.gpu(0))
+    anchor_cpu = ssd300_inputs(mx, mx.cpu())[0]
+    check(tuple(anchor.shape) == (1, c["anchors"], 4),
+          f"SSD-300 anchors {tuple(anchor.shape)}")
+    check(torch.equal(anchor.cpu(), anchor_cpu),
+          "MultiBoxPrior on the card differs from the CPU")
+    g = dict(ctx=mx.gpu(0))
+    lab, cls_prob, loc_pred = (mx.nd.array(a, **g) for a in (label, probs,
+                                                               loc))
+    zeros = mx.nd.zeros(tuple(probs.shape), **g)
+    t0 = time.perf_counter()
+    tgt = mx.nd.MultiBoxTarget(anchor, lab, zeros)
+    det = mx.nd.MultiBoxDetection(cls_prob, loc_pred, anchor)
+    torch.cuda.synchronize()
+    t_card = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tgt_cpu = mx.nd.MultiBoxTarget(anchor_cpu, lab.cpu(), zeros.cpu())
+    det_cpu = mx.nd.MultiBoxDetection(cls_prob.cpu(), loc_pred.cpu(),
+                                      anchor_cpu)
+    t_cpu = time.perf_counter() - t0
+    errs = {"loc_target": rel_err(tgt[0], tgt_cpu[0]),
+            "boxes": rel_err(det[..., 2:], det_cpu[..., 2:])}
+    exact = {"loc_mask": torch.equal(tgt[1].cpu(), tgt_cpu[1]),
+             "cls_target": torch.equal(tgt[2].cpu(), tgt_cpu[2]),
+             "class ids": torch.equal(det[..., 0].cpu(), det_cpu[..., 0]),
+             "scores": torch.equal(det[..., 1].cpu(), det_cpu[..., 1])}
+    kept = int((det[..., 0] >= 0).sum())
+    matched = int((tgt[2] > 0).sum())
+    ops = {
+        "MultiBoxPrior": lambda: [
+            mx.nd.MultiBoxPrior(mx.nd.zeros((1, 1, s, s), **g), sizes=sz,
+                                ratios=r, steps=(st / 300, st / 300))
+            for s, sz, r, st in zip(c["maps"], c["sizes"], c["ratios"],
+                                    c["steps"])],
+        "MultiBoxTarget": lambda: mx.nd.MultiBoxTarget(anchor, lab, zeros),
+        "MultiBoxDetection": lambda: mx.nd.MultiBoxDetection(
+            cls_prob, loc_pred, anchor)}
+    # the ops' kernels by torch.profiler (an op that waits for the card,
+    # as MultiBoxPrior's copy of its table does, cannot be queued behind a
+    # spin), their call time, and whether a call waits for the card
+    times = {k: {"kernels_ms": op_kernel_ms(fn), "call_ms": time_ms(fn),
+                 "waits": enqueue_waits(fn)} for k, fn in ops.items()}
+    print(f"  (c) SSD-300's ops: MultiBoxPrior over maps {c['maps']} -> "
+          f"{anchor.shape[1]} anchors (equal to the CPU's); MultiBoxTarget "
+          f"at B={c['batch']}, 1-{c['gts']} ground truths an image "
+          f"({matched} anchors matched); MultiBoxDetection at "
+          f"B={c['batch']}, {c['classes']} classes ({kept} of "
+          f"{c['batch'] * c['anchors']} boxes kept); card against CPU: "
+          f"{', '.join(f'{k} equal' if v else f'{k} DIFFER' for k, v in exact.items())}; "
+          f"loc targets within {errs['loc_target']:.2e}, boxes within "
+          f"{errs['boxes']:.2e} of the largest (log and exp round "
+          f"differently on the card); target and detection {t_card:.2f} s "
+          f"on the card with the first calls, {t_cpu:.2f} s on the CPU")
+    print("      " + "; ".join(
+        f"{k}: kernels {fmt_ms(v['kernels_ms'])}, call {v['call_ms']:.4f} ms"
+        f"{', waits for the card' if v['waits'] else ''}"
+        for k, v in times.items()))
+    check(all(exact.values()), f"SSD-300 ops, card against CPU: {exact}")
+    check(max(errs.values()) <= TOL_BOX_CPU,
+          f"SSD-300 ops, card against CPU: {errs}")
+    return {"times": times, "errs": errs, "kept": kept}, \
+        (cls_prob, loc_pred, anchor)
+
+
+def op_kernel_ms(fn):
+    """Device time of the kernels of one call of ``fn`` by torch.profiler
+    (None when it sees no device time)."""
+    rows = kernel_rows(fn)
+    return sum(r[0] for r in rows) if rows else None
+
+
+def fmt_ms(v):
+    return "not measured" if v is None else f"{v:.4f} ms"
+
+
+def enqueue_waits(fn):
+    """Whether a call of ``fn`` waits for the card: its host time while
+    the stream is held by a 50 ms spin reaches the spin."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(100_000_000)
+    t0 = time.perf_counter()
+    fn()
+    waited = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return waited > 0.04
+
+
+def kernel_device_ms(fn):
+    """``device_ms`` of a kernel's wrapper, or its kernels' profiled time
+    where a call waits for the card and cannot be queued behind a spin."""
+    return op_kernel_ms(fn) if enqueue_waits(fn) else device_ms(fn)
+
+
+def nms_bound_ms(boxes, cls, alive, keep, pixel):
+    """(ms, by): the bytes of the boxes, ids and masks, read or written
+    once, against the pair IoUs this data needs (each kept box against
+    every later live box of its class) at the float32 rate."""
+    import torch
+    B, K = alive.shape
+    nbytes = B * K * (16 + (4 if cls is not None else 0) + 1 + 1)
+    pairs = 0
+    for s in range(B):
+        later_live = torch.flip(torch.cumsum(torch.flip(
+            alive[s].int(), [0]), 0), [0]) - alive[s].int()
+        if cls is None:
+            pairs += int(later_live[keep[s]].sum())
+        else:
+            for k in torch.unique(cls[s][keep[s]]).tolist():
+                m = alive[s] & (cls[s] == k)
+                after = torch.flip(torch.cumsum(torch.flip(m.int(), [0]), 0),
+                                   [0]) - m.int()
+                pairs += int(after[keep[s] & (cls[s] == k)].sum())
+    ops = pairs * IOU_OPS["pixel" if pixel else "corner"]
+    t_ops, t_bytes = ops / H100_F32_FLOPS * 1e3, nbytes / H100_BYTES * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops > t_bytes else
+                                 "bytes"), pairs
+
+
+def plain_ms(fn, reps=2):
+    """Host clock of a plain version (it reads coordinates on the host),
+    synchronized, the best of ``reps`` after a warm-up call."""
+    import torch
+    fn()
+    walls = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    return min(walls)
+
+
+def phase_detection_kernels(mx, keep, ssd_in):
+    """(d) N and R against their plain versions at (a)'s and (c)'s shapes
+    on the card: bitwise, repeatable, and timed beside their bounds."""
+    import torch
+    from mxnet_tpu_torch.kernels import nms as knms
+    from mxnet_tpu_torch.kernels import roi_pooling as kroi
+    from mxnet_tpu_torch.ops import contrib as oc
+    from mxnet_tpu_torch.ops.registry import get_op
+    res = {}
+    # N at Proposal's shape (a): the last step's 6000 candidates
+    c = RCNN
+    pp = dict(get_op("Proposal").normalize(dict(
+        scales=c["scales"], ratios=c["ratios"], feature_stride=c["stride"])))
+    boxes, score = oc.proposal_candidates(pp, keep["probs"], keep["reg_raw"],
+                                          keep["im_info"])
+    cases = {"Proposal (a)": (boxes.float().contiguous(), None,
+                              score > -1.0, pp["threshold"], True)}
+    cls_prob, loc_pred, anchor = ssd_in
+    pd = dict(get_op("MultiBoxDetection").normalize({}))
+    boxes, cls_s, _ = oc.detection_candidates(pd, cls_prob, loc_pred, anchor)
+    cases["MultiBoxDetection (c)"] = (boxes.float().contiguous(),
+                                      cls_s.contiguous(), cls_s >= 0,
+                                      pd["nms_threshold"], False)
+    for what, (bx, cl, alive, thr, pixel) in cases.items():
+        n0 = knms.LAUNCHES
+        got = knms.nms_keep(bx, cl, alive, thr, pixel, cl is not None)
+        again = knms.nms_keep(bx, cl, alive, thr, pixel, cl is not None)
+        want = knms.nms_reference(bx, cl, alive, thr, pixel, cl is not None)
+        torch.cuda.synchronize()
+        check(knms.LAUNCHES - n0 == 2, "N launches in the check")
+        check(torch.equal(got, want), f"N at {what}: the keep set differs "
+              f"from the plain version in "
+              f"{int((got != want).sum())} boxes")
+        check(torch.equal(got, again), f"N at {what}: two runs differ")
+        bound, by, pairs = nms_bound_ms(bx, cl, alive, got, pixel)
+        t = {"ms": kernel_device_ms(lambda: knms.nms_keep(
+                 bx, cl, alive, thr, pixel, cl is not None)),
+             "call_ms": time_ms(lambda: knms.nms_keep(bx, cl, alive, thr,
+                                                      pixel, cl is not None)),
+             "plain_ms": plain_ms(lambda: knms.nms_reference(
+                 bx, cl, alive, thr, pixel, cl is not None), reps=1),
+             "bound_ms": bound, "bound_by": by,
+             "shape": f"B={alive.shape[0]} K={alive.shape[1]}",
+             "max_abs_err": float((got.int() - want.int()).abs().max()),
+             "kept": int(got.sum()), "pairs": pairs}
+        res[f"nms {what}"] = t
+        print(f"  (d) N at {what}, {t['shape']} ({'pixel' if pixel else 'corner'}"
+              f" IoU{', per class' if cl is not None else ''}): the keep set "
+              f"bitwise the plain version's and the same twice "
+              f"({t['kept']} kept); device {fmt_ms(t['ms'])}, call "
+              f"{t['call_ms']:.4f} ms, plain {t['plain_ms']:.1f} ms (host "
+              f"clock), bound {t['bound_ms']:.4f} ms ({by}: {pairs} pair "
+              f"IoUs); library: none")
+    # R at (a)'s shape: the last step's map and its 128 ROIs
+    feat, rois = keep["feat"], keep["sel_rois"]
+    ph, pw = c["pooled"]
+    coords = kroi.roi_coords(rois, feat.dtype, 1.0 / c["stride"],
+                             feat.shape[0])
+    f0, b0 = kroi.FWD_LAUNCHES, kroi.BWD_LAUNCHES
+    out, count = kroi.roi_pool_forward(feat, coords, ph, pw)
+    out2, count2 = kroi.roi_pool_forward(feat, coords, ph, pw)
+    want, want_count = kroi.roi_pool_reference(feat, coords, ph, pw)
+    gen = torch.Generator(device=feat.device).manual_seed(19)
+    gout = torch.randn(out.shape, generator=gen, device=feat.device)
+    g = kroi.roi_pool_backward(feat, coords, out, count, gout)
+    g2 = kroi.roi_pool_backward(feat, coords, out, count, gout)
+    gwant = kroi.roi_pool_backward_reference(feat, coords, want, want_count,
+                                             gout)
+    torch.cuda.synchronize()
+    check(kroi.FWD_LAUNCHES - f0 == 2 and kroi.BWD_LAUNCHES - b0 == 2,
+          "R launches in the check")
+    check(torch.equal(out, want) and torch.equal(count, want_count),
+          "R forward differs from the plain version")
+    check(torch.equal(g, gwant), f"R backward differs from the plain "
+          f"version: {rel_err(g, gwant):.3e}")
+    check(torch.equal(out, out2) and torch.equal(count, count2)
+          and torch.equal(g, g2), "R: two runs differ")
+    R, C = rois.shape[0], feat.shape[1]
+    nb_f = feat.numel() * 4 + R * 20 + out.numel() * 4
+    nb_b = feat.numel() * 4 * 2 + R * 20 + out.numel() * 4
+    res["roi_pooling"] = {
+        "shape": f"data {tuple(feat.shape)} float32, {R} ROIs, {ph}x{pw}",
+        "ms": kernel_device_ms(lambda: kroi.roi_pool_forward(feat, coords,
+                                                             ph, pw)),
+        "call_ms": time_ms(lambda: kroi.roi_pool_forward(feat, coords, ph,
+                                                         pw)),
+        "plain_ms": plain_ms(lambda: kroi.roi_pool_reference(feat, coords,
+                                                             ph, pw)),
+        "bound_ms": nb_f / H100_BYTES * 1e3, "bound_by": "bytes",
+        "bwd_ms": kernel_device_ms(lambda: kroi.roi_pool_backward(
+            feat, coords, out, count, gout)),
+        "bwd_call_ms": time_ms(lambda: kroi.roi_pool_backward(
+            feat, coords, out, count, gout)),
+        "bwd_plain_ms": plain_ms(lambda: kroi.roi_pool_backward_reference(
+            feat, coords, want, want_count, gout)),
+        "bwd_bound_ms": nb_b / H100_BYTES * 1e3,
+        "max_abs_err": float((out - want).abs().max()),
+        "bwd_max_abs_err": float((g - gwant).abs().max()),
+        "ties": int((count > 1).sum()), "empty": int((count == 0).sum()),
+        "bins": count.numel()}
+    t = res["roi_pooling"]
+    print(f"  (d) R at (a)'s shape, {t['shape']}: forward (out and tie "
+          f"counts) and backward bitwise the plain version's and the same "
+          f"twice (no atomics; {t['ties']} of {t['bins']} bins with tied "
+          f"maxima, {t['empty']} empty); forward device {fmt_ms(t['ms'])}, "
+          f"call {t['call_ms']:.4f}, plain {t['plain_ms']:.1f} (host "
+          f"clock), bound {t['bound_ms']:.4f} (bytes); backward device "
+          f"{fmt_ms(t['bwd_ms'])}, call {t['bwd_call_ms']:.4f}, plain "
+          f"{t['bwd_plain_ms']:.1f}, bound {t['bwd_bound_ms']:.4f} (bytes); "
+          f"library: none")
+    return res
+
+
+def contrib_cases(np):
+    """(name, arrays, kwargs, input positions with a gradient) of the new
+    op surface, float32, at small shapes."""
+    rs = np.random.RandomState(21)
+    rois = np.array([[0, 1, 2, 30, 20], [1, 5, 4, 50, 60],
+                     [1, -8, -8, 20, 9]], np.float32)
+    sym = rs.randn(2, 5, 5).astype(np.float32)
+    f = np.float32
+    return [
+        ("fft", [rs.randn(3, 8).astype(f)], {}, (0,)),
+        ("ifft", [rs.randn(3, 16).astype(f)], {}, (0,)),
+        ("_contrib_quantize", [rs.rand(3, 8).astype(f), np.array([0.1], f),
+                               np.array([0.9], f)], {}, ()),
+        ("_contrib_count_sketch", [rs.randn(3, 8).astype(f),
+                                   np.array([0, 1, 1, 3, 2, 0, 4, 4], f),
+                                   np.sign(rs.randn(8)).astype(f)],
+         {"out_dim": 5}, (0,)),
+        ("khatri_rao", [rs.randn(2, 3).astype(f), rs.randn(4, 3).astype(f)],
+         {}, (0, 1)),
+        ("PSROIPooling", [rs.randn(2, 18, 8, 9).astype(f), rois],
+         {"spatial_scale": 0.125, "output_dim": 2, "pooled_size": 3}, (0,)),
+        ("DeformableConvolution", [rs.randn(2, 4, 6, 7).astype(f),
+                                   rs.randn(2, 36, 6, 7).astype(f),
+                                   rs.randn(6, 2, 3, 3).astype(f),
+                                   rs.randn(6).astype(f)],
+         {"kernel": (3, 3), "pad": (1, 1), "num_filter": 6, "num_group": 2,
+          "num_deformable_group": 2}, (0, 1, 2)),
+        ("DeformablePSROIPooling", [rs.randn(2, 18, 8, 9).astype(f), rois,
+                                    rs.randn(3, 4, 3, 3).astype(f)],
+         {"spatial_scale": 0.125, "output_dim": 2, "pooled_size": 3,
+          "group_size": 3, "trans_std": 0.1}, (0, 2)),
+        ("ROIPooling", [np.maximum(rs.randn(2, 3, 8, 9), 0).astype(f), rois],
+         {"pooled_size": (3, 2), "spatial_scale": 0.125}, (0,)),
+        ("BilinearSampler", [rs.randn(2, 3, 6, 7).astype(f),
+                             (rs.rand(2, 2, 4, 5) * 2.4 - 1.2).astype(f)],
+         {}, (0, 1)),
+        ("SpatialTransformer", [rs.randn(2, 3, 6, 7).astype(f),
+                                (rs.randn(2, 6) * 0.5).astype(f)],
+         {"target_shape": (4, 5)}, (0, 1)),
+        ("GridGenerator", [rs.randn(2, 2, 4, 5).astype(f)],
+         {"transform_type": "warp"}, (0,)),
+        ("Correlation", [rs.randn(2, 3, 6, 7).astype(f),
+                         rs.randn(2, 3, 6, 7).astype(f)],
+         {"max_displacement": 2, "pad_size": 2}, (0, 1)),
+        ("Crop", [rs.randn(2, 3, 6, 7).astype(f)],
+         {"num_args": 1, "h_w": (3, 4), "center_crop": True}, (0,)),
+        ("_slice_assign", [rs.randn(4, 5).astype(f), rs.randn(2, 2).astype(f)],
+         {"begin": (1, None), "end": (3, 4), "step": (None, 2)}, (0, 1)),
+        ("_linalg_gelqf", [rs.randn(2, 3, 5).astype(f)], {}, (0,)),
+        ("_linalg_syevd", [sym + sym.transpose(0, 2, 1)], {}, (0,)),
+        ("IdentityAttachKLSparseReg", [rs.rand(4, 6).astype(f),
+                                       np.full(6, 0.3, f)], {}, (0,)),
+    ]
+
+
+def phase_contrib_surface(mx):
+    """(e) the slice's op surface on the card against the CPU, float32,
+    values and gradients; then ``Custom`` in ``nd`` on the card and
+    refused inside the capture of ``Module``'s fused step."""
+    import numpy as np
+    import torch
+    cases = contrib_cases(np)
+    worst = (0.0, None)
+    for name, arrays, kw, wrt in cases:
+        res = []
+        for ctx in (mx.gpu(0), mx.cpu()):
+            xs = [mx.nd.array(a, ctx=ctx) for a in arrays]
+            for i in wrt:
+                mx.nd.attach_grad(xs[i])
+            with mx.autograd.record():
+                outs = getattr(mx.nd, name)(*xs, **kw)
+                outs = outs if isinstance(outs, list) else [outs]
+                rs = np.random.RandomState(5)
+                head = sum((o * torch.as_tensor(rs.uniform(
+                    0.5, 1.5, tuple(o.shape)), dtype=o.dtype,
+                    device=o.device)).sum() for o in outs
+                    if o.dtype.is_floating_point)
+            if wrt:
+                head.backward()
+            res.append([o.detach() for o in outs] +
+                       [mx.nd.grad(xs[i]) for i in wrt])
+        for a, b in zip(*res):
+            if a.dtype.is_floating_point:
+                err = rel_err(a, b)
+                if err > worst[0]:
+                    worst = (err, name)
+            else:
+                check(torch.equal(a.cpu(), b), f"{name}: integer output "
+                      f"differs on the card")
+    print(f"  (e) {len(cases)} ops of the slice (compat, contrib, vision) on "
+          f"the card against the CPU, float32: outputs and gradients within "
+          f"{worst[0]:.3e} of each one's largest (worst: {worst[1]})")
+    check(worst[0] <= TOL_CONTRIB, f"op surface card against CPU: {worst}")
+
+    @mx.operator.register("chip_sqr")
+    class SqrProp(mx.operator.CustomOpProp):
+        def list_arguments(self):
+            return ["data", "label"]
+
+        def infer_shape(self, in_shape):
+            return [in_shape[0], (in_shape[0][0],)], [in_shape[0]], []
+
+        def create_operator(self, ctx, shapes, dtypes):
+            return Sqr()
+
+    class Sqr(mx.operator.CustomOp):
+        def forward(self, is_train, req, in_data, out_data, aux):
+            self.assign(out_data[0], req[0], in_data[0] * in_data[0])
+
+        def backward(self, req, out_grad, in_data, out_data, in_grad, aux):
+            self.assign(in_grad[0], req[0], 2 * in_data[0])
+
+    x = mx.nd.attach_grad(mx.nd.array(np.arange(6, dtype=np.float32)
+                                      .reshape(2, 3), ctx=mx.gpu(0)))
+    with mx.autograd.record():
+        y = mx.nd.Custom(x, mx.nd.zeros((2,), ctx=mx.gpu(0)),
+                         op_type="chip_sqr")
+    y.sum().backward()
+    check(y.device.type == "cuda" and torch.equal(y, x.detach() ** 2)
+          and torch.equal(mx.nd.grad(x), 2 * x.detach()),
+          "Custom on the card")
+    sym = mx.sym.Custom(mx.sym.FullyConnected(mx.sym.Variable("data"),
+                                              num_hidden=4, name="fc"),
+                        name="sq", op_type="chip_sqr")
+    mod = mx.mod.Module(sym, label_names=("sq_label",), context=mx.gpu(0))
+    mod.bind(data_shapes=[("data", (8, 16))], label_shapes=[("sq_label", (8,))])
+    mx.random.seed(0)
+    mod.init_params(mx.init.Xavier())
+    mod.init_optimizer(optimizer="sgd",
+                       optimizer_params={"learning_rate": 0.01})
+    batch = mx.io.DataBatch(data=[mx.nd.ones((8, 16), ctx=mx.gpu(0))],
+                            label=[mx.nd.zeros((8,), ctx=mx.gpu(0))])
+    refused = None
+    with env_vars(MXNET_FUSED_STEP="1"):
+        try:
+            for _ in range(3):       # eager, then the capture
+                mod.forward_backward(batch)
+                mod.update()
+        except mx.MXNetError as e:
+            refused = str(e)
+    torch.cuda.synchronize()
+    print(f"      Custom on the card: forward and backward on CUDA tensors; "
+          f"under MXNET_FUSED_STEP=1 the capture refused it: "
+          f"{(refused or 'NOT REFUSED')[:160]}")
+    check(refused is not None and "chip_sqr" in refused,
+          f"Custom inside the fused step's capture: {refused}")
+    return worst
+
+
+def phase_detection(mx):
+    """Phase 19: the detection slice.  Every kernel count is set to 0
+    before each main path, (a) and (b), and read after it."""
+    import torch
+    card = card_line()
+    print(f"  {card}")
+    torch.cuda.synchronize()
+    reset_counts()
+    rcnn, keep = phase_rcnn(mx)
+    rcnn_counts = read_counts()
+    print(f"      kernel launches counted on (a)'s path: {rcnn_counts}")
+    check(rcnn_counts["nms"] == RCNN["steps"] + 1
+          and rcnn_counts["roi_pooling.fwd"] == RCNN["steps"] + 1
+          and rcnn_counts["roi_pooling.bwd"] == RCNN["steps"] + 1
+          and all(v == 0 for k, v in rcnn_counts.items()
+                  if not k.startswith(("nms", "roi_pooling"))),
+          f"(a)'s launches {rcnn_counts}: want 1 N, 1 R forward and 1 R "
+          f"backward a step ({RCNN['steps']} and the profiled one), nothing "
+          f"else")
+    ssd_counts, ssd = phase_ssd_module(mx)
+    ssd300, ssd_in = phase_ssd300(mx)
+    kern = phase_detection_kernels(mx, keep, ssd_in)
+    del keep, ssd_in
+    contrib_err = phase_contrib_surface(mx)
+    return {"a": rcnn_counts, "b": ssd_counts}, {
+        "card": card, "rcnn": rcnn, "ssd": ssd, "ssd300": ssd300,
+        "kernels": kern, "contrib_err": contrib_err[0]}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -7103,6 +8102,26 @@ def main():
             "decode_tokens_s": recurrent["decode"]["tokens_s"],
             "decode_live_slots": recurrent["decode"]["live"],
             "decode_rate_s": recurrent["decode"]["rate_s"]}}))
+        print("== phase 19: detection (Faster R-CNN at VGG16 width, the "
+              "SSD example through Module, SSD-300's ops, kernels N and R, "
+              "the op surface and Custom)")
+        t_det = time.perf_counter()
+        det_counts, det = phase_detection(mx)
+        print(f"phase 19: {time.perf_counter() - t_det:.1f} s")
+        print(json.dumps({"detection": {
+            "card": det["card"],
+            "rcnn_step_ms": det["rcnn"]["step_ms"],
+            "rcnn_step_range_ms": [det["rcnn"]["step_min"],
+                                   det["rcnn"]["step_max"]],
+            "rcnn_idle_share": det["rcnn"]["idle"],
+            "rcnn_peak_gib": det["rcnn"]["peak_gib"],
+            "rcnn_losses_first_last": det["rcnn"]["losses"],
+            "ssd_step_ms": det["ssd"]["step_ms"],
+            "ssd_nll_first_last": det["ssd"]["nll"],
+            "ssd_card_vs_cpu_rel_err": det["ssd"]["card_vs_cpu"],
+            "ssd300_device_ms": det["ssd300"]["times"],
+            "ssd300_card_vs_cpu": det["ssd300"]["errs"],
+            "contrib_card_vs_cpu_rel_err": det["contrib_err"]}}))
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -7245,6 +8264,52 @@ def main():
             f"flash_attention.bwd.{variant}"]
         entry["onestep_launches"] = onestep_counts.get(
             f"flash_attention.bwd.{variant}", 0)
+    # phase 19's detection paths: (a) R-CNN, (b) the SSD Module, counted;
+    # they run none of the kernels above
+    for entry, key in zip(kernels_line["kernels"], (
+            "add_one", "flash_attention.sm90", "flash_attention.f32",
+            "flash_attention.bwd.sm90", "flash_attention.bwd.f32")):
+        entry["detection_launches"] = det_counts["a"][key] + \
+            det_counts["b"][key]
+    kd = det["kernels"]
+    nms_a, nms_c = kd["nms Proposal (a)"], kd["nms MultiBoxDetection (c)"]
+    kernels_line["kernels"].append({
+        "name": "nms", "route": "cuda",
+        "source": "mxnet_tpu_torch/csrc/nms.cu",
+        "replaces": "mxnet_tpu/ops/contrib.py:289",
+        "replaces_function": "mxnet_tpu/ops/contrib.py:_multibox_detection "
+                             "(:277-289) and _proposal (:370-389), "
+                             "lax.fori_loop, not Pallas",
+        "launches": det_counts["a"]["nms"],
+        "ssd_launches": det_counts["b"]["nms"],
+        "shape": nms_a["shape"] + " pixel IoU, class-blind (Proposal)",
+        "max_abs_err": nms_a["max_abs_err"], "ms": nms_a["ms"],
+        "call_ms": nms_a["call_ms"],
+        "plain_ms": nms_a["plain_ms"], "bound_ms": nms_a["bound_ms"],
+        "bound_by": nms_a["bound_by"], "library_ms": None,
+        "multibox": {"shape": nms_c["shape"] + " corner IoU, per class "
+                     "(MultiBoxDetection, SSD-300)",
+                     "max_abs_err": nms_c["max_abs_err"],
+                     "ms": nms_c["ms"], "call_ms": nms_c["call_ms"],
+                     "plain_ms": nms_c["plain_ms"],
+                     "bound_ms": nms_c["bound_ms"],
+                     "bound_by": nms_c["bound_by"], "library_ms": None}})
+    r = kd["roi_pooling"]
+    kernels_line["kernels"].append({
+        "name": "roi_pooling", "route": "cuda",
+        "source": "mxnet_tpu_torch/csrc/roi_pooling.cu",
+        "replaces": "mxnet_tpu/ops/vision.py:21",
+        "replaces_function": "mxnet_tpu/ops/vision.py:_roi_pooling and its "
+                             "VJP (plain jnp, not Pallas)",
+        "launches": det_counts["a"]["roi_pooling.fwd"],
+        "bwd_launches": det_counts["a"]["roi_pooling.bwd"],
+        "shape": r["shape"], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+        "call_ms": r["call_ms"], "plain_ms": r["plain_ms"],
+        "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+        "library_ms": None, "bwd_max_abs_err": r["bwd_max_abs_err"],
+        "bwd_ms": r["bwd_ms"],
+        "bwd_call_ms": r["bwd_call_ms"], "bwd_plain_ms": r["bwd_plain_ms"],
+        "bwd_bound_ms": r["bwd_bound_ms"], "bwd_bound_by": "bytes"})
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(kernels_line))
     print(json.dumps({"ok": True, "device": {

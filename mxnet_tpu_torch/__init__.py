@@ -27,8 +27,11 @@ use).  ``mx.checkpoint`` writes atomic, validated checkpoint
 directories (async, with retention) that resume a Trainer or a
 ``Module.fit`` and hot-reload a served predictor.  ``gluon.rnn``,
 ``mx.rnn``, ``mx.mod.BucketingModule``, the sequence ops and the CTC loss
-train and serve recurrent models.  It imports torch and numpy, never jax
-or the JAX package.
+train and serve recurrent models.  ``mx.operator`` (the ``Custom`` op),
+``mx.contrib`` and the detection and vision ops (``Proposal``,
+``ROIPooling``, ``MultiBox*``; greedy NMS and ROI pooling as hand-written
+kernels) complete the op registry.  It imports torch and numpy (and
+scipy's LAPACK inside ``_linalg_syevd``), never jax or the JAX package.
 """
 
 __version__ = "1.0.0.torch0"
@@ -73,6 +76,7 @@ from . import model
 from . import module
 from . import module as mod
 from . import rnn
+from . import operator
 from . import contrib
 nd.contrib = contrib.ndarray
 sym.contrib = contrib.symbol

@@ -35,7 +35,8 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
 SOURCES = ("add_one", "flash_attention_fwd", "flash_attention_fwd_sm90",
-           "flash_attention_bwd", "flash_attention_bwd_sm90")
+           "flash_attention_bwd", "flash_attention_bwd_sm90", "nms",
+           "roi_pooling")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -58,6 +58,7 @@ from ..base import MXNetError, np_dtype, torch_dtype
 from ..observability import introspect as _introspect
 from ..observability import metrics as _metrics
 from ..ops import registry as _reg
+from ..ops.custom import _custom_shape_hook
 from .symbol import Symbol
 
 
@@ -144,6 +145,7 @@ def _rnn_hook(p, shp):
 
 
 PARAM_SHAPE_HOOKS: Dict[str, Callable] = {
+    "Custom": _custom_shape_hook,
     "SoftmaxOutput": _softmax_output_hook,
     "LinearRegressionOutput": _regression_hook,
     "LogisticRegressionOutput": _regression_hook,

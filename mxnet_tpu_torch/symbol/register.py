@@ -11,9 +11,10 @@ as in the reference's symbol composition.
 from __future__ import annotations
 
 from ..attribute import current_attrs
-from ..base import np_dtype
+from ..base import MXNetError, np_dtype
 from ..name import NameManager
 from ..ops import registry as _reg
+from ..ops.custom import _make_prop
 from .symbol import Symbol, Variable, _Node, _truthy
 
 
@@ -33,6 +34,32 @@ def _auto_input_names(op, params):
         if not _truthy(p.get("use_label_lengths")):
             names.remove("label_lengths")
     return names
+
+
+def _custom_inputs(params, sym_inputs, named_inputs, node_name):
+    """A Custom node's inputs in the prop's ``list_arguments`` order:
+    by name, else positionally, else a new ``<node>_<argument>`` variable
+    (a Custom loss layer's label, as SoftmaxOutput's)."""
+    argnames = _make_prop(dict(params)).list_arguments()
+    op_type = params.get("op_type")
+    extra = [k for k in named_inputs if k not in argnames]
+    if extra:
+        raise MXNetError(f"Custom({op_type}): unknown symbol input(s) "
+                         f"{extra}; declared arguments are {argnames}")
+    pos = list(sym_inputs)
+    inputs = []
+    for nm in argnames:
+        if nm in named_inputs:
+            inputs.append(named_inputs[nm]._entries[0])
+        elif pos:
+            inputs.append(pos.pop(0)._entries[0])
+        else:
+            inputs.append(Variable(f"{node_name}_{nm}")._entries[0])
+    if pos:
+        raise MXNetError(f"Custom({op_type}): {len(sym_inputs)} positional "
+                         f"inputs but the prop declares only {len(argnames)} "
+                         f"arguments {argnames}")
+    return inputs
 
 
 def invoke_symbol(op_name: str, sym_inputs, kwargs, name=None,
@@ -59,7 +86,12 @@ def invoke_symbol(op_name: str, sym_inputs, kwargs, name=None,
     node_name = NameManager.current().get(name, hint)
     attrs = current_attrs(attr)
 
-    if op.variadic:
+    if op.name == "Custom":
+        inputs = _custom_inputs(params, sym_inputs, named_inputs, node_name)
+        # one CustomOp instance per graph node, shared by its forward and
+        # backward (upstream's custom.cc creates one operator per node)
+        params["__node__"] = node_name
+    elif op.variadic:
         inputs = [s._entries[0] for s in sym_inputs]
         # LeakyReLU(act_type="prelu") takes its slope as a second input
         if op.name == "LeakyReLU" and params.get("act_type") == "prelu" \

@@ -16,6 +16,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 from ..attribute import current_attrs
 from ..base import MXNetError, np_dtype
 from ..ops import registry as _reg
+from ..ops.custom import custom_num_outputs
 
 class _Node:
     __slots__ = ("op", "name", "params", "inputs", "attrs")
@@ -38,6 +39,8 @@ class _Node:
         op = _reg.get_op(self.op)
         if op.name == "SliceChannel":
             return int(dict(self.params).get("num_outputs", 1))
+        if op.name == "Custom":
+            return custom_num_outputs(dict(self.params))
         if op.name == "RNN":
             return 3 if _truthy(self.params.get("state_outputs")) else 1
         if op.name in ("BatchNorm", "LayerNorm"):
